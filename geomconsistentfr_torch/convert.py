@@ -1,0 +1,91 @@
+"""Weights in and out of the port's RelightNet (reference `.pth` layout).
+
+The port's state dict IS the reference checkpoint's layout, so a reference
+`.pth` loads directly. This module adds:
+
+  * `load_checkpoint(path)`: a plain `torch.load` of a reference state dict.
+  * `state_dict_from_jax_variables(variables)`: the JAX package's flax
+    `{'params', 'batch_stats'}` (numpy arrays) -> the port's state dict, the
+    inverse of geomconsistentfr_tpu/convert.py:34-73:
+      conv   (kh, kw, I, O) -> (O, I, kh, kw)
+      deconv (kh, kw, I, O) -> flip spatial -> (I, O, kh, kw)
+      linear (in, out)      -> (out, in)
+      bn scale/bias, batch_stats mean/var -> weight/bias, running_mean/var.
+  * `transfer_to_target_variant(state)`: embeds transfer-variant weights
+    (1x1 bias-free shortcuts) into the target variant (3x3 with bias) as the
+    centre tap with zero bias -- an identical function.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+SHORTCUT_NAMES = (
+    "conv_shortcut_h1_out",
+    "conv_shortcut_h2_out",
+    "conv_shortcut_h3_out",
+    "deconv_albedo_shortcut_all_features",
+    "deconv_albedo_shortcut_h5_out",
+    "deconv_albedo_shortcut_h6_out",
+    "deconv_depth_shortcut_all_features",
+    "deconv_depth_shortcut_h5_out",
+    "deconv_depth_shortcut_h6_out",
+)
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Load a reference `.pth` state dict onto the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def state_dict_from_jax_variables(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """Flax RelightNet variables (numpy leaves) -> the port's state dict."""
+    state: Dict[str, torch.Tensor] = {}
+
+    def put(key, value):
+        # A fresh C-ordered copy: flipped views have negative strides.
+        state[key] = torch.from_numpy(np.array(value, order="C", copy=True))
+
+    for module, leaves in variables["params"].items():
+        for leaf, value in leaves.items():
+            value = np.asarray(value, np.float32)
+            if module.startswith("bn"):
+                put(f"{module}.{'weight' if leaf == 'scale' else 'bias'}", value)
+            elif leaf == "bias":
+                put(f"{module}.bias", value)
+            elif module.startswith("linear"):
+                put(f"{module}.weight", value.T)
+            elif module.startswith("deconv"):
+                put(f"{module}.weight", value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+            else:
+                put(f"{module}.weight", value.transpose(3, 2, 0, 1))
+    for module, leaves in variables.get("batch_stats", {}).items():
+        put(f"{module}.running_mean", np.asarray(leaves["mean"], np.float32))
+        put(f"{module}.running_var", np.asarray(leaves["var"], np.float32))
+        state[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    return state
+
+
+def is_transfer_state(state: Mapping[str, torch.Tensor]) -> bool:
+    """True when the state dict has the transfer variant's 1x1 shortcuts."""
+    w = state.get("conv_shortcut_h1_out.weight")
+    return w is not None and tuple(w.shape[2:]) == (1, 1)
+
+
+def transfer_to_target_variant(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Embed a transfer-variant state dict into the target-variant layout."""
+    out = dict(state)
+    for name in SHORTCUT_NAMES:
+        w = state[f"{name}.weight"]
+        if tuple(w.shape[2:]) != (1, 1):
+            raise ValueError(f"{name}.weight is not a 1x1 shortcut: {tuple(w.shape)}")
+        padded = torch.zeros((*w.shape[:2], 3, 3), dtype=w.dtype)
+        padded[:, :, 1, 1] = w[:, :, 0, 0]
+        out[f"{name}.weight"] = padded
+        # Conv weights are (O, I, ...), transposed-conv weights (I, O, ...).
+        n_out = w.shape[1] if name.startswith("deconv") else w.shape[0]
+        out[f"{name}.bias"] = torch.zeros((n_out,), dtype=w.dtype)
+    return out

@@ -1,0 +1,65 @@
+"""The port imports neither JAX nor the JAX package, and never falls back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "geomconsistentfr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "geomconsistentfr_tpu")
+
+_CHILD = r"""
+import importlib, importlib.util, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "geomconsistentfr_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import geomconsistentfr_torch
+for info in pkgutil.walk_packages(geomconsistentfr_torch.__path__, "geomconsistentfr_torch."):
+    importlib.import_module(info.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+
+import torch
+from geomconsistentfr_torch.config import preset_single_image
+from geomconsistentfr_torch.infer import Relighter
+from geomconsistentfr_torch.models.relightnet import RelightNet
+
+assert not torch.cuda.is_available()
+cfg = preset_single_image()
+state = RelightNet(cfg.model).state_dict()
+try:
+    Relighter(cfg, state)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("Relighter without a device ran with no CUDA device")
+Relighter(cfg, state, device="cpu")
+print("ISOLATED")
+"""
+
+
+def test_port_imports_without_jax_and_refuses_cpu_fallback():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ISOLATED" in proc.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_statement(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
