@@ -6,33 +6,42 @@
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device   CUDA is required (no CPU fallback); the card's name and power
               limit as nvidia-smi reports them.
-  2. build    every kernel of the port is compiled from csrc/ (nvcc, sm_90a).
-  3. march    the march kernel vs its plain PyTorch version on the card:
-              256x256, batch 8, the golden fixtures' depth maps and face
-              masks, 160 and 159 samples, both vetoes, cull off/row/col-32,
-              all three gates.
-  4. golden   the ten golden fixtures rendered through the kernel at the
-              strict tier, against the reference outputs they store.
+  2. build    every kernel of the port is compiled from csrc/ (nvcc, sm_90a):
+              march (K1), march_argmin (K2) and refine (K3), with the
+              registers ptxas reports for each.
+  3. march    each kernel vs its plain PyTorch version on the card, batch 8,
+              the golden fixtures' depth maps and face masks:
+              K1 at 256x256, 160 and 159 samples, both vetoes, cull
+              off/row/col-32, all three gates;
+              K2 on those maps pooled 4x4 under the draft tier (64x64, 80
+              samples, plus a slice of the t grid), both vetoes, cull
+              off/row, all three gates, its winning index too;
+              K3 at 256x256 around the plain K2's upsampled t*, both vetoes,
+              cull off/col-64, all three gates.
+  4. golden   the ten golden fixtures rendered through the kernels at the
+              strict tier (K1) and at the draft tier (K2 then K3), against the
+              reference outputs they store.
   5. e2e      Relighter.forward at full width (batch 64, 256x256,
-              preset_single_image) at the strict and fast tiers with random
-              weights from a seeded torch.Generator: img/s (median of five
-              windows), finite outputs, kernel launch counts, and the
+              preset_single_image) at the strict, fast and draft tiers with
+              random weights from a seeded torch.Generator: img/s (median of
+              five windows), finite outputs, kernel launch counts, and the
               forward's min distances and rendered image against the plain
-              march on the same batch.
+              path on the same batch.
   6. timing   each kernel's time per launch beside its bound and its plain
               version's time, at the main path's shapes, after holding the
               two outputs against each other.
 Then the `kernels` JSON line, the nvidia-smi line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-Bars (march and golden) are those of tests/test_torch_shadows.py and
-tests/test_torch_render.py.
+Bars (march and golden) are those of tests/test_torch_shadows.py,
+tests/test_torch_render.py and tests/test_torch_draft.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +49,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
+KERNELS = ("march", "march_argmin", "refine")
 
 # Published H100 SXM peaks (dense, no sparsity) used for bounds.
 PEAK_F32_FLOPS = 67e12
@@ -56,6 +66,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # final sqrt/div) is about 40.
 OPS_PER_SAMPLE = {"onehot": 62, "bilinear": 94}
 OPS_PER_PIXEL = 40
+# What K2 and K3 add to a sample: K2's carry is a compare and two selects
+# instead of one min (+2); K3's t is an add and a clamp (min, max) (+3).
+EXTRA_OPS_PER_SAMPLE = {"march": 0, "march_argmin": 2, "refine": 3}
 
 
 def emit(phase: str, **fields) -> None:
@@ -81,6 +94,20 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def ptxas_registers(log: str) -> dict:
+    """kernel name -> the ptxas 'Used N registers' line of its instantiation."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line and entry is not None:
+            form = re.search(r"march_kernelILi(\d)E", entry)
+            if form:
+                regs[KERNELS[int(form.group(1))]] = line.split(":", 1)[-1].strip()
+    return regs
+
+
 def march_stats(got, want):
     """Sentinel agreement, 0.9999-quantile, mean and max |d| off the sentinel."""
     import torch
@@ -101,6 +128,13 @@ def check_march(got, want, phase: str, tag: str) -> float:
     check(q < 1e-3, phase, f"{tag}: 0.9999-quantile |d| {q}")
     check(mean < 1e-4, phase, f"{tag}: mean |d| {mean}")
     return mx
+
+
+def check_tstar(got_t, want_t, phase: str, tag: str) -> float:
+    """K2's winning offsets agree with the plain argmin on >= 0.9999 of pixels."""
+    agree = (got_t == want_t).float().mean().item()
+    check(agree >= 0.9999, phase, f"{tag}: t* agreement {agree}")
+    return agree
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 1, windows: int = 1) -> float:
@@ -125,6 +159,25 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1, windows: int = 1) -> float:
     return statistics.median(per_call)
 
 
+def kernel_device_ms(fn, iters: int = 20):
+    """Device time per launch of the march kernel that fn() launches, as
+    torch.profiler reports it (None if the profiler sees no CUDA kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if "march_kernel" in ev.key:
+            total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+    return total / iters / 1e3 if total > 0 else None
+
+
 def load_goldens():
     import numpy as np
 
@@ -133,8 +186,15 @@ def load_goldens():
     return [(p.name, dict(np.load(p))) for p in fixtures]
 
 
+def reset_launches():
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+
+
 def phase_march(goldens, dev):
-    """Kernel vs plain march on the card, at 256^2, batch 8, real face data."""
+    """Each kernel vs its plain version on the card, batch 8, real face data."""
     import numpy as np
     import torch
 
@@ -151,27 +211,76 @@ def phase_march(goldens, dev):
     lights[1] = [600.0, -300.0, 3000.0]  # inside only the 'wide' gate region
     light = torch.from_numpy(lights.astype(np.float32)).to(dev)
 
-    worst = 0.0
-    runs = 0
+    worst = dict.fromkeys(KERNELS, 0.0)
+    runs = dict.fromkeys(KERNELS, 0)
+    tstar_agree = 1.0
     for preset in ("preset_single_image", "preset_lighting_transfer"):
         base = getattr(C, preset)().render
+        draft = C.apply_precision_tier(getattr(C, preset)(), "draft").render
         for gather in ("onehot", "bilinear"):
-            for cull in (dict(), dict(shadow_mask_cull=True), dict(shadow_mask_cull=True, shadow_col_chunk=32)):
-                for gate in ("none", "inside_image", "wide"):
+            for gate in ("none", "inside_image", "wide"):
+                for cull in (dict(), dict(shadow_mask_cull=True), dict(shadow_mask_cull=True, shadow_col_chunk=32)):
                     cfg = dataclasses.replace(base, shadow_mask_gather=gather, shadow_bias_gate=gate, **cull)
                     got = K.ray_march_min_distance_cuda(depth, mask, light, cfg)
                     want = S.ray_march_min_distance_batch(depth, mask, light, cfg)
                     torch.cuda.synchronize()
-                    worst = max(worst, check_march(got, want, "march", f"{preset}/{gather}/{cull}/{gate}"))
-                    runs += 1
-    emit("march", ok=True, configs=runs, batch=8, size=256, samples=[160, 159], max_abs_err=worst)
+                    tag = f"K1 {preset}/{gather}/{cull}/{gate}"
+                    worst["march"] = max(worst["march"], check_march(got, want, "march", tag))
+                    runs["march"] += 1
+
+                # K2 on the draft tier's pooled inputs (64x64, 80 samples; the
+                # draft's 64-column cull is the row cull there), then K3 at full
+                # resolution around the plain K2's t*. The config refuses the
+                # one-hot veto beside the TPU step pack, which the port ignores.
+                for cull in (False, True):
+                    cfg = dataclasses.replace(draft, shadow_mask_gather=gather, shadow_bias_gate=gate,
+                                              shadow_mask_cull=cull, shadow_step_pack=1)
+                    m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(depth, mask, light, cfg)
+                    slices = (None, S.sample_ts(m_cfg).astype(np.float32)[17:53]) if gate == "none" else (None,)
+                    for ts in slices:
+                        got_d, got_t = K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, ts,
+                                                                     return_argmin_t=True)
+                        want_d, want_t = S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, ts,
+                                                                        return_argmin_t=True)
+                        torch.cuda.synchronize()
+                        tag = f"K2 {preset}/{gather}/cull={cull}/{gate}/ts={'slice' if ts is not None else 'all'}"
+                        worst["march_argmin"] = max(worst["march_argmin"], check_march(got_d, want_d, "march", tag))
+                        tstar_agree = min(tstar_agree, check_tstar(got_t, want_t, "march", tag))
+                        runs["march_argmin"] += 1
+                        if ts is not None:
+                            continue
+                        t_map = S.upsample_tstar_nn(want_t, cfg)
+                        got = K.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
+                        want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
+                        torch.cuda.synchronize()
+                        tag = f"K3 {preset}/{gather}/cull={cull}/{gate}"
+                        worst["refine"] = max(worst["refine"], check_march(got, want, "march", tag))
+                        runs["refine"] += 1
+    emit("march", ok=True, configs=runs, batch=8, size={"march": 256, "march_argmin": 64, "refine": 256},
+         samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8},
+         tstar_agreement=tstar_agree, max_abs_err=worst)
     return worst
+
+
+def golden_args(fx, transfer, dev):
+    import numpy as np
+    import torch
+
+    ambient = fx["target_ambient"] if transfer else np.zeros((1,), np.float32)
+    args = dict(
+        albedo=np.ascontiguousarray(np.moveaxis(fx["albedo"], 1, -1)),
+        depth=np.ascontiguousarray(fx["depth"][:, 0]),
+        lighting=np.zeros((1, 4), np.float32),
+        mask=fx["mask"][None],
+    )
+    t = {k: torch.from_numpy(v).to(dev) for k, v in args.items()}
+    return (t["albedo"], t["depth"], t["lighting"], t["mask"]), dict(
+        target_light=torch.from_numpy(fx["target_light"]).to(dev), target_ambient=torch.from_numpy(ambient).to(dev))
 
 
 def phase_golden(goldens, dev):
     """The ten fixtures through render() on the card (kernel path) vs the reference."""
     import numpy as np
-    import torch
 
     from geomconsistentfr_torch import config as C
     from geomconsistentfr_torch.ops import shadows_cuda as K
@@ -181,16 +290,7 @@ def phase_golden(goldens, dev):
     for name, fx in goldens:
         transfer = "transfer" in name
         preset = C.preset_lighting_transfer() if transfer else C.preset_single_image()
-        ambient = fx["target_ambient"] if transfer else np.zeros((1,), np.float32)
-        args = dict(
-            albedo=np.ascontiguousarray(np.moveaxis(fx["albedo"], 1, -1)),
-            depth=np.ascontiguousarray(fx["depth"][:, 0]),
-            lighting=np.zeros((1, 4), np.float32),
-            mask=fx["mask"][None],
-        )
-        t = {k: torch.from_numpy(v).to(dev) for k, v in args.items()}
-        light = torch.from_numpy(fx["target_light"]).to(dev)
-        amb = torch.from_numpy(ambient).to(dev)
+        args, targets = golden_args(fx, transfer, dev)
         face = fx["mask"][None] > 0
         # The strict tier's arithmetic with the cull off (raw arrays are then
         # reference-comparable everywhere), then with the tier's cull, which
@@ -199,10 +299,10 @@ def phase_golden(goldens, dev):
         outs = {}
         for cull in (False, True):
             cfg = dataclasses.replace(strict, shadow_mask_cull=cull)
-            before = K.LAUNCHES
-            outs[cull] = render(t["albedo"], t["depth"], t["lighting"], t["mask"], cfg,
-                                target_light=light, target_ambient=amb)
-            check(K.LAUNCHES == before + 1, "golden", f"{name}: render did not launch the march kernel")
+            reset_launches()
+            outs[cull] = render(*args, cfg, **targets)
+            check(K.LAUNCHES == {"march": 1, "march_argmin": 0, "refine": 0}, "golden",
+                  f"{name}: strict render launched {K.LAUNCHES}")
         w = outs[False].shadow_mask_weights.cpu().numpy()
         sw = float(np.abs(w - fx["shadow_weights"]).mean())
         check(sw <= 1e-5, "golden", f"{name}: shadow-weight mean |d| {sw}")
@@ -215,21 +315,56 @@ def phase_golden(goldens, dev):
             psnr = 10.0 * np.log10(1.0 / max(mse, 1e-30))
             check(psnr >= 100.0, "golden", f"{name}: rendered PSNR {psnr}")
             row["psnr_db"] = psnr
+
+        # The draft tier: K2 then K3, at the bars of tests/test_torch_draft.py.
+        reset_launches()
+        draft = render(*args, C.apply_precision_tier(preset, "draft").render, **targets)
+        check(K.LAUNCHES == {"march": 0, "march_argmin": 1, "refine": 1}, "golden",
+              f"{name}: draft render launched {K.LAUNCHES}")
+        dw = draft.shadow_mask_weights.cpu().numpy()
+        row["draft_sw_face_mean_abs"] = float(np.abs(dw - fx["shadow_weights"])[face].mean())
+        if transfer:
+            m = fx["mask"]
+            sq = (draft.rendered.cpu().numpy() - np.moveaxis(fx["rendered"], 1, -1)) ** 2
+            mse = float(np.sum(sq * m[None, :, :, None]) / (3.0 * max(np.sum(m), 1.0)))
+            row["draft_face_psnr_db"] = 10.0 * np.log10(1.0 / max(mse, 1e-30))
+            check(row["draft_face_psnr_db"] >= 45.0, "golden", f"{name}: draft face-visible PSNR {row['draft_face_psnr_db']}")
+        else:
+            check(row["draft_sw_face_mean_abs"] <= 1e-2, "golden",
+                  f"{name}: draft face shadow-weight mean |d| {row['draft_sw_face_mean_abs']}")
         rows.append(row)
     emit("golden", ok=True, fixtures=rows)
 
 
+def plain_min_distance(depth, mask, light_pt, cfg):
+    """The plain versions of the tier's march on the card: K1's, or K2's then K3's."""
+    from geomconsistentfr_torch.ops import shadows as S
+
+    if cfg.shadow_resolution_scale == 1:
+        return S.ray_march_min_distance_batch(depth, mask, light_pt, cfg)
+    m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(depth, mask, light_pt, cfg)
+    _, t_star = S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    return S.refine_min_distance_batch(depth, mask, light_pt, S.upsample_tstar_nn(t_star, cfg), cfg)
+
+
+TIER_LAUNCHES = {
+    "strict": {"march": 1, "march_argmin": 0, "refine": 0},
+    "fast": {"march": 1, "march_argmin": 0, "refine": 0},
+    "draft": {"march": 0, "march_argmin": 1, "refine": 1},
+}
+
+
 def phase_e2e(goldens, dev, seed=0, batch=64):
-    """Relighter.forward at full width, strict and fast, kernel path vs plain path."""
+    """Relighter.forward at full width, strict, fast and draft, kernel path vs plain path."""
     import numpy as np
     import torch
 
     from geomconsistentfr_torch import config as C
     from geomconsistentfr_torch.infer import Relighter
     from geomconsistentfr_torch.models.relightnet import RelightNet
-    from geomconsistentfr_torch.ops import shadows as S
     from geomconsistentfr_torch.ops import shadows_cuda as K
     from geomconsistentfr_torch.ops.shading import composite, shadow_weights
+    from geomconsistentfr_torch.render import shadow_min_distance
 
     fx = dict(goldens)["ref_transfer_00104.npz"]
     gen = torch.Generator().manual_seed(seed)
@@ -240,49 +375,49 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
     lights = dirs.to(dev)
 
     results = {}
-    launches = 0
-    worst = 0.0
-    for tier in ("strict", "fast"):
+    launches = dict.fromkeys(KERNELS, 0)
+    worst = dict.fromkeys(KERNELS, 0.0)
+    for tier in ("strict", "fast", "draft"):
         cfg = C.apply_precision_tier(C.preset_single_image(), tier)
         state = RelightNet(cfg.model, generator=torch.Generator().manual_seed(seed)).state_dict()
         rl = Relighter(cfg, state)  # default device: cuda
         check(rl.device.type == "cuda", "e2e", f"Relighter chose {rl.device}")
 
         # The main path, counted on its own.
-        K.LAUNCHES = 0
+        reset_launches()
         out = rl.forward(images, masks, lights)
         torch.cuda.synchronize()
-        n = K.LAUNCHES
-        check(n == 1, "e2e", f"{tier}: forward launched the march kernel {n} times, expected 1")
-        launches += n
+        n = dict(K.LAUNCHES)
+        check(n == TIER_LAUNCHES[tier], "e2e", f"{tier}: forward launched {n}, expected {TIER_LAUNCHES[tier]}")
+        for name in KERNELS:
+            launches[name] += n[name]
         for field in out._fields:
             v = getattr(out, field)
             check(bool(torch.isfinite(v).all()), "e2e", f"{tier}: non-finite {field}")
         check(tuple(out.rendered.shape) == (batch, 256, 256, 3), "e2e", f"{tier}: rendered {tuple(out.rendered.shape)}")
 
-        # Kernel path vs plain path on the same batch: the plain march on the
-        # forward's own depth, masks and light point, then the same shadow
-        # weights and composite as render().
+        # Kernel path vs plain path on the same batch: the plain versions of
+        # the tier's march on the forward's own depth, masks and light point,
+        # then the same shadow weights and composite as render().
         depth = out.depth.float().contiguous()
-        light_pt = cfg.render.light_distance * out.unit_light_direction.float()
-        plain_md = S.ray_march_min_distance_batch(depth, masks, light_pt, cfg.render)
+        light_pt = (cfg.render.light_distance * out.unit_light_direction.float()).contiguous()
+        plain_md = plain_min_distance(depth, masks, light_pt, cfg.render)
         md_err = check_march(out.min_distance, plain_md, "e2e", f"{tier}: min_distance")
-        worst = max(worst, md_err)
+        kernel = "march" if tier != "draft" else "refine"
+        worst[kernel] = max(worst[kernel], md_err)
         _, plain_rendered = composite(out.albedo, out.full_shading, out.ambient_light, shadow_weights(plain_md))
         mse = torch.mean((out.rendered - plain_rendered) ** 2).item()
         psnr = 10.0 * np.log10(1.0 / max(mse, 1e-30))
         check(psnr >= 80.0, "e2e", f"{tier}: kernel vs plain rendered PSNR {psnr}")
         del plain_md, plain_rendered
 
-        # Throughput, and where the time goes: the CNN alone and the march
-        # alone. Each is the median of 5 windows of 8 calls (about 2 s of
-        # forwards per tier).
+        # Throughput, and where the time goes: the CNN alone and the whole
+        # march alone (at draft: pool, K2, upsample, K3). Each is the median
+        # of 5 windows of 8 calls (about 2 s of forwards per tier).
         ms = cuda_time_ms(lambda: rl.forward(images, masks, lights), 8, windows=5)
         with torch.no_grad():
             net_ms = cuda_time_ms(lambda: rl.model(images, rl.use_skips), 8, windows=5)
-        march_ms = cuda_time_ms(
-            lambda: K.ray_march_min_distance_cuda(depth, masks, light_pt, cfg.render), 20, windows=5
-        )
+        march_ms = cuda_time_ms(lambda: shadow_min_distance(depth, masks, light_pt, cfg.render), 20, windows=5)
         results[tier] = dict(img_per_s=batch / (ms / 1e3), forward_ms=ms, cnn_ms=net_ms,
                              march_ms=march_ms, launches=n, kernel_vs_plain_psnr_db=psnr,
                              min_distance_max_abs_err=md_err)
@@ -292,8 +427,25 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
     return launches, results, worst
 
 
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time for the work: the larger of operations and bytes over their peaks."""
+    by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(by_ops, by_bytes), bound_by="operations" if by_ops >= by_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def timing_row(name, kernel_fn, plain_fn, ops, nbytes, phase_tag):
+    """Time one kernel's wrapper, its device time and its plain version."""
+    ms = cuda_time_ms(kernel_fn, 20, warmup=3, windows=5)
+    device_ms = kernel_device_ms(kernel_fn)
+    plain_ms = cuda_time_ms(plain_fn, 2)
+    row = dict(kernel=name, ms=ms, kernel_device_ms=device_ms, plain_ms=plain_ms, **bound(ops, nbytes))
+    emit("timing", ok=True, **phase_tag, **row)
+    return row
+
+
 def phase_timing(goldens, dev, batch=64):
-    """The march kernel's time per launch beside its bound and its plain version."""
+    """Each kernel's time per launch beside its bound and its plain version, at the main path's shapes."""
     import numpy as np
     import torch
 
@@ -309,26 +461,73 @@ def phase_timing(goldens, dev, batch=64):
     dirs[:, 2] = dirs[:, 2].abs() + 0.5
     light = (4013.0 * torch.nn.functional.normalize(dirs, dim=-1)).to(dev)
 
+    def live_pixels(m, cfg):
+        chunk = S.effective_col_chunk(cfg)
+        live = S.cull_live_blocks(m, chunk)
+        return int(live.sum().item()) * 8 * chunk, live.numel()
+
+    def march_ops(name, live_px, n_px, samples, cfg):
+        per_sample = OPS_PER_SAMPLE[S.resolve_mask_gather(cfg)] + EXTRA_OPS_PER_SAMPLE[name]
+        return live_px * (samples * per_sample + OPS_PER_PIXEL) + (n_px - live_px)
+
     rows = {}
     for tier in ("strict", "fast"):
         cfg = C.apply_precision_tier(C.preset_single_image(), tier).render
         s, (h, w) = cfg.num_sample_points, (cfg.img_height, cfg.img_width)
-        live = S.cull_live_blocks(mask, S.effective_col_chunk(cfg))
-        live_px = int(live.sum().item()) * 8 * S.effective_col_chunk(cfg)
-        ops = live_px * (s * OPS_PER_SAMPLE[S.resolve_mask_gather(cfg)] + OPS_PER_PIXEL) + (batch * h * w - live_px)
-        nbytes = 4 * (3 * batch * h * w + 3 * batch + s) + live.numel()
-        bound_ms = 1e3 * max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        live_px, n_flags = live_pixels(mask, cfg)
+        ops = march_ops("march", live_px, batch * h * w, s, cfg)
+        nbytes = 4 * (3 * batch * h * w + 3 * batch + s) + n_flags
         got = K.ray_march_min_distance_cuda(depth, mask, light, cfg)
         want = S.ray_march_min_distance_batch(depth, mask, light, cfg)
         err = check_march(got, want, "timing", f"{tier}: batch {batch}")
         del got, want
-        ms = cuda_time_ms(lambda: K.ray_march_min_distance_cuda(depth, mask, light, cfg), 20, warmup=3, windows=5)
-        plain_ms = cuda_time_ms(lambda: S.ray_march_min_distance_batch(depth, mask, light, cfg), 2)
-        rows[tier] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
-                          bound_by="operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes",
-                          live_pixel_fraction=live_px / (batch * h * w), ops=ops, bytes=nbytes,
-                          veto=S.resolve_mask_gather(cfg), samples=s)
-        emit("timing", ok=True, tier=tier, batch=batch, size=256, **rows[tier])
+        rows[tier] = timing_row(
+            "march", lambda: K.ray_march_min_distance_cuda(depth, mask, light, cfg),
+            lambda: S.ray_march_min_distance_batch(depth, mask, light, cfg), ops, nbytes,
+            dict(tier=tier, batch=batch, size=256, veto=S.resolve_mask_gather(cfg), samples=s,
+                 live_pixel_fraction=live_px / (batch * h * w)),
+        )
+        rows[tier]["max_abs_err"] = err
+
+    # The draft tier's two kernels at its shapes: K2 on the pooled batch
+    # (64x64, 80 samples, row cull), K3 at 256x256 around K2's t* (8
+    # offsets, 8x64 cull).
+    cfg = C.apply_precision_tier(C.preset_single_image(), "draft").render
+    m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(depth, mask, light, cfg)
+    s, (h, w) = m_cfg.num_sample_points, (m_cfg.img_height, m_cfg.img_width)
+    got_d, got_t = K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    want_d, want_t = S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    err = check_march(got_d, want_d, "timing", f"draft K2: batch {batch}")
+    agree = check_tstar(got_t, want_t, "timing", f"draft K2: batch {batch}")
+    live_px, n_flags = live_pixels(m_mask, m_cfg)
+    ops = march_ops("march_argmin", live_px, batch * h * w, s, m_cfg)
+    nbytes = 4 * (4 * batch * h * w + 3 * batch + s) + n_flags  # depth, mask, out, idx
+    tag = dict(tier="draft", batch=batch, size=h, veto=S.resolve_mask_gather(m_cfg), samples=s,
+               live_pixel_fraction=live_px / (batch * h * w))
+    rows["draft_argmin"] = timing_row(
+        "march_argmin",
+        lambda: K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True),
+        lambda: S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True),
+        ops, nbytes, dict(tag, tstar_agreement=agree),
+    )
+    rows["draft_argmin"]["max_abs_err"] = err
+
+    t_map = S.upsample_tstar_nn(got_t, cfg)
+    got = K.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
+    want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
+    err = check_march(got, want, "timing", f"draft K3: batch {batch}")
+    del got, want, got_d, want_d, want_t
+    n_off, (h, w) = 2 * cfg.shadow_refine_halfwidth, (cfg.img_height, cfg.img_width)
+    live_px, n_flags = live_pixels(mask, cfg)
+    ops = march_ops("refine", live_px, batch * h * w, n_off, cfg)
+    nbytes = 4 * (4 * batch * h * w + 3 * batch + n_off) + n_flags  # depth, mask, t_map, out
+    rows["draft_refine"] = timing_row(
+        "refine", lambda: K.refine_min_distance_cuda(depth, mask, light, t_map, cfg),
+        lambda: S.refine_min_distance_batch(depth, mask, light, t_map, cfg), ops, nbytes,
+        dict(tier="draft", batch=batch, size=h, veto=S.resolve_mask_gather(cfg), samples=n_off,
+             live_pixel_fraction=live_px / (batch * h * w)),
+    )
+    rows["draft_refine"]["max_abs_err"] = err
     return rows
 
 
@@ -355,11 +554,12 @@ def main() -> int:
         t0 = time.perf_counter()
         _, log = K.build()
         K._library()
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        emit("build", ok=True, seconds=time.perf_counter() - t0, kernels=["march"], ptxas=regs)
+        regs = ptxas_registers(log)
+        check(sorted(regs) == sorted(KERNELS), "build", f"ptxas reported {sorted(regs)}, expected {sorted(KERNELS)}")
+        emit("build", ok=True, seconds=time.perf_counter() - t0, kernels=list(KERNELS), ptxas=regs)
 
         goldens = load_goldens()
-        max_err = phase_march(goldens, dev)
+        march_err = phase_march(goldens, dev)
         phase_golden(goldens, dev)
         launches, e2e, e2e_err = phase_e2e(goldens, dev)
         timing = phase_timing(goldens, dev)
@@ -367,16 +567,21 @@ def main() -> int:
         emit("failed", ok=False, error=str(e))
         return 1
 
-    t = timing["strict"]
-    # The worst kernel-vs-plain |d| of every comparison: the march phase
-    # (batch 8), the main path's own batches and the timing inputs (batch 64).
-    max_err = max(max_err, e2e_err, *(row["max_abs_err"] for row in timing.values()))
-    kernels = [dict(
-        name="march", route="cuda", source="geomconsistentfr_torch/csrc/march.cu",
-        replaces="geomconsistentfr_tpu/ops/shadows_pallas.py:64",
-        launches=launches, max_abs_err=max_err, ms=t["ms"], plain_ms=t["plain_ms"],
-        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-    )]
+    # max_abs_err: the worst kernel-vs-plain |d| of every comparison of that
+    # kernel: the march phase (batch 8), the main path's own batches and the
+    # timing inputs (batch 64). `ms` and the bound are at the main path's
+    # shapes: K1 at the strict tier, K2 and K3 at the draft tier.
+    rows = {"march": (timing["strict"], [timing["fast"]], "geomconsistentfr_tpu/ops/shadows_pallas.py:64"),
+            "march_argmin": (timing["draft_argmin"], [], "geomconsistentfr_tpu/ops/shadows_pallas.py:881"),
+            "refine": (timing["draft_refine"], [], "geomconsistentfr_tpu/ops/shadows_pallas.py:900")}
+    kernels = []
+    for name, (t, others, replaces) in rows.items():
+        max_err = max(march_err[name], e2e_err[name], t["max_abs_err"], *(o["max_abs_err"] for o in others))
+        kernels.append(dict(
+            name=name, route="cuda", source="geomconsistentfr_torch/csrc/march.cu", replaces=replaces,
+            launches=launches[name], max_abs_err=max_err, ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -7,7 +7,8 @@ to the other. The port keeps its own copy rather than importing it.
 
 Knobs that only tile the TPU kernel (`shadow_tile_rows`, `shadow_slab_rows`,
 `shadow_unroll`, `shadow_slab_interleave`, `shadow_reduce`, `shadow_step_pack`)
-are accepted and ignored here: they change no value the march computes.
+are accepted and ignored here: they change no value the march computes
+(the step pack only reorders the JAX kernel's float32 sums).
 `shadow_matmul_precision` is read only to resolve `shadow_mask_gather='auto'`
 ('highest'/'high' -> one-hot veto, 'default' -> bilinear veto); the CUDA march
 always gathers depth in full float32.
@@ -120,8 +121,9 @@ class RenderConfig:
     shadow_col_chunk: int = 0
 
     # Draft-tier march resolution divisor, boundary-refine halfwidth and
-    # low-res t-grid stride (see the JAX package). The port's render raises
-    # NotImplementedError for scale > 1 until the draft slice lands.
+    # low-res t-grid stride: render marches s x s pooled inputs over every
+    # r-th t (kernel K2), then re-marches 2 * halfwidth offsets around the
+    # upsampled argmin at full resolution (kernel K3); see ops/shadows.py.
     shadow_resolution_scale: int = 1
     shadow_refine_halfwidth: int = 0
     shadow_lowres_t_stride: int = 1
@@ -389,8 +391,10 @@ PRESETS = {
 #   both run the same exact kernel (an f32 gather there is exact, so the JAX
 #   package's bf16x3 split for 'high' has no counterpart).
 # 'fast':  bfloat16 CNN activations and the bilinear veto, float32 march.
-# 'draft': 'fast' plus the quarter-resolution march with a boundary refine;
-#   not in the port yet (render raises NotImplementedError).
+# 'draft': 'fast' plus the quarter-resolution march over every other t
+#   (kernel K2) and the full-resolution boundary refine (kernel K3), culled
+#   in 8x64 blocks. shadow_step_pack=2 is the JAX kernel's TPU lane packing:
+#   set for parity with the JAX config, ignored by the port.
 PRECISION_TIERS = ("strict", "high", "fast", "draft")
 
 

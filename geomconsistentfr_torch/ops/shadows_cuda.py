@@ -1,13 +1,16 @@
-"""Build, bind and launch the CUDA shadow-march kernel (csrc/march.cu).
+"""Build, bind and launch the CUDA shadow-march kernels (csrc/march.cu).
 
-`ray_march_min_distance_cuda` is the wrapper: for a CUDA tensor it launches
-the kernel (or raises), for a CPU tensor it runs the plain march of
-ops/shadows.py. There is no other fallback.
+The wrappers, one per kernel:
+  * `ray_march_min_distance_cuda` launches K1 ('march'), or K2
+    ('march_argmin') with `return_argmin_t`;
+  * `refine_min_distance_cuda` launches K3 ('refine').
+For a CUDA tensor a wrapper launches its kernel (or raises); for a CPU tensor
+it runs the plain version of ops/shadows.py. There is no other fallback.
 
-The kernel is compiled by `nvcc` for sm_90a at first use into
+The kernels are compiled by `nvcc` for sm_90a at first use into
 `<repo>/build/kernels/` (git-ignored), keyed by a hash of the source and the
 flags, and loaded with ctypes; the source has a plain C interface, so a build
-takes seconds. `LAUNCHES` counts the kernel's launches.
+takes seconds. `LAUNCHES` counts each kernel's launches, by name.
 """
 
 from __future__ import annotations
@@ -35,11 +38,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Launches of the march kernel since the count was last set to 0.
-LAUNCHES = 0
+# Launches of each kernel since its count was last set to 0.
+LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0}
+
+# The kernel's `form` argument (csrc/march.cu, enum Form).
+_FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_c_void_p] * 6 + [_c_int] * 8 + [_c_float] * 5 + [_c_void_p]
+_ARGTYPES = [_c_int] + [_c_void_p] * 8 + [_c_int] * 8 + [_c_float] * 7 + [_c_void_p]
 
 
 def _nvcc() -> str:
@@ -91,6 +97,12 @@ def _ts_on(device: torch.device, t_start: float, t_stop: float, t_step: float, n
     return torch.as_tensor(shadows.sample_ts(cfg).astype(np.float32), device=device)
 
 
+@functools.lru_cache(maxsize=16)
+def _offsets_on(device: torch.device, halfwidth: int, t_step: float) -> torch.Tensor:
+    cfg = RenderConfig(t_step=t_step, shadow_refine_halfwidth=halfwidth)
+    return torch.as_tensor(shadows.refine_offsets(cfg), device=device)
+
+
 def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -102,41 +114,29 @@ def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name} must be contiguous")
 
 
-def ray_march_min_distance_cuda(
-    depth: torch.Tensor,
-    mask: torch.Tensor,
-    light_point: torch.Tensor,
-    cfg: RenderConfig,
-    ts=None,
-) -> torch.Tensor:
-    """(B, H, W) depth and mask, (B, 3) light points -> (B, H, W) min distances.
-
-    Same function as shadows.ray_march_min_distance_batch. `ts` overrides the
-    sample offsets (1-D float32, any length).
-    """
-    if depth.device.type == "cpu":
-        return shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, ts)
+def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> None:
+    """Device, no autograd, the config's shape, float32, contiguous."""
     if depth.device.type != "cuda":
-        raise ValueError(f"the march kernel runs on CUDA tensors, got {depth.device}")
+        raise ValueError(f"the {what} kernel runs on CUDA tensors, got {depth.device}")
     if torch.is_grad_enabled() and (depth.requires_grad or light_point.requires_grad):
         raise NotImplementedError(
-            "the CUDA march has no backward yet (kernel K4 of the training slice)"
+            f"the CUDA {what} has no backward yet (kernel K4 of the training slice)"
         )
     b, h, w = depth.shape
-    dev = depth.device
     if (h, w) != (cfg.img_height, cfg.img_width):
         raise ValueError(f"depth {tuple(depth.shape)} does not match the config's {cfg.img_height}x{cfg.img_width}")
     if h % 8 or w % 32:
-        raise ValueError(f"the march kernel needs H % 8 == 0 and W % 32 == 0; got {h}x{w}")
-    _check("depth", depth, (b, h, w), dev)
-    _check("mask", mask, (b, h, w), dev)
-    _check("light_point", light_point, (b, 3), dev)
-    if ts is None:
-        ts = _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
-    else:
-        ts = torch.as_tensor(ts, dtype=torch.float32, device=dev).reshape(-1).contiguous()
-    bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
+        raise ValueError(f"the {what} kernel needs H % 8 == 0 and W % 32 == 0; got {h}x{w}")
+    _check("depth", depth, (b, h, w), depth.device)
+    _check("mask", mask, (b, h, w), depth.device)
+    _check("light_point", light_point, (b, 3), depth.device)
 
+
+def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, idx=None):
+    """Launch one form of the march kernel on the current stream; (B, H, W) distances."""
+    b, h, w = depth.shape
+    dev = depth.device
+    bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
     live, live_cols, chunk = None, 0, shadows.effective_col_chunk(cfg)
     if cfg.shadow_mask_cull:
         live = shadows.cull_live_blocks(mask, chunk).to(torch.uint8).contiguous()
@@ -144,19 +144,77 @@ def ray_march_min_distance_cuda(
     bounds = shadows.gate_bounds(cfg)
     gate_on = bounds is not None
     lo_x, hi_x, lo_y, hi_y = bounds if gate_on else (0.0, 0.0, 0.0, 0.0)
+    t_lo, t_hi = shadows.refine_t_range(cfg) if t_map is not None else (0.0, 0.0)
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
 
     out = torch.empty_like(depth)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.gcfr_march_launch(
-            depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(),
-            ts.data_ptr(), 0 if live is None else live.data_ptr(), out.data_ptr(),
+            _FORMS[kernel], depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(),
+            ts.data_ptr(), ptr(t_map), ptr(live), out.data_ptr(), ptr(idx),
             b, h, w, ts.numel(), int(bilinear), live_cols, chunk, int(gate_on),
-            lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, stream,
+            lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, stream,
         )
     if err != 0:
-        raise RuntimeError(f"march kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
     return out
+
+
+def ray_march_min_distance_cuda(
+    depth: torch.Tensor,
+    mask: torch.Tensor,
+    light_point: torch.Tensor,
+    cfg: RenderConfig,
+    ts=None,
+    return_argmin_t: bool = False,
+):
+    """(B, H, W) depth and mask, (B, 3) light points -> (B, H, W) min distances.
+
+    Same function as shadows.ray_march_min_distance_batch: kernel K1, or K2
+    with `return_argmin_t`, which returns (min distances, t*). `ts` overrides
+    the sample offsets (1-D float32, any length); t* then takes its values.
+    """
+    if depth.device.type == "cpu":
+        return shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, ts, return_argmin_t)
+    _check_inputs(depth, mask, light_point, cfg, "march")
+    dev = depth.device
+    if ts is None:
+        ts = _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
+    else:
+        ts = torch.as_tensor(ts, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+    if not return_argmin_t:
+        return _launch("march", depth, mask, light_point, ts, cfg)
+    idx = torch.empty(depth.shape, dtype=torch.int32, device=dev)
+    out = _launch("march_argmin", depth, mask, light_point, ts, cfg, idx=idx)
+    # The index addresses the same float32 table the kernel read (shadows_pallas.py:1152-1154).
+    return out, ts[idx.long()]
+
+
+def refine_min_distance_cuda(
+    depth: torch.Tensor,
+    mask: torch.Tensor,
+    light_point: torch.Tensor,
+    t_map: torch.Tensor,
+    cfg: RenderConfig,
+    offsets=None,
+) -> torch.Tensor:
+    """(B, H, W) depth, mask and t_map, (B, 3) light points -> (B, H, W): kernel K3.
+
+    Same function as shadows.refine_min_distance_batch. `offsets` overrides
+    refine_offsets(cfg) (1-D float32, any length).
+    """
+    if depth.device.type == "cpu":
+        return shadows.refine_min_distance_batch(depth, mask, light_point, t_map, cfg, offsets)
+    _check_inputs(depth, mask, light_point, cfg, "refine")
+    _check("t_map", t_map, tuple(depth.shape), depth.device)
+    dev = depth.device
+    if offsets is None:
+        offsets = _offsets_on(dev, cfg.shadow_refine_halfwidth, cfg.t_step)
+    else:
+        offsets = torch.as_tensor(offsets, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+    return _launch("refine", depth, mask, light_point, offsets, cfg, t_map=t_map)

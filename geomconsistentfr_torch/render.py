@@ -8,10 +8,18 @@ Reference rendering semantics (test_relight_single_image.py:326-505):
   5. ray-marched min distance -> soft shadow weights
   6. final shading blend and albedo composite
 
-The march always goes through the kernel's wrapper (ops/shadows_cuda.py):
-CUDA tensors launch the CUDA kernel, CPU tensors take the plain march.
+The march always goes through the kernels' wrappers (ops/shadows_cuda.py):
+CUDA tensors launch the CUDA kernels, CPU tensors take their plain versions.
 `use_pallas_shadows=False` is refused on CUDA tensors: the port has no plain
 march on the card outside its comparisons.
+
+Strict, high and fast march at full resolution (kernel K1). The draft tier
+(shadow_resolution_scale > 1) marches pooled inputs at reduced resolution
+(ops/shadows.scale_march_inputs) and records the argmin t* (kernel K2), then
+re-marches a window of offsets around the upsampled t* at full resolution
+(kernel K3). With shadow_refine_halfwidth 0 it upsamples the low-resolution
+distances instead (K1, then ops/shadows.upscale_min_distance). The JAX
+package's `march_fn` hook (sample and grid parallelism) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch
 from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops.geometry import depth_to_normals, l2_normalize, pixel_grid_centered
 from geomconsistentfr_torch.ops.shading import composite, directional_shading, shadow_weights
-from geomconsistentfr_torch.ops.shadows_cuda import ray_march_min_distance_cuda
+from geomconsistentfr_torch.ops.shadows import scale_march_inputs, upsample_tstar_nn, upscale_min_distance
+from geomconsistentfr_torch.ops.shadows_cuda import ray_march_min_distance_cuda, refine_min_distance_cuda
 
 
 class RenderOutputs(NamedTuple):
@@ -67,11 +76,6 @@ def render(
     (B, 4) raw head output; mask (B, H, W), exact zeros veto shadow samples;
     target_light (B, 3), need not be unit; target_ambient (B,).
     """
-    if cfg.shadow_resolution_scale > 1:
-        raise NotImplementedError(
-            "shadow_resolution_scale > 1 (the draft tier) is not ported yet: "
-            "ROADMAP queue 2, the draft slice (kernels K2 and K3)"
-        )
     b, h, w = depth.shape
     f = cfg.focal_length
 
@@ -109,10 +113,9 @@ def render(
     full_shading = ambient_map + directional
 
     if depth.is_cuda and not cfg.use_pallas_shadows:
-        raise ValueError("use_pallas_shadows=False: CUDA tensors march only through the CUDA kernel")
-    min_distance = ray_march_min_distance_cuda(
-        depth.float().contiguous(), mask.float().contiguous(),
-        light_point.float().contiguous(), cfg,
+        raise ValueError("use_pallas_shadows=False: CUDA tensors march only through the CUDA kernels")
+    min_distance = shadow_min_distance(
+        depth.float().contiguous(), mask.float().contiguous(), light_point.float().contiguous(), cfg
     )
     weights = shadow_weights(min_distance)
     final_shading, rendered = composite(albedo, full_shading, ambient_map, weights)
@@ -132,3 +135,17 @@ def render(
         estimated_ambient=est_ambient,
         min_distance=min_distance,
     )
+
+
+def shadow_min_distance(depth, mask, light_point, cfg: RenderConfig) -> torch.Tensor:
+    """(B, H, W) min distances of the configured tier's march, through the kernels' wrappers.
+
+    depth and mask (B, H, W) and light_point (B, 3), float32 and contiguous.
+    """
+    if cfg.shadow_resolution_scale == 1:
+        return ray_march_min_distance_cuda(depth, mask, light_point, cfg)
+    m_depth, m_mask, m_light, m_cfg = scale_march_inputs(depth, mask, light_point, cfg)
+    if cfg.shadow_refine_halfwidth == 0:
+        return upscale_min_distance(ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg), cfg)
+    _, t_star = ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    return refine_min_distance_cuda(depth, mask, light_point, upsample_tstar_nn(t_star, cfg), cfg)

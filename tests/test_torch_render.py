@@ -71,11 +71,3 @@ def test_render_outputs_have_the_jax_fields():
     from geomconsistentfr_tpu.render import RenderOutputs as JOutputs
 
     assert RenderOutputs._fields == JOutputs._fields
-
-
-def test_draft_tier_raises_not_implemented():
-    cfg = TC.apply_precision_tier(TC.preset_single_image(), "draft").render
-    z = torch.zeros((1, 256, 256))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_render(torch.zeros((1, 256, 256, 3)), z, torch.zeros((1, 4)), z, cfg,
-                 target_light=torch.ones((1, 3)))

@@ -139,7 +139,7 @@ def test_tpu_only_veto_modes_raise():
 def test_wrapper_on_cpu_tensors_is_the_plain_march():
     depth, mask = scene(2, seed=5)
     cfg = TRenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
-    before = shadows_cuda.LAUNCHES
+    before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.ray_march_min_distance_cuda(
         torch.from_numpy(depth), torch.from_numpy(mask), torch.from_numpy(FAR_LIGHTS), cfg
     )
