@@ -7,8 +7,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
   1. device   CUDA is required (no CPU fallback); the card's name and power
               limit as nvidia-smi reports them.
   2. build    every kernel of the port is compiled from csrc/ (nvcc, sm_90a):
-              march (K1), march_argmin (K2) and refine (K3), with the
-              registers ptxas reports for each.
+              march (K1), march_argmin (K2), refine (K3) and march_grad (the
+              backward of the training march K4, whose forward is K2), with
+              the registers ptxas reports for each.
   3. march    each kernel vs its plain PyTorch version on the card, batch 8,
               the golden fixtures' depth maps and face masks:
               K1 at 256x256, 160 and 159 samples, both vetoes, cull
@@ -17,7 +18,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
               samples, plus a slice of the t grid), both vetoes, cull
               off/row, all three gates, its winning index too;
               K3 at 256x256 around the plain K2's upsampled t*, both vetoes,
-              cull off/col-64, all three gates.
+              cull off/col-64, all three gates;
+              march_grad at 256x256 under preset_target_lighting_train (160
+              samples) and on the transfer grid (159 from 0.03), a seeded
+              random cotangent, both vetoes, cull off/col-32, all three
+              gates: K2 forward and march_grad backward through the
+              autograd Function, against the plain VJP at the kernel's
+              winners.
   4. golden   the ten golden fixtures rendered through the kernels at the
               strict tier (K1) and at the draft tier (K2 then K3), against the
               reference outputs they store.
@@ -28,13 +35,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
               forward's min distances and rendered image against the plain
               path on the same batch.
   6. timing   each kernel's time per launch beside its bound and its plain
-              version's time, at the main path's shapes, after holding the
+              version's time, at the main paths' shapes, after holding the
               two outputs against each other.
+  7. train    Trainer.run_epoch at full width (preset_target_lighting_train,
+              batch 3, 256x256, SyntheticFaceData, seeded random G and D),
+              six steps crossing a D update at steps 0 and 5: finite losses,
+              G moving every step and D only on its update steps, one K2 and
+              one march_grad launch per step and no K1; the first step against
+              the same step on the CPU (plain path); step ms, img/s, how the
+              step splits, and the card's idle share of a step. It runs
+              last, so the earlier phases run as they did before it.
 Then the `kernels` JSON line, the nvidia-smi line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Bars (march and golden) are those of tests/test_torch_shadows.py,
-tests/test_torch_render.py and tests/test_torch_draft.py.
+tests/test_torch_render.py and tests/test_torch_draft.py; march_grad's are
+those of tests/test_torch_cuda.py (GRAD_BARS below).
 """
 
 from __future__ import annotations
@@ -49,7 +65,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
-KERNELS = ("march", "march_argmin", "refine")
+KERNELS = ("march", "march_argmin", "refine", "march_grad")
 
 # Published H100 SXM peaks (dense, no sparsity) used for bounds.
 PEAK_F32_FLOPS = 67e12
@@ -69,6 +85,19 @@ OPS_PER_PIXEL = 40
 # What K2 and K3 add to a sample: K2's carry is a compare and two selects
 # instead of one min (+2); K3's t is an add and a clamp (min, max) (+3).
 EXTRA_OPS_PER_SAMPLE = {"march": 0, "march_argmin": 2, "refine": 3}
+# march_grad, per pixel with a gradient (on-face winner, live, nonzero
+# cotangent), counted from csrc/march.cu as above: the setup 40, the sample
+# at t* 63 (the march's 62 less its carry, plus the numerator's add and sqrt
+# and the division), the chain rule 95 (through the distance 38, into the
+# depth taps 8, the sample position 13, the endpoint Jacobian 28, the light's
+# three sums 8) and the block's light reduction 15 (five shuffle-adds for
+# each of three sums) = 213; the
+# bilinear veto adds its 32. A pixel whose winner is vetoed stops after the
+# setup and the veto (40 + 16); every other pixel does the reduction (15).
+GRAD_OPS = {"grad": 213, "vetoed": 56, "other": 15, "bilinear_extra": 32}
+# march_grad vs the plain VJP (tests/test_torch_cuda.py): its atomics add in
+# any order, so the bars are relative to the gradient's size.
+GRAD_BARS = {"d_depth_rel_to_max": 1e-4, "d_light_rel_to_image_max": 1e-4}
 
 
 def emit(phase: str, **fields) -> None:
@@ -105,6 +134,8 @@ def ptxas_registers(log: str) -> dict:
             form = re.search(r"march_kernelILi(\d)E", entry)
             if form:
                 regs[KERNELS[int(form.group(1))]] = line.split(":", 1)[-1].strip()
+            elif "march_grad_kernel" in entry:
+                regs["march_grad"] = line.split(":", 1)[-1].strip()
     return regs
 
 
@@ -159,8 +190,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1, windows: int = 1) -> float:
     return statistics.median(per_call)
 
 
-def kernel_device_ms(fn, iters: int = 20):
-    """Device time per launch of the march kernel that fn() launches, as
+def kernel_device_ms(fn, iters: int = 20, name: str = "march_kernel"):
+    """Device time per launch of the kernel `name` that fn() launches, as
     torch.profiler reports it (None if the profiler sees no CUDA kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -173,7 +204,7 @@ def kernel_device_ms(fn, iters: int = 20):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if "march_kernel" in ev.key:
+        if name in ev.key:
             total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
     return total / iters / 1e3 if total > 0 else None
 
@@ -256,9 +287,46 @@ def phase_march(goldens, dev):
                         tag = f"K3 {preset}/{gather}/cull={cull}/{gate}"
                         worst["refine"] = max(worst["refine"], check_march(got, want, "march", tag))
                         runs["refine"] += 1
-    emit("march", ok=True, configs=runs, batch=8, size={"march": 256, "march_argmin": 64, "refine": 256},
-         samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8},
-         tstar_agreement=tstar_agree, max_abs_err=worst)
+
+    # march_grad: K2 forward and march_grad backward through the autograd
+    # Function under the training presets, against the plain VJP at the
+    # kernel's own winners. The lights inside the image sit off the pixel
+    # grid (tests/test_torch_cuda.py GRAD_LIGHTS says why).
+    grad_lights = lights.copy()
+    grad_lights[0] = [5.37, -3.61, 20.0]
+    grad_lights[1] = [600.3, -300.7, 3000.0]
+    g_light = torch.from_numpy(grad_lights.astype(np.float32)).to(dev)
+    cot = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(depth.shape)).astype(np.float32)).to(dev)
+    grad_err = {"d_depth": 0.0, "d_depth_rel_to_max": 0.0, "d_light_rel_to_image_max": 0.0}
+    train = C.preset_target_lighting_train().render
+    for grid in (dict(), dict(num_sample_points=159, t_start=0.03)):
+        for gather in ("onehot", "bilinear"):
+            for gate in ("none", "inside_image", "wide"):
+                for cull in (dict(), dict(shadow_mask_cull=True, shadow_col_chunk=32)):
+                    cfg = dataclasses.replace(train, shadow_mask_gather=gather, shadow_bias_gate=gate, **grid, **cull)
+                    tag = f"march_grad {cfg.num_sample_points}/{gather}/{cull}/{gate}"
+                    d, lp = depth.clone().requires_grad_(), g_light.clone().requires_grad_()
+                    out = K.ray_march_min_distance_cuda(d, mask, lp, cfg)
+                    (out * cot).sum().backward()
+                    _, t_star = K.ray_march_min_distance_cuda(depth, mask, g_light, cfg, return_argmin_t=True)
+                    want_d, want_l = S.march_vjp(depth, mask, g_light, t_star, cot, cfg)
+                    torch.cuda.synchronize()
+                    check_march(out.detach(), S.ray_march_min_distance_batch(depth, mask, g_light, cfg), "march", tag)
+                    dd = (d.grad - want_d).abs().max().item()
+                    dd_rel = dd / max(want_d.abs().max().item(), 1e-30)
+                    scale = want_l.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+                    dl_rel = ((lp.grad - want_l).abs() / scale).max().item()
+                    check(dd_rel <= GRAD_BARS["d_depth_rel_to_max"], "march", f"{tag}: d_depth |d| {dd_rel} of max")
+                    check(dl_rel <= GRAD_BARS["d_light_rel_to_image_max"], "march",
+                          f"{tag}: d_light |d| {dl_rel} of its image's max")
+                    for key, v in zip(grad_err, (dd, dd_rel, dl_rel)):
+                        grad_err[key] = max(grad_err[key], v)
+                    runs["march_grad"] += 1
+    worst["march_grad"] = grad_err["d_depth"]
+    emit("march", ok=True, configs=runs, batch=8,
+         size={"march": 256, "march_argmin": 64, "refine": 256, "march_grad": 256},
+         samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8, "march_grad": [160, 159]},
+         tstar_agreement=tstar_agree, max_abs_err=worst, march_grad_err=grad_err, march_grad_bars=GRAD_BARS)
     return worst
 
 
@@ -301,7 +369,7 @@ def phase_golden(goldens, dev):
             cfg = dataclasses.replace(strict, shadow_mask_cull=cull)
             reset_launches()
             outs[cull] = render(*args, cfg, **targets)
-            check(K.LAUNCHES == {"march": 1, "march_argmin": 0, "refine": 0}, "golden",
+            check(K.LAUNCHES == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}, "golden",
                   f"{name}: strict render launched {K.LAUNCHES}")
         w = outs[False].shadow_mask_weights.cpu().numpy()
         sw = float(np.abs(w - fx["shadow_weights"]).mean())
@@ -319,7 +387,7 @@ def phase_golden(goldens, dev):
         # The draft tier: K2 then K3, at the bars of tests/test_torch_draft.py.
         reset_launches()
         draft = render(*args, C.apply_precision_tier(preset, "draft").render, **targets)
-        check(K.LAUNCHES == {"march": 0, "march_argmin": 1, "refine": 1}, "golden",
+        check(K.LAUNCHES == {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0}, "golden",
               f"{name}: draft render launched {K.LAUNCHES}")
         dw = draft.shadow_mask_weights.cpu().numpy()
         row["draft_sw_face_mean_abs"] = float(np.abs(dw - fx["shadow_weights"])[face].mean())
@@ -348,9 +416,9 @@ def plain_min_distance(depth, mask, light_pt, cfg):
 
 
 TIER_LAUNCHES = {
-    "strict": {"march": 1, "march_argmin": 0, "refine": 0},
-    "fast": {"march": 1, "march_argmin": 0, "refine": 0},
-    "draft": {"march": 0, "march_argmin": 1, "refine": 1},
+    "strict": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0},
+    "fast": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0},
+    "draft": {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0},
 }
 
 
@@ -427,6 +495,195 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
     return launches, results, worst
 
 
+# The card's first training step against the same step on the CPU (the plain
+# march and VJP), from the same weights and batch, float32 on both sides:
+# each loss term within 1e-4 of its size, the gradient norm of D within 1e-3
+# and of G within 1e-2. The convolutions, reductions and the renderer's
+# eager ops round differently on the two devices, and G's gradient is
+# sensitive to rounding: the line also prints how far it moves on the CPU
+# alone when the images move by one ulp. 1.7e-3 (G) and 1.3e-5 (D) were
+# measured on an H100.
+TRAIN_BARS = {"loss_rel": 1e-4, "g_grad_norm_rel": 1e-2, "d_grad_norm_rel": 1e-3}
+TRAIN_STEP_LAUNCHES = {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1}
+
+
+def flat_params(module):
+    import torch
+
+    return torch.cat([p.detach().flatten() for p in module.parameters()]).clone()
+
+
+def named_grads(state) -> dict:
+    return {f"{m}.{n}": p.grad.detach().cpu().clone()
+            for m, mod in (("g", state.g), ("d", state.d)) for n, p in mod.named_parameters()}
+
+
+def grad_norms(grads: dict) -> dict:
+    import torch
+
+    return {m: torch.linalg.vector_norm(torch.cat([v.flatten() for k, v in grads.items() if k.startswith(m + ".")])).item()
+            for m in ("g", "d")}
+
+
+def device_busy_ms(fn, iters: int) -> float:
+    """Device time per fn() summed over every kernel and copy the profiler sees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in prof.key_averages())
+    return total / iters / 1e3
+
+
+def phase_train(dev, seed=0, steps=6):
+    """Trainer.run_epoch at full width on the card (K2 forward, march_grad backward)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+    from geomconsistentfr_torch.models.layers import no_tf32
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.render import render
+
+    cfg = C.preset_target_lighting_train()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batches_per_epoch=steps, log_every_steps=1))
+    tcfg, b = cfg.train, cfg.train.batch_size
+    data = SyntheticFaceData(num_samples=steps * b, size=256, seed=seed)
+    workdir = tempfile.mkdtemp(prefix="gcfr_train_")
+    try:
+        trainer = T.Trainer(cfg, data, workdir=workdir)  # default device: cuda
+        check(trainer.device.type == "cuda", "train", f"Trainer chose {trainer.device}")
+        state = trainer.init_or_resume(torch.Generator().manual_seed(seed))
+        init_g, init_d = flat_params(state.g), flat_params(state.d)
+
+        # Each step of the main path, recorded: launches, losses, which
+        # parameters moved; the first step's batch and gradient norms.
+        records = []
+        step_fn = trainer.step_fn
+
+        def recorded(st, batch, use_skips):
+            g0, d0, n0, step = flat_params(st.g), flat_params(st.d), dict(K.LAUNCHES), st.step
+            metrics = step_fn(st, batch, use_skips=use_skips)
+            rec = dict(step=step, launches={k: v - n0[k] for k, v in K.LAUNCHES.items()},
+                       losses={k: float(v) for k, v in metrics.items()},
+                       g_moved=not torch.equal(g0, flat_params(st.g)), d_moved=not torch.equal(d0, flat_params(st.d)))
+            if not records:
+                rec["batch"] = {k: v.cpu() for k, v in batch.items()}
+                rec["grads"] = named_grads(st)
+            records.append(rec)
+            return metrics
+
+        trainer.step_fn = recorded
+        reset_launches()
+        state, avg = trainer.run_epoch(state, 0)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        trainer.step_fn = step_fn
+        want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
+        check(launches == want, "train", f"{steps} steps launched {launches}, expected {want}")
+        check(len(records) == steps and state.step == steps, "train", f"ran {len(records)} steps to step {state.step}")
+        for r in records:
+            check(r["launches"] == TRAIN_STEP_LAUNCHES, "train", f"step {r['step']} launched {r['launches']}")
+            check(all(np.isfinite(v) for v in r["losses"].values()), "train", f"step {r['step']}: {r['losses']}")
+            check(r["g_moved"], "train", f"step {r['step']}: G did not move")
+            d_step = r["step"] % tcfg.gd_ratio == 0
+            check(r["d_moved"] == d_step, "train", f"step {r['step']}: D moved {r['d_moved']}, its update step {d_step}")
+        check(all(np.isfinite(v) for v in avg.values()), "train", f"epoch means {avg}")
+        emit("train", ok=True, part="steps", preset="preset_target_lighting_train", batch=b, size=256, steps=steps,
+             launches=launches, d_update_steps=[r["step"] for r in records if r["d_moved"]],
+             losses=[r["losses"] for r in records])
+
+        # The first step again on the CPU: the plain argmin march and VJP,
+        # the same weights (drawn on the CPU from the same seed) and batch.
+        first = records[0]
+        cpu = T.init_state(cfg, "cpu", torch.Generator().manual_seed(seed))
+        check(torch.equal(flat_params(cpu.g), init_g.cpu()) and torch.equal(flat_params(cpu.d), init_d.cpu()),
+              "train", "the CPU state's initial weights differ from the card's")
+        t0 = time.perf_counter()
+        cpu_losses = {k: float(v) for k, v in T.train_step(cpu, first["batch"], cfg, cfg.model.skip_gates(0)).items()}
+        cpu_s = time.perf_counter() - t0
+        cpu_grads = named_grads(cpu)
+        card_norms, cpu_norms = grad_norms(first["grads"]), grad_norms(cpu_grads)
+        loss_rel = {k: abs(first["losses"][k] - v) / max(abs(v), 1e-30) for k, v in cpu_losses.items()}
+        norm_rel = {k: abs(card_norms[k] - v) / max(abs(v), 1e-30) for k, v in cpu_norms.items()}
+        # Where the two gradients part most: the tensors with the largest |d|.
+        diffs = sorted(((torch.linalg.vector_norm(first["grads"][k] - v).item(), torch.linalg.vector_norm(v).item(), k)
+                        for k, v in cpu_grads.items()), reverse=True)
+        # The yardstick: the same CPU step with the images one ulp up.
+        ulp = T.init_state(cfg, "cpu", torch.Generator().manual_seed(seed))
+        nudged = dict(first["batch"], image=torch.nextafter(first["batch"]["image"], torch.tensor(2.0)))
+        T.train_step(ulp, nudged, cfg, cfg.model.skip_gates(0))
+        ulp_norms = grad_norms(named_grads(ulp))
+        ulp_rel = {k: abs(ulp_norms[k] - v) / max(abs(v), 1e-30) for k, v in cpu_norms.items()}
+        del ulp
+        check(max(loss_rel.values()) <= TRAIN_BARS["loss_rel"], "train", f"first step vs CPU: loss rel {loss_rel}")
+        check(all(v <= TRAIN_BARS[f"{k}_grad_norm_rel"] for k, v in norm_rel.items()), "train",
+              f"first step vs CPU: grad-norm rel {norm_rel}")
+        emit("train", ok=True, part="first_step_vs_cpu", bars=TRAIN_BARS, loss_rel=loss_rel, grad_norm_rel=norm_rel,
+             grad_norms_card=card_norms, grad_norms_cpu=cpu_norms, cpu_step_s=cpu_s,
+             largest_grad_diffs=[dict(param=k, diff_norm=d, grad_norm=n) for d, n, k in diffs[:4]],
+             cpu_one_ulp_input_grad_norm_rel=ulp_rel)
+        del cpu
+
+        # Speed: train_step alone (median of five windows of four steps), a
+        # whole unrecorded epoch through the Trainer, and how a step splits.
+        batch = {k: v.to(dev) for k, v in first["batch"].items()}
+        skips = cfg.model.skip_gates(0)
+        step_ms = cuda_time_ms(lambda: T.train_step(state, batch, cfg, skips), 4, warmup=2, windows=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.run_epoch(state, 1)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+
+        images, mask, rcfg = batch["image"], batch["face_mask"], cfg.render
+        with torch.no_grad(), no_tf32():
+            net = state.g(images, skips)
+            out = render(net.albedo, net.depth, net.lighting, mask, rcfg)
+        depth = out.depth.contiguous()
+        light_pt = (rcfg.light_distance * out.unit_light_direction).contiguous()
+        ts = K._ts_for(dev, rcfg)
+        _, idx = K._launch_argmin(depth, mask, light_pt, ts, rcfg)
+        cot = torch.randn(depth.shape, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+
+        def cnn():
+            with no_tf32():
+                o = state.g(images, skips)
+                (o.albedo.sum() + o.depth.sum() + o.lighting.sum()).backward()
+
+        def disc():
+            with no_tf32():
+                (state.d(images.detach()).sum() + state.d(images).sum() + state.d(images.detach()).sum()).backward()
+
+        def march_fwd():
+            with torch.no_grad():
+                K.RayMarchMinDistance.apply(depth, mask, light_pt, rcfg)
+
+        split = dict(cnn_fwd_bwd_ms=cuda_time_ms(cnn, 4, windows=5), d_fwd_bwd_ms=cuda_time_ms(disc, 4, windows=5),
+                     march_fwd_k2_ms=cuda_time_ms(march_fwd, 20, windows=5),
+                     march_bwd_grad_ms=cuda_time_ms(lambda: K.march_grad_cuda(depth, mask, light_pt, idx, ts, cot, rcfg),
+                                                    20, windows=5))
+        split["rest_ms"] = step_ms - sum(split.values())
+        busy_ms = device_busy_ms(lambda: T.train_step(state, batch, cfg, skips), 4)
+        result = dict(step_ms=step_ms, img_per_s=b / (step_ms / 1e3), epoch_s=epoch_s,
+                      epoch_img_per_s=steps * b / epoch_s, **split, device_busy_ms_per_step=busy_ms,
+                      device_idle_share=max(0.0, 1.0 - busy_ms / step_ms))
+        emit("train", ok=True, part="speed", batch=b, size=256, **result)
+        return launches, result
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def bound(ops: float, nbytes: float) -> dict:
     """The least time for the work: the larger of operations and bytes over their peaks."""
     by_ops, by_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -434,10 +691,10 @@ def bound(ops: float, nbytes: float) -> dict:
                 ops=ops, bytes=nbytes)
 
 
-def timing_row(name, kernel_fn, plain_fn, ops, nbytes, phase_tag):
+def timing_row(name, kernel_fn, plain_fn, ops, nbytes, phase_tag, device_name="march_kernel"):
     """Time one kernel's wrapper, its device time and its plain version."""
     ms = cuda_time_ms(kernel_fn, 20, warmup=3, windows=5)
-    device_ms = kernel_device_ms(kernel_fn)
+    device_ms = kernel_device_ms(kernel_fn, name=device_name)
     plain_ms = cuda_time_ms(plain_fn, 2)
     row = dict(kernel=name, ms=ms, kernel_device_ms=device_ms, plain_ms=plain_ms, **bound(ops, nbytes))
     emit("timing", ok=True, **phase_tag, **row)
@@ -528,6 +785,53 @@ def phase_timing(goldens, dev, batch=64):
              live_pixel_fraction=live_px / (batch * h * w)),
     )
     rows["draft_refine"]["max_abs_err"] = err
+
+    # The training march at its shapes (preset_target_lighting_train: batch
+    # 3, 256x256, 160 samples, one-hot veto, no cull, no gate): K2 forward,
+    # then march_grad at K2's winners with a seeded random cotangent.
+    cfg = C.preset_target_lighting_train().render
+    b, s, (h, w) = 3, cfg.num_sample_points, (cfg.img_height, cfg.img_width)
+    td, tm, tl = depth[:b].contiguous(), mask[:b].contiguous(), light[:b].contiguous()
+    got_d, got_t = K.ray_march_min_distance_cuda(td, tm, tl, cfg, return_argmin_t=True)
+    want_d, want_t = S.ray_march_min_distance_batch(td, tm, tl, cfg, return_argmin_t=True)
+    err = check_march(got_d, want_d, "timing", f"train K2: batch {b}")
+    agree = check_tstar(got_t, want_t, "timing", f"train K2: batch {b}")
+    tag = dict(tier="train", batch=b, size=h, veto=S.resolve_mask_gather(cfg), samples=s, live_pixel_fraction=1.0)
+    rows["train_argmin"] = timing_row(
+        "march_argmin", lambda: K.ray_march_min_distance_cuda(td, tm, tl, cfg, return_argmin_t=True),
+        lambda: S.ray_march_min_distance_batch(td, tm, tl, cfg, return_argmin_t=True),
+        march_ops("march_argmin", b * h * w, b * h * w, s, cfg), 4 * (4 * b * h * w + 3 * b + s),
+        dict(tag, tstar_agreement=agree),
+    )
+    rows["train_argmin"]["max_abs_err"] = err
+
+    ts = K._ts_for(dev, cfg)
+    _, idx = K._launch_argmin(td, tm, tl, ts, cfg)
+    t_star = ts[idx.long()]
+    cot = torch.randn((b, h, w), generator=torch.Generator().manual_seed(2)).to(dev)
+    got_dd, got_dl = K.march_grad_cuda(td, tm, tl, idx, ts, cot, cfg)
+    want_dd, want_dl = S.march_vjp(td, tm, tl, t_star, cot, cfg)
+    err = (got_dd - want_dd).abs().max().item()
+    check(err <= GRAD_BARS["d_depth_rel_to_max"] * want_dd.abs().max().item(), "timing", f"train march_grad: d_depth {err}")
+    dl_rel = ((got_dl - want_dl).abs() / want_dl.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
+    check(dl_rel <= GRAD_BARS["d_light_rel_to_image_max"], "timing", f"train march_grad: d_light {dl_rel}")
+    # The work this run's data needs: pixels whose winner is on the face and
+    # whose cotangent is nonzero differentiate, vetoed winners stop early.
+    vetoed = S.sample_distance_at_batch(td, tm, tl, t_star, cfg) >= 1e5
+    n_grad = int((~vetoed & (cot != 0)).sum().item())
+    n_vetoed = int(vetoed.sum().item())
+    bilinear = GRAD_OPS["bilinear_extra"] if S.resolve_mask_gather(cfg) == "bilinear" else 0
+    ops = (n_grad * (GRAD_OPS["grad"] + bilinear) + n_vetoed * (GRAD_OPS["vetoed"] + bilinear)
+           + (b * h * w - n_grad - n_vetoed) * GRAD_OPS["other"])
+    nbytes = 4 * (5 * b * h * w + 6 * b + s)  # depth, mask, idx, cotangent, d_depth; light, d_light; ts
+    rows["train_grad"] = timing_row(
+        "march_grad", lambda: K.march_grad_cuda(td, tm, tl, idx, ts, cot, cfg),
+        lambda: S.march_vjp(td, tm, tl, t_star, cot, cfg), ops, nbytes,
+        dict(tier="train", batch=b, size=h, veto=S.resolve_mask_gather(cfg), pixels_with_gradient=n_grad,
+             pixels_vetoed=n_vetoed, d_light_rel_to_image_max=dl_rel),
+        device_name="march_grad_kernel",
+    )
+    rows["train_grad"]["max_abs_err"] = err
     return rows
 
 
@@ -563,25 +867,35 @@ def main() -> int:
         phase_golden(goldens, dev)
         launches, e2e, e2e_err = phase_e2e(goldens, dev)
         timing = phase_timing(goldens, dev)
+        train_launches, train = phase_train(dev)
     except PhaseError as e:
         emit("failed", ok=False, error=str(e))
         return 1
 
     # max_abs_err: the worst kernel-vs-plain |d| of every comparison of that
     # kernel: the march phase (batch 8), the main path's own batches and the
-    # timing inputs (batch 64). `ms` and the bound are at the main path's
-    # shapes: K1 at the strict tier, K2 and K3 at the draft tier.
+    # timing inputs (batch 64, and batch 3 for training); for march_grad, of
+    # d_depth. `ms` and the bound are at the main paths' shapes: K1 at the
+    # strict tier, K2 and K3 at the draft tier (K2 at the training shape in
+    # the train_* keys), march_grad at training. `launches` sums the main
+    # paths' runs: one forward per tier and the six training steps.
     rows = {"march": (timing["strict"], [timing["fast"]], "geomconsistentfr_tpu/ops/shadows_pallas.py:64"),
-            "march_argmin": (timing["draft_argmin"], [], "geomconsistentfr_tpu/ops/shadows_pallas.py:881"),
-            "refine": (timing["draft_refine"], [], "geomconsistentfr_tpu/ops/shadows_pallas.py:900")}
+            "march_argmin": (timing["draft_argmin"], [timing["train_argmin"]],
+                             "geomconsistentfr_tpu/ops/shadows_pallas.py:881"),
+            "refine": (timing["draft_refine"], [], "geomconsistentfr_tpu/ops/shadows_pallas.py:900"),
+            "march_grad": (timing["train_grad"], [], "geomconsistentfr_tpu/ops/shadows_pallas.py:776")}
     kernels = []
     for name, (t, others, replaces) in rows.items():
         max_err = max(march_err[name], e2e_err[name], t["max_abs_err"], *(o["max_abs_err"] for o in others))
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda", source="geomconsistentfr_torch/csrc/march.cu", replaces=replaces,
-            launches=launches[name], max_abs_err=max_err, ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-        ))
+            launches=launches[name] + train_launches[name], max_abs_err=max_err, ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        )
+        if name == "march_argmin":
+            k2 = timing["train_argmin"]
+            row.update(train_ms=k2["ms"], train_plain_ms=k2["plain_ms"], train_bound_ms=k2["bound_ms"])
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -1,12 +1,12 @@
-"""Weights in and out of the port's RelightNet (reference `.pth` layout).
+"""Weights in and out of the port's RelightNet and PatchGAN (reference `.pth` layout).
 
 The port's state dict IS the reference checkpoint's layout, so a reference
 `.pth` loads directly. This module adds:
 
   * `load_checkpoint(path)`: a plain `torch.load` of a reference state dict.
   * `state_dict_from_jax_variables(variables)`: the JAX package's flax
-    `{'params', 'batch_stats'}` (numpy arrays) -> the port's state dict, the
-    inverse of geomconsistentfr_tpu/convert.py:34-73:
+    `{'params', 'batch_stats'}` (numpy arrays) of a RelightNet or a PatchGAN
+    -> the port's state dict, the inverse of geomconsistentfr_tpu/convert.py:34-73:
       conv   (kh, kw, I, O) -> (O, I, kh, kw)
       deconv (kh, kw, I, O) -> flip spatial -> (I, O, kh, kw)
       linear (in, out)      -> (out, in)
@@ -14,6 +14,8 @@ The port's state dict IS the reference checkpoint's layout, so a reference
   * `transfer_to_target_variant(state)`: embeds transfer-variant weights
     (1x1 bias-free shortcuts) into the target variant (3x3 with bias) as the
     centre tap with zero bias -- an identical function.
+  * `adam_moments_from_optax(mu, nu)`: an optax Adam state's moments in the
+    port's parameter names, so tests can hold the optimizers together.
 """
 
 from __future__ import annotations
@@ -67,6 +69,18 @@ def state_dict_from_jax_variables(variables: Mapping[str, Mapping]) -> Dict[str,
         put(f"{module}.running_var", np.asarray(leaves["var"], np.float32))
         state[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return state
+
+
+def adam_moments_from_optax(mu: Mapping[str, Mapping], nu: Mapping[str, Mapping]):
+    """An optax Adam state's `mu` and `nu` trees (numpy leaves, the flax
+    parameter layout) -> two dicts keyed by the port's parameter names.
+
+    The layout change is a permutation of each array (transposes and the
+    deconvolutions' spatial flip), so each moment maps exactly as its
+    parameter does. They compare with torch.optim.Adam's `exp_avg` and
+    `exp_avg_sq` (train.adam_moments).
+    """
+    return state_dict_from_jax_variables({"params": mu}), state_dict_from_jax_variables({"params": nu})
 
 
 def is_transfer_state(state: Mapping[str, torch.Tensor]) -> bool:

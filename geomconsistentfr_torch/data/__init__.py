@@ -1,0 +1,3 @@
+"""Training data of the PyTorch port (numpy; no JAX)."""
+
+from geomconsistentfr_torch.data.celebahq import CelebAHQRelightingData, SyntheticFaceData  # noqa: F401

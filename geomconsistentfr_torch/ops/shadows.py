@@ -12,6 +12,8 @@ path of the port, and what the kernels are held against on the card.
     K2, which also returns the first winning sample's t.
   * `refine_min_distance_batch` is kernel K3, the draft tier's re-march of
     a few offsets around a per-pixel t.
+  * `march_vjp` is the backward of the training march K4 (kernel
+    march_grad): autograd of `sample_distance_at_batch` at K2's t*.
 Their arithmetic is written op by op in the order the kernels evaluate it.
 Each loop carries the min of the raw cross-product norm^2 (1e30 for a vetoed
 sample) and takes sqrt(n2 + 1e-4) / denominator once at the end; both are
@@ -346,16 +348,42 @@ def ray_march_min_distance(depth, mask, light_point, cfg: RenderConfig, ts=None,
     return out[0]
 
 
-def sample_distance_at(depth, mask, light_point, t, cfg: RenderConfig) -> torch.Tensor:
-    """Point-to-line distance of the depth sample at offset t (scalar or (H, W)).
+def sample_distance_at_batch(depth, mask, light_point, t_map, cfg: RenderConfig) -> torch.Tensor:
+    """Point-to-line distance of each pixel's depth sample at its own offset.
 
-    Single image: depth, mask (H, W), light_point (3,) -> (H, W) distances,
-    1e6 where the configured veto rejects the sample; no gate bias, no cull.
+    (B, H, W) depth, mask and t_map, (B, 3) light points -> (B, H, W)
+    distances, 1e6 where the configured veto rejects the sample; no gate
+    bias, no cull. Differentiable in depth and light_point.
     """
-    scene = _Scene(depth[None], mask[None], light_point[None], cfg)
-    t = torch.as_tensor(t, dtype=torch.float32, device=scene.xx.device)
-    t = t.expand(scene.h, scene.w)[None, None]
-    return scene.distance(scene.sample_n2(t)[:, 0])[0]
+    scene = _Scene(depth, mask, light_point, cfg)
+    return scene.distance(scene.sample_n2(t_map.float()[:, None])[:, 0])
+
+
+def sample_distance_at(depth, mask, light_point, t, cfg: RenderConfig) -> torch.Tensor:
+    """Single image: depth, mask (H, W), light_point (3,), t scalar or (H, W) -> (H, W)."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=depth.device).expand(depth.shape)
+    return sample_distance_at_batch(depth[None], mask[None], light_point[None], t[None], cfg)[0]
+
+
+def march_vjp(depth, mask, light_point, t_star, grad, cfg: RenderConfig):
+    """(d_depth, d_light): the march's VJP, taken at each pixel's winning sample.
+
+    The gradient of a min is the gradient of its winner, so this is
+    torch.autograd.grad of sample_distance_at_batch at t* (the JAX package's
+    `_vjp_bwd`, shadows_pallas.py:776-808, in its gather form). It runs
+    through the border endpoints into the light point, and through BC and
+    the denominator into the pixel's own depth. A vetoed sample reads the
+    constant 1e6 and gets no gradient; nor does a culled pixel, whose output
+    is the constant sentinel; the gate bias is a constant too. The mask gets
+    no gradient. `grad` is the (B, H, W) cotangent of the march's output.
+    """
+    if cfg.shadow_mask_cull:
+        grad = torch.where(_live_pixels(mask, cfg), grad, 0.0)
+    with torch.enable_grad():
+        d = depth.detach().float().requires_grad_()
+        lp = light_point.detach().float().requires_grad_()
+        dist = sample_distance_at_batch(d, mask, lp, t_star, cfg)
+        return torch.autograd.grad(dist, (d, lp), grad)
 
 
 # ---------------------------------------------------------------------------

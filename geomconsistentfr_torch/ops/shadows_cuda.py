@@ -3,9 +3,16 @@
 The wrappers, one per kernel:
   * `ray_march_min_distance_cuda` launches K1 ('march'), or K2
     ('march_argmin') with `return_argmin_t`;
-  * `refine_min_distance_cuda` launches K3 ('refine').
+  * `refine_min_distance_cuda` launches K3 ('refine');
+  * `march_grad_cuda` launches the backward of K4 ('march_grad').
 For a CUDA tensor a wrapper launches its kernel (or raises); for a CPU tensor
 it runs the plain version of ops/shadows.py. There is no other fallback.
+
+`RayMarchMinDistance` is the differentiable march K4 (the JAX package's
+`ray_march_min_distance_pallas_vjp`): its forward is K2, its backward
+march_grad at K2's winning samples; on CPU tensors the plain argmin march and
+the plain `shadows.march_vjp`. `ray_march_min_distance_cuda` goes through it
+whenever depth or the light point needs a gradient.
 
 The kernels are compiled by `nvcc` for sm_90a at first use into
 `<repo>/build/kernels/` (git-ignored), keyed by a hash of the source and the
@@ -39,13 +46,14 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0}
+LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0}
 
 # The kernel's `form` argument (csrc/march.cu, enum Form).
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_c_int] + [_c_void_p] * 8 + [_c_int] * 8 + [_c_float] * 7 + [_c_void_p]
+_GRAD_ARGTYPES = [_c_void_p] * 9 + [_c_int] * 6 + [_c_void_p]
 
 
 def _nvcc() -> str:
@@ -88,6 +96,8 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.gcfr_march_launch.argtypes = _ARGTYPES
     lib.gcfr_march_launch.restype = _c_int
+    lib.gcfr_march_grad_launch.argtypes = _GRAD_ARGTYPES
+    lib.gcfr_march_grad_launch.restype = _c_int
     return lib
 
 
@@ -114,14 +124,15 @@ def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name} must be contiguous")
 
 
+def needs_grad(depth: torch.Tensor, light_point: torch.Tensor) -> bool:
+    """True when autograd records and depth or the light point asks for a gradient."""
+    return torch.is_grad_enabled() and (depth.requires_grad or light_point.requires_grad)
+
+
 def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> None:
-    """Device, no autograd, the config's shape, float32, contiguous."""
+    """Device, the config's shape, float32, contiguous."""
     if depth.device.type != "cuda":
         raise ValueError(f"the {what} kernel runs on CUDA tensors, got {depth.device}")
-    if torch.is_grad_enabled() and (depth.requires_grad or light_point.requires_grad):
-        raise NotImplementedError(
-            f"the CUDA {what} has no backward yet (kernel K4 of the training slice)"
-        )
     b, h, w = depth.shape
     if (h, w) != (cfg.img_height, cfg.img_width):
         raise ValueError(f"depth {tuple(depth.shape)} does not match the config's {cfg.img_height}x{cfg.img_width}")
@@ -132,22 +143,29 @@ def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> Non
     _check("light_point", light_point, (b, 3), depth.device)
 
 
+def _cull_flags(mask, cfg: RenderConfig):
+    """(uint8 live flags or None, cull blocks per 8-row group or 0, block width)."""
+    chunk = shadows.effective_col_chunk(cfg)
+    if not cfg.shadow_mask_cull:
+        return None, 0, chunk
+    live = shadows.cull_live_blocks(mask, chunk).to(torch.uint8).contiguous()
+    return live, mask.shape[2] // chunk, chunk
+
+
+def _ptr(x) -> int:
+    return 0 if x is None else x.data_ptr()
+
+
 def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, idx=None):
     """Launch one form of the march kernel on the current stream; (B, H, W) distances."""
     b, h, w = depth.shape
     dev = depth.device
     bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
-    live, live_cols, chunk = None, 0, shadows.effective_col_chunk(cfg)
-    if cfg.shadow_mask_cull:
-        live = shadows.cull_live_blocks(mask, chunk).to(torch.uint8).contiguous()
-        live_cols = w // chunk
+    live, live_cols, chunk = _cull_flags(mask, cfg)
     bounds = shadows.gate_bounds(cfg)
     gate_on = bounds is not None
     lo_x, hi_x, lo_y, hi_y = bounds if gate_on else (0.0, 0.0, 0.0, 0.0)
     t_lo, t_hi = shadows.refine_t_range(cfg) if t_map is not None else (0.0, 0.0)
-
-    def ptr(x):
-        return 0 if x is None else x.data_ptr()
 
     out = torch.empty_like(depth)
     lib = _library()
@@ -155,7 +173,7 @@ def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=
     with torch.cuda.device(dev):
         err = lib.gcfr_march_launch(
             _FORMS[kernel], depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(),
-            ts.data_ptr(), ptr(t_map), ptr(live), out.data_ptr(), ptr(idx),
+            ts.data_ptr(), _ptr(t_map), _ptr(live), out.data_ptr(), _ptr(idx),
             b, h, w, ts.numel(), int(bilinear), live_cols, chunk, int(gate_on),
             lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, stream,
         )
@@ -178,21 +196,105 @@ def ray_march_min_distance_cuda(
     Same function as shadows.ray_march_min_distance_batch: kernel K1, or K2
     with `return_argmin_t`, which returns (min distances, t*). `ts` overrides
     the sample offsets (1-D float32, any length); t* then takes its values.
+    When depth or the light point needs a gradient, the march over the full
+    grid goes through `RayMarchMinDistance` (K2 forward, march_grad backward).
     """
+    if needs_grad(depth, light_point):
+        if ts is not None or return_argmin_t:
+            raise NotImplementedError("the differentiable march takes the full t grid and returns distances only")
+        return RayMarchMinDistance.apply(depth, mask, light_point, cfg)
     if depth.device.type == "cpu":
         return shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, ts, return_argmin_t)
     _check_inputs(depth, mask, light_point, cfg, "march")
-    dev = depth.device
-    if ts is None:
-        ts = _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
-    else:
-        ts = torch.as_tensor(ts, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+    ts = _ts_for(depth.device, cfg, ts)
     if not return_argmin_t:
         return _launch("march", depth, mask, light_point, ts, cfg)
-    idx = torch.empty(depth.shape, dtype=torch.int32, device=dev)
-    out = _launch("march_argmin", depth, mask, light_point, ts, cfg, idx=idx)
+    out, idx = _launch_argmin(depth, mask, light_point, ts, cfg)
     # The index addresses the same float32 table the kernel read (shadows_pallas.py:1152-1154).
     return out, ts[idx.long()]
+
+
+def _ts_for(dev: torch.device, cfg: RenderConfig, ts=None) -> torch.Tensor:
+    """The float32 t table on `dev`: the config's grid, or the given offsets."""
+    if ts is None:
+        return _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
+    return torch.as_tensor(ts, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+
+
+def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig):
+    """K2: (min distances, int32 index of each pixel's first winning sample in ts)."""
+    idx = torch.empty(depth.shape, dtype=torch.int32, device=depth.device)
+    return _launch("march_argmin", depth, mask, light_point, ts, cfg, idx=idx), idx
+
+
+def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig):
+    """(d_depth (B, H, W), d_light (B, 3)): K4's backward at K2's winners.
+
+    Same function as shadows.march_vjp at t* = ts[idx]: idx is K2's int32
+    winning index (B, H, W) into the float32 table ts it read, grad the
+    (B, H, W) cotangent of the march's output.
+    """
+    if depth.device.type == "cpu":
+        return shadows.march_vjp(depth, mask, light_point, ts[idx.long()], grad, cfg)
+    _check_inputs(depth, mask, light_point, cfg, "march_grad")
+    b, h, w = depth.shape
+    dev = depth.device
+    if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h, w) or not idx.is_contiguous() or idx.device != dev:
+        raise ValueError("idx must be a contiguous int32 (B, H, W) tensor on the depth's device")
+    _check("ts", ts, (ts.numel(),), dev)
+    grad = grad.contiguous()
+    _check("grad", grad, (b, h, w), dev)
+    live, live_cols, chunk = _cull_flags(mask, cfg)
+    d_depth = torch.zeros_like(depth)
+    d_light = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.gcfr_march_grad_launch(
+            depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(), ts.data_ptr(), idx.data_ptr(),
+            _ptr(live), grad.data_ptr(), d_depth.data_ptr(), d_light.data_ptr(),
+            b, h, w, int(shadows.resolve_mask_gather(cfg) == "bilinear"), live_cols, chunk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"march_grad kernel launch failed: CUDA error {err}")
+    LAUNCHES["march_grad"] += 1
+    return d_depth, d_light
+
+
+class RayMarchMinDistance(torch.autograd.Function):
+    """The differentiable full-grid march (B, H, W) -> (B, H, W), kernel K4.
+
+    Forward: the argmin march, which records each pixel's winning sample
+    (K2 on the card). Backward: the VJP at that sample (march_grad on the
+    card), into depth and the light point; the mask gets none. On CPU
+    tensors the same structure runs the plain argmin march and
+    shadows.march_vjp. The draft tier has no gradient: its march is
+    serving-only, as in the JAX package (render.py:189-193).
+    """
+
+    @staticmethod
+    def forward(ctx, depth, mask, light_point, cfg: RenderConfig):
+        if cfg.shadow_resolution_scale != 1:
+            raise NotImplementedError("the draft tier's march has no gradient: it serves only")
+        ctx.cfg = cfg
+        if depth.device.type == "cpu":
+            out, t_star = shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, return_argmin_t=True)
+            ctx.save_for_backward(depth, mask, light_point, t_star)
+            return out
+        _check_inputs(depth, mask, light_point, cfg, "march")
+        ctx.ts = _ts_for(depth.device, cfg)
+        out, idx = _launch_argmin(depth, mask, light_point, ctx.ts, cfg)
+        ctx.save_for_backward(depth, mask, light_point, idx)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        depth, mask, light_point, winner = ctx.saved_tensors
+        if depth.device.type == "cpu":
+            d_depth, d_light = shadows.march_vjp(depth, mask, light_point, winner, grad, ctx.cfg)
+        else:
+            d_depth, d_light = march_grad_cuda(depth, mask, light_point, winner, ctx.ts, grad, ctx.cfg)
+        return d_depth, None, d_light, None
 
 
 def refine_min_distance_cuda(
@@ -206,8 +308,11 @@ def refine_min_distance_cuda(
     """(B, H, W) depth, mask and t_map, (B, 3) light points -> (B, H, W): kernel K3.
 
     Same function as shadows.refine_min_distance_batch. `offsets` overrides
-    refine_offsets(cfg) (1-D float32, any length).
+    refine_offsets(cfg) (1-D float32, any length). The draft tier serves
+    only: a call that needs a gradient raises.
     """
+    if needs_grad(depth, light_point):
+        raise NotImplementedError("the draft tier's refine has no gradient: it serves only")
     if depth.device.type == "cpu":
         return shadows.refine_min_distance_batch(depth, mask, light_point, t_map, cfg, offsets)
     _check_inputs(depth, mask, light_point, cfg, "refine")

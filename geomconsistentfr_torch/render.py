@@ -13,7 +13,9 @@ CUDA tensors launch the CUDA kernels, CPU tensors take their plain versions.
 `use_pallas_shadows=False` is refused on CUDA tensors: the port has no plain
 march on the card outside its comparisons.
 
-Strict, high and fast march at full resolution (kernel K1). The draft tier
+Strict, high and fast march at full resolution (kernel K1; in training,
+where the march needs a gradient, K2 forward and march_grad backward: the
+differentiable march K4 of ops/shadows_cuda.RayMarchMinDistance). The draft tier
 (shadow_resolution_scale > 1) marches pooled inputs at reduced resolution
 (ops/shadows.scale_march_inputs) and records the argmin t* (kernel K2), then
 re-marches a window of offsets around the upsampled t* at full resolution
@@ -32,7 +34,7 @@ from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops.geometry import depth_to_normals, l2_normalize, pixel_grid_centered
 from geomconsistentfr_torch.ops.shading import composite, directional_shading, shadow_weights
 from geomconsistentfr_torch.ops.shadows import scale_march_inputs, upsample_tstar_nn, upscale_min_distance
-from geomconsistentfr_torch.ops.shadows_cuda import ray_march_min_distance_cuda, refine_min_distance_cuda
+from geomconsistentfr_torch.ops.shadows_cuda import needs_grad, ray_march_min_distance_cuda, refine_min_distance_cuda
 
 
 class RenderOutputs(NamedTuple):
@@ -141,9 +143,14 @@ def shadow_min_distance(depth, mask, light_point, cfg: RenderConfig) -> torch.Te
     """(B, H, W) min distances of the configured tier's march, through the kernels' wrappers.
 
     depth and mask (B, H, W) and light_point (B, 3), float32 and contiguous.
+    A march that needs a gradient (training) goes through the wrapper into
+    RayMarchMinDistance: K2 forward, march_grad backward. The draft tier
+    serves only, as in the JAX package (render.py:189-193), and raises on one.
     """
     if cfg.shadow_resolution_scale == 1:
         return ray_march_min_distance_cuda(depth, mask, light_point, cfg)
+    if needs_grad(depth, light_point):
+        raise NotImplementedError("the draft tier's march has no gradient: it serves only")
     m_depth, m_mask, m_light, m_cfg = scale_march_inputs(depth, mask, light_point, cfg)
     if cfg.shadow_refine_halfwidth == 0:
         return upscale_min_distance(ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg), cfg)

@@ -1,6 +1,8 @@
 """The CUDA march kernels (csrc/march.cu) against their plain PyTorch versions, on the card.
 
-K1 is the march, K2 the march with the argmin, K3 the draft tier's refine.
+K1 is the march, K2 the march with the argmin, K3 the draft tier's refine,
+march_grad the backward of the training march (K2 forward, march_grad
+backward; the last tests drive it through render() and a train step).
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one. On
 the card, run them without the JAX test configuration:
 
@@ -74,7 +76,7 @@ def test_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0}
+    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}
     assert_march_close(got, shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
 
 
@@ -88,7 +90,7 @@ def test_argmin_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0}
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0}
     want_d, want_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
     assert_march_close(got_d, want_d)
     assert (got_t == want_t).float().mean().item() >= 0.9999
@@ -121,7 +123,7 @@ def test_refine_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 1}
+    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 1, "march_grad": 0}
     assert_march_close(got, shadows.refine_min_distance_batch(depth, mask, light, t_map, cfg))
     offsets = shadows.refine_offsets(cfg)[1:6]
     assert_march_close(shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets),
@@ -142,12 +144,12 @@ def test_render_on_the_card_always_launches_the_kernel(dev):
     args = (torch.rand((4, 64, 64, 3), device=dev), depth, torch.zeros((4, 4), device=dev), mask)
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0}
+    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}
     want = shadows.ray_march_min_distance_batch(depth, mask, cfg.light_distance * l2_normalize(light, dim=-1), cfg)
     assert_march_close(out.min_distance, want)
     with pytest.raises(ValueError):
         render(*args, dataclasses.replace(cfg, use_pallas_shadows=False), target_light=light)
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0}
+    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}
 
 
 @pytest.mark.parametrize("halfwidth", [4, 0], ids=["refine", "upscale"])
@@ -159,7 +161,8 @@ def test_draft_render_launches_the_draft_kernels(dev, halfwidth):
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     torch.cuda.synchronize()
-    want_launches = {"march": 0, "march_argmin": 1, "refine": 1} if halfwidth else {"march": 1, "march_argmin": 0, "refine": 0}
+    want_launches = ({"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0} if halfwidth
+                     else {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0})
     assert launches_since(before) == want_launches
     lp = cfg.light_distance * l2_normalize(light, dim=-1)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, lp, cfg)
@@ -197,4 +200,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         shadows_cuda.refine_min_distance_cuda(depth[:, :, :48].contiguous(), mask[:, :, :48].contiguous(), light,
                                               t_map[:, :, :48].contiguous(), dataclasses.replace(cfg, img_width=48))
     with pytest.raises(NotImplementedError):
-        shadows_cuda.ray_march_min_distance_cuda(depth.requires_grad_(), mask, light, cfg)
+        shadows_cuda.ray_march_min_distance_cuda(depth.clone().requires_grad_(), mask, light,
+                                                 dataclasses.replace(cfg, shadow_resolution_scale=2))
+    with pytest.raises(NotImplementedError):
+        shadows_cuda.refine_min_distance_cuda(depth.clone().requires_grad_(), mask, light, t_map, cfg)
+    idx = torch.zeros(depth.shape, dtype=torch.int32, device=dev)
+    ts = torch.from_numpy(shadows.sample_ts(cfg).astype(np.float32)).to(dev)
+    with pytest.raises(ValueError):
+        shadows_cuda.march_grad_cuda(depth, mask, light, idx.long(), ts, torch.ones_like(depth), cfg)
+    with pytest.raises(ValueError):
+        shadows_cuda.march_grad_cuda(depth, mask, light, idx, ts, torch.ones_like(depth)[:2], cfg)
+
+
+# Lights for the gradient tests. The x and y of the light inside the image are
+# not integers: where a light's x equals a pixel column's within the border
+# solve's 1e-4, the endpoint's slope is ~1e4 and the light gradient is
+# ill-conditioned (the order of float32 operations alone then moves it far
+# beyond rounding); training's light points, light_distance times a unit
+# vector, do not sit there.
+GRAD_LIGHTS = np.asarray(
+    [[1203.9, 1605.2, 3475.3], [-2407.8, 401.3, 3170.3], [5.37, -3.61, 20.0], [600.3, -300.7, 3000.0]],
+    np.float32,
+)
+
+
+def assert_grads_close(got_d, got_l, want_d, want_l):
+    """march_grad vs the plain VJP. Its atomics sum in any order, so the bars
+    are relative: d_depth |d| <= 1e-4 * max |d_depth|, d_light |d| <= 1e-4 *
+    max |d_light| of its image (chip_smoke.py holds the kernel to the same)."""
+    assert (got_d - want_d).abs().max().item() <= 1e-4 * want_d.abs().max().item()
+    scale = want_l.abs().amax(dim=1, keepdim=True)
+    assert bool(((got_l - want_l).abs() <= 1e-4 * scale).all()), (got_l, want_l)
+
+
+@pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
+@pytest.mark.parametrize("cull", [0, 64, 16], ids=["cull_off", "cull_row", "cull_col16"])
+@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+def test_march_grad_matches_plain_vjp(dev, veto, cull, gate):
+    depth, mask, _ = scene(dev, seed=6)
+    light = torch.from_numpy(GRAD_LIGHTS).to(dev)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=depth.shape).astype(np.float32)).to(dev)
+    cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_bias_gate=gate,
+                       shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
+    d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    before = dict(shadows_cuda.LAUNCHES)
+    out = shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg)
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0}
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1}
+    assert_march_close(out.detach(), shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
+    # The plain VJP at the kernel's own winners: this holds march_grad alone.
+    _, t_star = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
+    want_d, want_l = shadows.march_vjp(depth, mask, light, t_star, g, cfg)
+    assert_grads_close(d.grad, lp.grad, want_d, want_l)
+
+
+def test_render_with_a_gradient_launches_k2_and_march_grad(dev):
+    depth, mask, _ = scene(dev, seed=8)
+    cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
+    albedo = torch.rand((4, 64, 64, 3), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    ambient = torch.full((4,), 0.5, device=dev)
+    light = torch.from_numpy(GRAD_LIGHTS).to(dev)
+
+    def grads(device):
+        d = depth.to(device).clone().requires_grad_()
+        lt = light.to(device).clone().requires_grad_()
+        out = render(albedo.to(device), d, torch.zeros((4, 4), device=device), mask.to(device), cfg,
+                     target_light=lt, target_ambient=ambient.to(device))
+        out.rendered.sum().backward()
+        return d.grad.cpu(), lt.grad.cpu()
+
+    before = dict(shadows_cuda.LAUNCHES)
+    got_d, got_l = grads(dev)
+    torch.cuda.synchronize()
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1}
+    want_d, want_l = grads("cpu")
+    # The renderer's eager ops round differently on the two devices, which
+    # may move a knife-edge winner: agreement on >= 0.999 of the entries.
+    close = (got_d - want_d).abs() <= 1e-3 * want_d.abs().max()
+    assert close.float().mean().item() >= 0.999
+    torch.testing.assert_close(got_l, want_l, rtol=1e-3, atol=1e-3 * want_l.abs().max().item())
+
+
+def test_float32_train_step_keeps_tf32_off_through_the_backward(dev):
+    """train_step turns TF32 off around its forward, backward and optimizer
+    steps: with TF32 allowed globally its gradients equal those of the same
+    step with TF32 off globally, up to the run-to-run spread of float32
+    atomics (sum |d| / sum |g| <= 2e-4; 1.9e-5 measured on an H100). Without
+    the guard (a control run) cuDNN computes them in TF32 and they part by
+    at least 100 times that (0.42 measured)."""
+    import contextlib
+
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.config import preset_target_lighting_train
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+    from geomconsistentfr_torch.models import relightnet
+
+    cfg = preset_target_lighting_train()
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **SMALL),
+                              train=dataclasses.replace(cfg.train, batch_size=2))
+    data = SyntheticFaceData(num_samples=2, size=64)
+    batch = T.decode_batch(data.get_batch([0, 1]), dev)
+
+    def step_grads(allow_tf32: bool):
+        state = T.init_state(cfg, dev, torch.Generator().manual_seed(0))
+        saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        try:
+            T.train_step(state, batch, cfg, cfg.model.skip_gates(20))
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        return torch.cat([p.grad.flatten() for p in [*state.g.parameters(), *state.d.parameters()]])
+
+    want = step_grads(False)
+    rel = ((step_grads(True) - want).abs().sum() / want.abs().sum()).item()
+    mp = pytest.MonkeyPatch()
+    with mp.context() as m:
+        m.setattr(T, "no_tf32", contextlib.nullcontext)
+        m.setattr(relightnet, "no_tf32", contextlib.nullcontext)
+        leaked = ((step_grads(True) - want).abs().sum() / want.abs().sum()).item()
+    print(f"TF32 allowed globally, step's guard on: {rel}; guard taken out: {leaked}")
+    assert rel <= 2e-4 and leaked >= 100 * max(rel, 1e-6), (rel, leaked)

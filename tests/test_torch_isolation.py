@@ -37,6 +37,17 @@ except RuntimeError as e:
 else:
     raise AssertionError("Relighter without a device ran with no CUDA device")
 Relighter(cfg, state, device="cpu")
+
+from geomconsistentfr_torch.config import preset_target_lighting_train
+from geomconsistentfr_torch.train import Trainer
+
+try:
+    Trainer(preset_target_lighting_train())
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("Trainer without a device ran with no CUDA device")
+Trainer(preset_target_lighting_train(), device="cpu")
 print("ISOLATED")
 """
 
