@@ -43,9 +43,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
               G moving every step and D only on its update steps, one K2 and
               one march_grad launch per step and no K1; the first step against
               the same step on the CPU (plain path); step ms, img/s, how the
-              step splits, and the card's idle share of a step. It runs
-              last, so the earlier phases run as they did before it.
-Then the `kernels` JSON line, the nvidia-smi line, and, last:
+              step splits, and the card's idle share of a step.
+  8. parallel two ranks of torch.distributed (parallel/distributed.spawn,
+              a file:// rendezvous): on one card they share it over gloo,
+              with a card each they run NCCL. Each rank runs
+              Relighter(parallel='samples') at batch 64, strict (K1 on its
+              80 of the 160 samples) and draft (K2 on its slice, K3 on
+              every rank), against the same forward in one process; K5 on
+              the golden depth maps (batch 8, 160 samples), bit-equal to K2
+              on the full grid, against its plain version and, through
+              march_grad, against K4; two steps of the 1x2 grid train step
+              (batch 3, K5 and march_grad on each rank) and one 2x1
+              data-parallel step (batch 4). After each step every rank's
+              parameters, BatchNorm statistics and Adam moments hash the
+              same; the steps are held against the same steps in one
+              process on the card. Per-rank times are labelled "2 ranks on
+              one <card>": two ranks on one card scale nothing. The train
+              and parallel phases run last, so the others run as before.
+Then the `kernels` JSON line (K1-K4 and K5, `march_sp`), the nvidia-smi
+line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Bars (march and golden) are those of tests/test_torch_shadows.py,
@@ -65,7 +81,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
-KERNELS = ("march", "march_argmin", "refine", "march_grad")
+KERNELS = ("march", "march_argmin", "refine", "march_grad")  # the compiled functions, in form order
+# K5 (march_sp) launches the march_argmin form on a rank's slice of the t grid.
+ALL_KERNELS = KERNELS + ("march_sp",)
 
 # Published H100 SXM peaks (dense, no sparsity) used for bounds.
 PEAK_F32_FLOPS = 67e12
@@ -369,7 +387,7 @@ def phase_golden(goldens, dev):
             cfg = dataclasses.replace(strict, shadow_mask_cull=cull)
             reset_launches()
             outs[cull] = render(*args, cfg, **targets)
-            check(K.LAUNCHES == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}, "golden",
+            check(K.LAUNCHES == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}, "golden",
                   f"{name}: strict render launched {K.LAUNCHES}")
         w = outs[False].shadow_mask_weights.cpu().numpy()
         sw = float(np.abs(w - fx["shadow_weights"]).mean())
@@ -387,7 +405,7 @@ def phase_golden(goldens, dev):
         # The draft tier: K2 then K3, at the bars of tests/test_torch_draft.py.
         reset_launches()
         draft = render(*args, C.apply_precision_tier(preset, "draft").render, **targets)
-        check(K.LAUNCHES == {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0}, "golden",
+        check(K.LAUNCHES == {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0}, "golden",
               f"{name}: draft render launched {K.LAUNCHES}")
         dw = draft.shadow_mask_weights.cpu().numpy()
         row["draft_sw_face_mean_abs"] = float(np.abs(dw - fx["shadow_weights"])[face].mean())
@@ -416,9 +434,9 @@ def plain_min_distance(depth, mask, light_pt, cfg):
 
 
 TIER_LAUNCHES = {
-    "strict": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0},
-    "fast": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0},
-    "draft": {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0},
+    "strict": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0},
+    "fast": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0},
+    "draft": {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0},
 }
 
 
@@ -504,7 +522,7 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
 # alone when the images move by one ulp. 1.7e-3 (G) and 1.3e-5 (D) were
 # measured on an H100.
 TRAIN_BARS = {"loss_rel": 1e-4, "g_grad_norm_rel": 1e-2, "d_grad_norm_rel": 1e-3}
-TRAIN_STEP_LAUNCHES = {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1}
+TRAIN_STEP_LAUNCHES = {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1, "march_sp": 0}
 
 
 def flat_params(module):
@@ -682,6 +700,316 @@ def phase_train(dev, seed=0, steps=6):
         return launches, result
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+# The parallel phase: two ranks of torch.distributed. On one card they share
+# it over gloo (NCCL refuses two ranks on one GPU); with a card each, NCCL.
+PARALLEL_RANKS = 2
+SAMPLES_LAUNCHES = {  # per rank, per sample-parallel Relighter.forward
+    "strict": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0},
+    "draft": {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0},
+}
+GRID_STEP_LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 1, "march_sp": 1}
+LATER_STEP_BARS = {k: 10 * v for k, v in TRAIN_BARS.items()}
+DP_G_GRAD_NORM_REL = 0.15
+
+
+def state_digest(state) -> str:
+    """sha256 over a TrainState's parameters, BatchNorm statistics and Adam moments, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for module, opt in ((state.g, state.opt_g), (state.d, state.opt_d)):
+        for t in module.state_dict().values():
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        for p in module.parameters():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if p in opt.state:
+                    h.update(opt.state[p][key].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def serving_inputs(goldens, dev, seed, batch=64):
+    """phase_e2e's batch: the 00104 face and mask, seeded random light directions."""
+    import numpy as np
+    import torch
+
+    fx = dict(goldens)["ref_transfer_00104.npz"]
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.from_numpy(np.repeat(fx["image"][None], batch, 0)).to(dev)
+    masks = torch.from_numpy(np.repeat(fx["mask"][None], batch, 0)).to(dev)
+    dirs = torch.randn((batch, 3), generator=gen)
+    dirs[:, 2] = dirs[:, 2].abs() + 0.5
+    return images, masks, dirs.to(dev)
+
+
+def train_batches(seed, b, n):
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+
+    data = SyntheticFaceData(num_samples=n * b, size=256, seed=seed)
+    return [data.get_batch(range(i * b, (i + 1) * b)) for i in range(n)]
+
+
+def parallel_rank(dev, out_dir: str, seed: int) -> None:
+    """One rank of the parallel phase; writes <out_dir>/rank<r>.json. Every
+    rank runs the same calls in the same order (their collectives pair up)."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.ops import shadows as S
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.parallel import mesh as M
+
+    rank = torch.distributed.get_rank()
+    res = dict(rank=rank, device=str(dev), backend=torch.distributed.get_backend())
+    goldens = load_goldens()
+    world = M.make_mesh(dev)
+
+    # 1. Sample-parallel serving: Relighter(parallel='samples') at batch 64,
+    # strict (K1 on 80 of the 160 samples) and draft (K2 on 40 of the 80
+    # strided samples, then K3 on every rank), against the same forward in
+    # this process alone.
+    images, masks, lights = serving_inputs(goldens, dev, seed)
+    res["samples"] = {}
+    for tier in ("strict", "draft"):
+        cfg = C.apply_precision_tier(C.preset_single_image(), tier)
+        state = RelightNet(cfg.model, generator=torch.Generator().manual_seed(seed)).state_dict()
+        rl = Relighter(cfg, state, mesh=world, parallel="samples")
+        one = Relighter(cfg, state, device=dev)
+        reset_launches()
+        out = rl.forward(images, masks, lights)
+        torch.cuda.synchronize()
+        n = dict(K.LAUNCHES)
+        check(n == SAMPLES_LAUNCHES[tier], "parallel", f"{tier}: sample-parallel forward launched {n}")
+        for field in out._fields:
+            check(bool(torch.isfinite(getattr(out, field)).all()), "parallel", f"{tier}: non-finite {field}")
+        check(tuple(out.rendered.shape) == (64, 256, 256, 3), "parallel", f"{tier}: {tuple(out.rendered.shape)}")
+        want = one.forward(images, masks, lights)
+        equal = (out.min_distance == want.min_distance).float().mean().item()
+        # Strict: the MIN over the slices is the full grid's, bit for bit. Draft:
+        # two slices' winners can tie in distance but not in norm^2, and the
+        # first-winner combine may then pick another t* than the full grid
+        # does, so its refine window moves on those few pixels.
+        check(equal == 1.0 if tier == "strict" else equal >= 0.9999, "parallel",
+              f"{tier}: min_distance equal to one process's on {equal} of pixels")
+        md_err = check_march(out.min_distance, want.min_distance, "parallel", f"{tier}: sample-parallel vs one")
+        rendered_equal = (out.rendered == want.rendered).float().mean().item()
+        ms = cuda_time_ms(lambda: rl.forward(images, masks, lights), 4, windows=3)
+        one_ms = cuda_time_ms(lambda: one.forward(images, masks, lights), 4, windows=3)
+        combine_ms = cuda_time_ms(lambda: M.all_min(want.min_distance, world.world_group), 8, windows=3)
+        res["samples"][tier] = dict(launches=n, min_distance_equal=equal, rendered_equal=rendered_equal,
+                                    min_distance_max_abs_err=md_err, forward_ms=ms, one_process_forward_ms=one_ms,
+                                    min_combine_ms=combine_ms)
+        del rl, one, out, want
+        torch.cuda.empty_cache()
+
+    # 2. K5 on the golden depth maps (batch 8, 256x256, 160 samples, 80 per
+    # rank): bit-equal to K2 on the full grid, its winner too on >= 0.9999 of
+    # pixels; against its plain version (the plain argmin march on the slice,
+    # the same combine, the plain VJP at the winner) and, through march_grad,
+    # against RayMarchMinDistance (K4) on this rank alone.
+    cfg = C.preset_target_lighting_train().render
+    batch = goldens[:8]
+    depth = torch.from_numpy(np.stack([g["depth"][0, 0] for _, g in batch])).to(dev)
+    mask = torch.from_numpy(np.stack([g["mask"] for _, g in batch])).to(dev)
+    unit = np.stack([g["target_light"][0] for _, g in batch]).astype(np.float32)
+    light = torch.from_numpy(unit / np.linalg.norm(unit, axis=1, keepdims=True) * 4013.0).to(dev)
+    cot = torch.from_numpy(np.random.default_rng(seed).normal(size=tuple(depth.shape)).astype(np.float32)).to(dev)
+    n_s = world.size
+    table = torch.as_tensor(S.sharded_sample_ts(cfg, n_s), device=dev)
+    ts_local = table.view(n_s, -1)[rank].contiguous()
+    group = world.world_group
+
+    reset_launches()
+    d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    out = K.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, group)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    n = dict(K.LAUNCHES)
+    check(n == GRID_STEP_LAUNCHES, "parallel", f"K5 forward and backward launched {n}")
+    full, full_idx = K._launch_argmin(depth, mask, light, K._ts_for(dev, cfg), cfg)
+    check(torch.equal(out.detach(), full), "parallel", "K5: distances differ from K2 on the full grid")
+    local_min, local_idx = K._argmin_march(depth, mask, light, ts_local, cfg)
+    _, idx, _ = K._first_winner(local_min, local_idx, ts_local, group)
+    idx_agree = (idx == full_idx).float().mean().item()
+    check(idx_agree >= 0.9999, "parallel", f"K5: winner equal to the full grid's on {idx_agree} of pixels")
+    plain_min, plain_idx = S.ray_march_argmin_batch(depth, mask, light, cfg, ts_local)
+    plain_out, plain_gidx, _ = K._first_winner(plain_min, plain_idx, ts_local, group)
+    k5_err = check_march(out.detach(), plain_out, "parallel", "K5 vs its plain version")
+    plain_idx_agree = (plain_gidx == idx).float().mean().item()
+    check(plain_idx_agree >= 0.9999, "parallel", f"K5 vs plain: winner equal on {plain_idx_agree} of pixels")
+    want_d, want_l = S.march_vjp(depth, mask, light, table[idx.long()], cot, cfg)
+    d4, lp4 = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    (K.RayMarchMinDistance.apply(d4, mask, lp4, cfg) * cot).sum().backward()
+    grad_err = {}
+    for tag, (gd, gl) in (("vs_plain_vjp", (want_d, want_l)), ("vs_k4", (d4.grad, lp4.grad))):
+        dd_rel = (d.grad - gd).abs().max().item() / max(gd.abs().max().item(), 1e-30)
+        dl_rel = ((lp.grad - gl).abs() / gl.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
+        check(dd_rel <= GRAD_BARS["d_depth_rel_to_max"] and dl_rel <= GRAD_BARS["d_light_rel_to_image_max"],
+              "parallel", f"K5 gradients {tag}: d_depth {dd_rel}, d_light {dl_rel}")
+        grad_err[tag] = dict(d_depth_rel_to_max=dd_rel, d_light_rel_to_image_max=dl_rel)
+
+    # K5 timed at the training shape (3, 256, 256): the whole forward, the
+    # kernel on the slice alone, the combine alone, march_grad at the winner,
+    # and the plain version (the plain argmin march on the slice, the combine).
+    td, tm, tl, tc = (x[:3].contiguous() for x in (depth, mask, light, cot))
+    with torch.no_grad():
+        k5_ms = cuda_time_ms(lambda: K.RayMarchMinDistanceSP.apply(td, tm, tl, cfg, ts_local, group), 10, windows=5)
+    slice_ms = cuda_time_ms(lambda: K._launch_argmin(td, tm, tl, ts_local, cfg), 20, windows=5)
+    slice_device_ms = kernel_device_ms(lambda: K._launch_argmin(td, tm, tl, ts_local, cfg))
+    t_min, t_idx = K._launch_argmin(td, tm, tl, ts_local, cfg)
+    combine_ms = cuda_time_ms(lambda: K._first_winner(t_min, t_idx, ts_local, group), 10, windows=5)
+    _, t_gidx, t_table = K._first_winner(t_min, t_idx, ts_local, group)
+    bwd_ms = cuda_time_ms(lambda: K.march_grad_cuda(td, tm, tl, t_gidx, t_table, tc, cfg), 20, windows=5)
+    plain_ms = cuda_time_ms(lambda: K._first_winner(*S.ray_march_argmin_batch(td, tm, tl, cfg, ts_local),
+                                                    ts_local, group), 2)
+    b, h, w = td.shape
+    live = b * h * w  # the training march has no cull
+    ops = live * (ts_local.numel() * (OPS_PER_SAMPLE[S.resolve_mask_gather(cfg)] + EXTRA_OPS_PER_SAMPLE[
+        "march_argmin"]) + OPS_PER_PIXEL)
+    # K2 on the slice (depth, mask, out, idx; light; the slice), then the
+    # combine's inputs and outputs (local min and index in, global min and
+    # index out).
+    nbytes = 4 * (4 * b * h * w + 3 * b + ts_local.numel()) + 4 * 4 * b * h * w
+    res["k5"] = dict(launches=n, distances_equal_full_grid=True, winner_agreement=idx_agree,
+                     plain_winner_agreement=plain_idx_agree, max_abs_err=k5_err, grad_err=grad_err,
+                     ms=k5_ms, kernel_ms=slice_ms, kernel_device_ms=slice_device_ms, combine_ms=combine_ms,
+                     backward_ms=bwd_ms, plain_ms=plain_ms, samples_per_rank=ts_local.numel(),
+                     **bound(ops, nbytes))
+    del d, lp, d4, lp4, out, full, want_d
+    torch.cuda.empty_cache()
+
+    # 3. The 1x2 grid train step: two steps at preset_target_lighting_train,
+    # batch 3 on each rank, the march K5 on 80 samples per rank.
+    tcfg = C.preset_target_lighting_train()
+    skips = tcfg.model.skip_gates(0)
+
+    def run_steps(step, mesh, batches, b):
+        state = T.init_state(tcfg, dev, torch.Generator().manual_seed(seed))
+        part = mesh.batch_slice(b)
+        locals_ = [T.decode_batch({k: v[part] for k, v in hb.items()}, dev) for hb in batches]
+        reset_launches()
+        records = []
+        for local in locals_:
+            m = step(state, local, use_skips=skips)
+            records.append(dict(losses={k: float(v) for k, v in m.items()}, digest=state_digest(state),
+                                grad_norms=grad_norms(named_grads(state))))
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        step_ms = cuda_time_ms(lambda: step(state, locals_[0], use_skips=skips), 2, warmup=1, windows=3)
+        return dict(records=records, launches=launches, step_ms=step_ms)
+
+    grid = M.make_mesh_grid(1, n_s, dev)
+    res["grid"] = run_steps(T.make_grid_parallel_step(tcfg, grid), grid, train_batches(seed, 3, 2), 3)
+    want = {k: 2 * v for k, v in GRID_STEP_LAUNCHES.items()}
+    check(res["grid"]["launches"] == want, "parallel", f"grid steps launched {res['grid']['launches']}")
+    res["grid"]["combine_share"] = combine_ms / res["grid"]["step_ms"]
+
+    # 4. The 2x1 data-parallel step: batch 4, two images per rank.
+    res["dp"] = run_steps(T.make_data_parallel_step(tcfg, world), world, train_batches(seed, 4, 1), 4)
+    check(res["dp"]["launches"] == TRAIN_STEP_LAUNCHES, "parallel", f"DP step launched {res['dp']['launches']}")
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def phase_parallel(dev, seed=0):
+    """Two ranks: sample-parallel serving, K5, the 1x2 grid and 2x1 data-parallel steps."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.parallel import distributed
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="gcfr_parallel_")
+    try:
+        t0 = time.perf_counter()
+        try:
+            distributed.spawn(parallel_rank, PARALLEL_RANKS, "cuda", str(Path(tmp) / "rdzv"), args=(tmp, seed))
+        except Exception as e:  # a rank raised: its traceback is in the message
+            raise PhaseError(f"parallel: a rank failed: {e}") from e
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(PARALLEL_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    label = f"{PARALLEL_RANKS} ranks on one {torch.cuda.get_device_name(0)}" if torch.cuda.device_count() < 2 \
+        else f"{PARALLEL_RANKS} ranks, one card each"
+    r0 = ranks[0]
+    emit("parallel", ok=True, part="samples_forward", ranks=label, batch=64, size=256,
+         backend=r0["backend"], per_rank={r["rank"]: r["samples"] for r in ranks})
+    emit("parallel", ok=True, part="k5", ranks=label, batch=8, size=256, samples=160,
+         per_rank={r["rank"]: r["k5"] for r in ranks})
+    for part in ("grid", "dp"):
+        for r in ranks[1:]:
+            for i, (a, b) in enumerate(zip(r0[part]["records"], r[part]["records"])):
+                diff = {k: (v, b["losses"][k]) for k, v in a["losses"].items() if v != b["losses"][k]}
+                check(a["digest"] == b["digest"] and not diff, "parallel",
+                      f"{part} step {i}: ranks 0 and {r['rank']} differ (state hashes equal: "
+                      f"{a['digest'] == b['digest']}; losses that differ: {diff})")
+
+    # The same steps in this process alone, on the same card. The ranks sum
+    # in another order (BatchNorm moments over a group, march_grad's and
+    # cuDNN's atomics), and G's gradient is ill-conditioned: its norm moves
+    # by percents at batch 4 when the images move by one ulp, because some
+    # BatchNorm channels are nearly constant and E[x^2] - E[x]^2 cancels. On
+    # the CPU at this batch the data-parallel step's G norm is 4.3% from one
+    # process's and one ulp of input moves it 4.0%; on an H100 6.9% and 2.0%.
+    # So the first step is held at TRAIN_BARS, but the data-parallel step's G
+    # norm at DP_G_GRAD_NORM_REL; the one-ulp yardstick is printed beside it.
+    # Later steps at LATER_STEP_BARS, as Adam's first update (+-lr where a
+    # gradient is rounding) carries the rounding into the next step's losses
+    # (tests/test_torch_train.py).
+    tcfg = C.preset_target_lighting_train()
+    skips = tcfg.model.skip_gates(0)
+    compare = {}
+    for part, batches in (("grid", train_batches(seed, 3, 2)), ("dp", train_batches(seed, 4, 1))):
+        nudged = T.init_state(tcfg, dev, torch.Generator().manual_seed(seed))
+        first = T.decode_batch(batches[0], dev)
+        T.train_step(nudged, dict(first, image=torch.nextafter(first["image"], torch.tensor(2.0, device=dev))),
+                     tcfg, skips)
+        ulp_norms = grad_norms(named_grads(nudged))
+        del nudged
+        state = T.init_state(tcfg, dev, torch.Generator().manual_seed(seed))
+        rows = []
+        for i, hb in enumerate(batches):
+            m = T.train_step(state, T.decode_batch(hb, dev), tcfg, skips)
+            got = r0[part]["records"][i]
+            loss_rel = max(abs(got["losses"][k] - float(v)) / max(abs(float(v)), 1e-30) for k, v in m.items())
+            norms = grad_norms(named_grads(state))
+            norm_rel = {k: abs(got["grad_norms"][k] - v) / max(abs(v), 1e-30) for k, v in norms.items()}
+            if i == 0:
+                ulp_rel = {k: abs(ulp_norms[k] - v) / max(abs(v), 1e-30) for k, v in norms.items()}
+                bars = dict(TRAIN_BARS, g_grad_norm_rel=DP_G_GRAD_NORM_REL) if part == "dp" else TRAIN_BARS
+            else:
+                bars = LATER_STEP_BARS
+            check(loss_rel <= bars["loss_rel"], "parallel", f"{part} step {i} vs one process: loss {loss_rel}")
+            check(all(v <= bars[f"{k}_grad_norm_rel"] for k, v in norm_rel.items()), "parallel",
+                  f"{part} step {i} vs one process: grad norm {norm_rel}, bars {bars}")
+            rows.append(dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, bars=bars,
+                             **({"one_ulp_input_grad_norm_rel": ulp_rel} if i == 0 else {})))
+        compare[part] = rows
+        del state
+    torch.cuda.empty_cache()
+    for part, b in (("grid", 3), ("dp", 4)):
+        emit("parallel", ok=True, part=f"{part}_train", ranks=label, batch=b, size=256,
+             mesh="1x2 (data x samples)" if part == "grid" else "2x1 (data)", vs_one_process=compare[part],
+             per_rank={r["rank"]: {k: v for k, v in r[part].items() if k != "records"} for r in ranks},
+             losses=[rec["losses"] for rec in r0[part]["records"]])
+    emit("parallel", ok=True, part="summary", ranks=label, spawn_s=spawn_s)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+    for r in ranks:
+        for counts in (*(v["launches"] for v in r["samples"].values()), r["grid"]["launches"],
+                       r["dp"]["launches"]):
+            for k in ALL_KERNELS:
+                launches[k] += counts[k]
+    return launches, r0["k5"]
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -868,6 +1196,7 @@ def main() -> int:
         launches, e2e, e2e_err = phase_e2e(goldens, dev)
         timing = phase_timing(goldens, dev)
         train_launches, train = phase_train(dev)
+        parallel_launches, k5 = phase_parallel(dev)
     except PhaseError as e:
         emit("failed", ok=False, error=str(e))
         return 1
@@ -877,8 +1206,10 @@ def main() -> int:
     # timing inputs (batch 64, and batch 3 for training); for march_grad, of
     # d_depth. `ms` and the bound are at the main paths' shapes: K1 at the
     # strict tier, K2 and K3 at the draft tier (K2 at the training shape in
-    # the train_* keys), march_grad at training. `launches` sums the main
-    # paths' runs: one forward per tier and the six training steps.
+    # the train_* keys), march_grad at training, K5 at the training shape on
+    # two ranks. `launches` sums the main paths' runs: one forward per tier,
+    # the six training steps, and the parallel phase's forwards and steps
+    # over both ranks.
     rows = {"march": (timing["strict"], [timing["fast"]], "geomconsistentfr_tpu/ops/shadows_pallas.py:64"),
             "march_argmin": (timing["draft_argmin"], [timing["train_argmin"]],
                              "geomconsistentfr_tpu/ops/shadows_pallas.py:881"),
@@ -889,13 +1220,21 @@ def main() -> int:
         max_err = max(march_err[name], e2e_err[name], t["max_abs_err"], *(o["max_abs_err"] for o in others))
         row = dict(
             name=name, route="cuda", source="geomconsistentfr_torch/csrc/march.cu", replaces=replaces,
-            launches=launches[name] + train_launches[name], max_abs_err=max_err, ms=t["ms"],
+            launches=launches[name] + train_launches[name] + parallel_launches[name], max_abs_err=max_err,
+            ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
         )
         if name == "march_argmin":
             k2 = timing["train_argmin"]
             row.update(train_ms=k2["ms"], train_plain_ms=k2["plain_ms"], train_bound_ms=k2["bound_ms"])
         kernels.append(row)
+    kernels.append(dict(
+        name="march_sp", route="cuda", source="geomconsistentfr_torch/csrc/march.cu",
+        replaces="geomconsistentfr_tpu/ops/shadows_pallas.py:815", launches=parallel_launches["march_sp"],
+        max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+        bound_by=k5["bound_by"], library_ms=None, kernel_ms=k5["kernel_ms"], combine_ms=k5["combine_ms"],
+        backward_ms=k5["backward_ms"], ranks=PARALLEL_RANKS,
+    ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -1,6 +1,6 @@
-"""Inference: batched relighting, light sweeps, lighting transfer (one device).
+"""Inference: batched relighting, light sweeps, lighting transfer.
 
-Port of geomconsistentfr_tpu/infer.py:48-551 without the multi-device paths:
+Port of geomconsistentfr_tpu/infer.py:48-551:
   * `Relighter.forward`           -- batched relighting with explicit targets.
   * `Relighter.forward_visuals`   -- the same, packed into uint8 visuals.
   * `Relighter.relight_sweep`     -- one network forward, the renderer over L lights.
@@ -10,10 +10,30 @@ Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit CPU request they raise. Inputs may be numpy arrays or
 tensors: images (B, H, W, 3) and masks (B, H, W), float32 in [0, 1] or uint8
 (divided by 255 on the device). Outputs are tensors on the Relighter's device.
+
+With a `mesh` (parallel/mesh.py) every rank calls the same entry point with
+the same global inputs and gets the same global outputs; `parallel` picks
+what the ranks split:
+  * 'data' (throughput): each rank runs its slice of the batch (B a
+    multiple of the mesh size), the outputs are gathered over every rank.
+    forward, forward_visuals and estimate_lighting; sweeps run unsharded.
+  * 'samples' (latency; a 1-D mesh): the batch and the CNN are replicated
+    and each rank marches its contiguous slice of the t grid
+    (ops/shadows.sharded_sample_ts), MIN-combined over the mesh
+    (ops/shadows_cuda.sharded_march). The MIN is exact and every step after
+    it is per pixel, so the outputs are bit-equal to one process's. At the
+    draft tier the slices come from the scaled config (its strided grid),
+    the argmin march combines its first winner too, and the refine runs
+    replicated on every rank. forward, forward_visuals, relight_sweep*.
+  * 'grid' (a 2-D (data, samples) mesh): the batch shards over the data
+    axis (B a multiple of its size) and the march over the samples axis;
+    sweeps replicate over the data axis.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -21,7 +41,11 @@ import torch
 
 from geomconsistentfr_torch.config import PipelineConfig, preset_lighting_transfer
 from geomconsistentfr_torch.convert import is_transfer_state, load_checkpoint, transfer_to_target_variant
+from geomconsistentfr_torch.models.layers import deterministic_convs
 from geomconsistentfr_torch.models.relightnet import FULL_SKIPS, RelightNet
+from geomconsistentfr_torch.ops import shadows
+from geomconsistentfr_torch.ops.shadows_cuda import refine_min_distance_cuda, sharded_march
+from geomconsistentfr_torch.parallel.mesh import Mesh, all_gather_cat
 from geomconsistentfr_torch.render import RenderOutputs, estimated_light, render
 
 # Channel layout of the packed uint8 visualization tensor (B, H, W, 12).
@@ -73,7 +97,7 @@ def pack_visuals(outputs: RenderOutputs, masks: torch.Tensor) -> torch.Tensor:
 
 
 class Relighter:
-    """RelightNet + the renderer on one device."""
+    """RelightNet + the renderer, on one device or over a mesh of ranks (module docstring)."""
 
     def __init__(
         self,
@@ -81,45 +105,118 @@ class Relighter:
         state_dict,
         use_skips: Tuple[bool, bool, bool, bool] = FULL_SKIPS,
         device=None,
+        mesh: Optional[Mesh] = None,
+        parallel: str = "data",
     ):
+        if parallel not in ("data", "samples", "grid"):
+            raise ValueError(f"unknown parallel mode: {parallel!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.parallel = parallel
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.use_skips = tuple(use_skips)
         self.model = RelightNet(cfg.model, device=self.device)
         self.model.load_state_dict(state_dict)
         self.model.eval()
+        # The group the batch shards over, and the march over the sample shards.
+        self._batch_group, self._march_fn = None, None
+        if mesh is None:
+            return
+        if parallel == "data":
+            self._batch_group = mesh.world_group
+            return
+        if parallel == "grid":
+            if len(mesh.axis_names) != 2:
+                raise ValueError("parallel='grid' needs a 2-D (data, samples) mesh; see parallel.mesh.make_mesh_grid")
+            data_axis, axis = mesh.axis_names
+            self._batch_group = mesh.group(data_axis)
+        else:
+            if len(mesh.axis_names) != 1:
+                raise ValueError("parallel='samples' expects a 1-D mesh; use parallel='grid' for a 2-D (data, samples) mesh")
+            axis = mesh.axis_names[0]
+        self._march_fn = self._sharded_march_fn(mesh.group(axis), mesh.axis_size(axis), mesh.axis_index(axis))
 
-    def _as_input(self, x) -> torch.Tensor:
-        """Tensor on the device; uint8 is divided by 255 there, else float32."""
-        x = torch.as_tensor(x)
+    def _sharded_march_fn(self, group, n_shards: int, shard: int):
+        """render()'s march_fn: this rank's t slice, combined over `group`; the draft refine replicated."""
+        rcfg = self.cfg.render
+        # The draft tier marches pooled inputs over the scaled config's strided
+        # t grid, so its slices come from that grid.
+        mcfg = shadows.scaled_render_cfg(rcfg) if rcfg.shadow_resolution_scale > 1 else rcfg
+        ts = shadows.sharded_sample_ts(mcfg, n_shards).reshape(n_shards, -1)[shard]
+        ts_local = torch.as_tensor(ts, device=self.device)
+
+        def march(depth, mask, light_point, return_argmin_t=False):
+            return sharded_march(depth, mask, light_point, mcfg, ts_local, group, return_argmin_t)
+
+        # Every rank refines the whole window: the outputs are the same
+        # everywhere, so no combine is needed (JAX infer.py:314-329).
+        march.refine_fn = functools.partial(refine_min_distance_cuda, cfg=rcfg)
+        return march
+
+    def _as_input(self, x, part=slice(None)) -> torch.Tensor:
+        """Tensor on the device (of the rows `part`); uint8 is divided by 255 there, else float32."""
+        x = torch.as_tensor(x)[part]
         if x.dtype == torch.uint8:
             return x.to(self.device).float() / 255.0
         return x.to(self.device, torch.float32)
 
-    def _targets(self, b, target_light, target_ambient):
+    def _check_batch(self, b: int) -> None:
+        if self._batch_group is None:
+            return  # no mesh, or the batch replicated: any size works
+        n = self.mesh.size if self.parallel == "data" else self.mesh.axis_size(self.mesh.axis_names[0])
+        if b % n:
+            what = f"the grid mesh's batch-axis size {n}" if self.parallel == "grid" else f"the mesh size {n}"
+            raise ValueError(f"batch size {b} must be a multiple of {what} (pad the tail batch)")
+
+    def _part(self, b: int) -> slice:
+        """This rank's rows of a batch of b."""
+        if self._batch_group is None:
+            return slice(None)
+        if self.parallel == "data":
+            per = b // self.mesh.size
+            return slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+        return self.mesh.batch_slice(b)
+
+    def _targets(self, b, target_light, target_ambient, part):
         if target_light is None:
             target_light = torch.zeros((b, 3))
         if target_ambient is None:
             target_ambient = torch.zeros((b,))
         return (
-            torch.as_tensor(target_light).to(self.device, torch.float32),
-            torch.as_tensor(target_ambient).to(self.device, torch.float32),
+            torch.as_tensor(target_light)[part].to(self.device, torch.float32),
+            torch.as_tensor(target_ambient)[part].to(self.device, torch.float32),
         )
+
+    def _forward_local(self, images, masks, target_light, target_ambient):
+        """This rank's rows: (RenderOutputs, its masks)."""
+        b = torch.as_tensor(images).shape[0]
+        self._check_batch(b)
+        part = self._part(b)
+        images, masks = self._as_input(images, part), self._as_input(masks, part)
+        light, ambient = self._targets(b, target_light, target_ambient, part)
+        net = self._net(images)
+        out = render(net.albedo, net.depth, net.lighting, masks, self.cfg.render,
+                     target_light=light, target_ambient=ambient, march_fn=self._march_fn)
+        return out, masks
+
+    def _net(self, images):
+        """RelightNet's forward; where ranks replicate it around a sharded
+        march, with cuDNN's deterministic algorithms, so that every rank
+        marches the same depth bits."""
+        with deterministic_convs() if self._march_fn is not None else contextlib.nullcontext():
+            return self.model(images, self.use_skips)
 
     @torch.no_grad()
     def forward(self, images, masks, target_light=None, target_ambient=None) -> RenderOutputs:
         """Relight a batch: images (B, H, W, 3), masks (B, H, W), target_light (B, 3)."""
-        images, masks = self._as_input(images), self._as_input(masks)
-        light, ambient = self._targets(images.shape[0], target_light, target_ambient)
-        net = self.model(images, self.use_skips)
-        return render(net.albedo, net.depth, net.lighting, masks, self.cfg.render,
-                      target_light=light, target_ambient=ambient)
+        out, _ = self._forward_local(images, masks, target_light, target_ambient)
+        return RenderOutputs(*(all_gather_cat(x, self._batch_group) for x in out))
 
     @torch.no_grad()
     def forward_visuals(self, images, masks, target_light=None, target_ambient=None) -> torch.Tensor:
         """`forward`, returned as the packed uint8 (B, H, W, 12) visuals."""
-        out = self.forward(images, masks, target_light, target_ambient)
-        return pack_visuals(out, self._as_input(masks))
+        out, masks = self._forward_local(images, masks, target_light, target_ambient)
+        return all_gather_cat(pack_visuals(out, masks), self._batch_group)
 
     @torch.no_grad()
     def relight_sweep(self, image, mask, lights, ambients=None) -> RenderOutputs:
@@ -130,14 +227,14 @@ class Relighter:
             ambients = torch.full((n,), 0.5)
         ambients = torch.as_tensor(ambients).to(self.device, torch.float32)
         image, mask = self._as_input(image), self._as_input(mask)
-        net = self.model(image[None], self.use_skips)
+        net = self._net(image[None])
 
         def tile(x):
             return x.expand(n, *x.shape[1:])
 
         return render(tile(net.albedo), tile(net.depth), tile(net.lighting),
                       mask[None].expand(n, *mask.shape), self.cfg.render,
-                      target_light=lights, target_ambient=ambients)
+                      target_light=lights, target_ambient=ambients, march_fn=self._march_fn)
 
     @torch.no_grad()
     def relight_sweep_rendered_u8(self, image, mask, lights, ambients=None) -> torch.Tensor:
@@ -147,9 +244,20 @@ class Relighter:
 
     @torch.no_grad()
     def estimate_lighting(self, images):
-        """Estimated (unit direction (B, 3), ambient (B,)), z clamped per the config."""
-        net = self.model(self._as_input(images), self.use_skips)
-        return estimated_light(net.lighting, self.cfg.render)
+        """Estimated (unit direction (B, 3), ambient (B,)), z clamped per the config.
+
+        Sharded in 'data' mode only: the samples and grid modes shard the
+        march, which this skips, so any batch size works there.
+        """
+        b = torch.as_tensor(images).shape[0]
+        group = self._batch_group if self.parallel == "data" else None
+        part = slice(None)
+        if group is not None:
+            self._check_batch(b)
+            part = self._part(b)
+        net = self._net(self._as_input(images, part))
+        unit, ambient = estimated_light(net.lighting, self.cfg.render)
+        return all_gather_cat(unit, group), all_gather_cat(ambient, group)
 
     def transfer_lighting(self, input_images, reference_images, masks) -> RenderOutputs:
         """2-pass lighting transfer: estimate from `reference`, render `input`."""
@@ -162,6 +270,8 @@ def load_relighter(
     cfg: Optional[PipelineConfig] = None,
     use_skips: Tuple[bool, bool, bool, bool] = FULL_SKIPS,
     device=None,
+    mesh: Optional[Mesh] = None,
+    parallel: str = "data",
 ) -> Relighter:
     """Build a Relighter from a reference `.pth` state dict.
 
@@ -178,4 +288,4 @@ def load_relighter(
     state = load_checkpoint(checkpoint_path)
     if cfg.model.variant == "target" and is_transfer_state(state):
         state = transfer_to_target_variant(state)
-    return Relighter(cfg, state, use_skips=use_skips, device=device)
+    return Relighter(cfg, state, use_skips=use_skips, device=device, mesh=mesh, parallel=parallel)

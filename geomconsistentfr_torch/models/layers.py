@@ -5,7 +5,9 @@
     affine transform in float32 whatever the activation dtype, and narrows
     only the output: biased variance for normalisation, unbiased for the
     running-var update, running = (1-m)*running + m*batch, eps 1e-5
-    (geomconsistentfr_tpu/models/layers.py:51-98).
+    (geomconsistentfr_tpu/models/layers.py:51-98). Given a process group,
+    it is cross-replica BatchNorm: the moments are averaged over the group
+    and the count is the group's, as JAX's `axis_name` does (:83-89).
   * `conv`: a conv or stride-1 transposed conv evaluated in a chosen dtype
     (parameters stay float32 and are cast per call, as flax promotes them).
   * `reset_torch_default`: torch's default init (kaiming-uniform a=sqrt(5),
@@ -23,18 +25,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from geomconsistentfr_torch.parallel.mesh import all_mean, group_size
+
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d in float32 with the output narrowed to `out_dtype`."""
+    """BatchNorm2d in float32 with the output narrowed to `out_dtype`.
 
-    def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    In train mode with a `group` (a process group of the ranks that share
+    the batch), the batch moments are those of the group's whole batch: the
+    per-rank means and mean squares averaged over it (one all-reduce,
+    differentiable), the count times its size. group None is one process.
+    """
+
+    def forward(self, x: torch.Tensor, out_dtype: Optional[torch.dtype] = None, group=None) -> torch.Tensor:
         out_dtype = out_dtype or x.dtype
         x = x.float()
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
             mean_sq = (x * x).mean(dim=(0, 2, 3))
-            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             n = x.numel() // x.shape[1]
+            if group is not None:
+                mean, mean_sq = all_mean(torch.cat([mean, mean_sq]), group).chunk(2)
+                n *= group_size(group)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.mul_(1.0 - m).add_(m * mean)
@@ -72,6 +85,22 @@ def no_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms, chosen without benchmarking, for the block.
+
+    Two processes that run the same convolutions on the same inputs then get
+    the same bits, which ranks that replicate one computation (the samples
+    axis of a mesh) rely on. The previous settings come back on exit.
+    """
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:

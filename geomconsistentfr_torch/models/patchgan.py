@@ -40,11 +40,14 @@ class PatchGAN(nn.Module):
         self.to_empty(device=device or "cpu")
         reset_torch_default(self, generator if generator is not None else torch.Generator().manual_seed(0))
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) images -> (B, H', W', 1) patch logits; train mode updates BN statistics."""
+    def forward(self, img: torch.Tensor, group=None) -> torch.Tensor:
+        """(B, H, W, 3) images -> (B, H', W', 1) patch logits; train mode updates BN statistics.
+
+        `group`: the process group whose ranks share the batch (cross-replica BatchNorm).
+        """
         m = self._modules
         slope = self.cfg.leaky_slope
         x = leaky_relu(self.conv1(img.permute(0, 3, 1, 2)), slope)
         for i in range(2, len(self.cfg.channels) + 1):
-            x = leaky_relu(m[f"bn{i}"](m[f"conv{i}"](x)), slope)
+            x = leaky_relu(m[f"bn{i}"](m[f"conv{i}"](x), group=group), slope)
         return m[f"conv{len(self.cfg.channels) + 1}"](x).permute(0, 2, 3, 1)

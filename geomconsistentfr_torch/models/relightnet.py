@@ -124,11 +124,14 @@ class RelightNet(nn.Module):
         self,
         img: torch.Tensor,
         use_skips: Tuple[bool, bool, bool, bool] = FULL_SKIPS,
+        group=None,
     ) -> RelightNetOutputs:
+        """`group`: the process group whose ranks share the batch, for
+        cross-replica BatchNorm in train mode (the JAX model's `axis_name`)."""
         with no_tf32():
-            return self._forward(img, use_skips)
+            return self._forward(img, use_skips, group)
 
-    def _forward(self, img, use_skips) -> RelightNetOutputs:
+    def _forward(self, img, use_skips, group) -> RelightNetOutputs:
         cfg = self.cfg
         slope = cfg.leaky_slope
         dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -138,7 +141,7 @@ class RelightNet(nn.Module):
             return leaky_relu(x, slope)
 
         def bn(x, name):
-            return m[f"bn_{name}"](x, dt)
+            return m[f"bn_{name}"](x, dt, group)
 
         def conv_bn(x, name):
             return bn(conv(m[f"conv_{name}"], x, dt), name)

@@ -82,6 +82,22 @@ def sample_ts(cfg: RenderConfig) -> np.ndarray:
     return ts
 
 
+def sharded_sample_ts(cfg: RenderConfig, n_shards: int) -> np.ndarray:
+    """sample_ts as float32, padded to n_shards equal contiguous increasing slices.
+
+    Shard i marches rows [i*chunk, (i+1)*chunk) of the result. The slices
+    increase with i, so among the shards that reach a pixel's minimum the
+    smallest global index is the first winner, as on the full grid. The pad
+    repeats the last offset, which cannot change a running minimum, nor win
+    over the offset it repeats (strict `<` keeps the first).
+    """
+    ts = sample_ts(cfg).astype(np.float32)
+    chunk = -(-ts.shape[0] // n_shards)
+    if n_shards * chunk > ts.shape[0]:
+        ts = np.concatenate([ts, np.repeat(ts[-1:], n_shards * chunk - ts.shape[0])])
+    return ts
+
+
 def resolve_mask_gather(cfg: RenderConfig) -> str:
     """'onehot' or 'bilinear': the veto this config asks for ('auto' resolved)."""
     mode = cfg.shadow_mask_gather
@@ -310,6 +326,24 @@ def ray_march_min_distance_batch(
     given `ts`; culled pixels, and pixels whose every sample is vetoed, read
     the first offset.
     """
+    if not return_argmin_t:
+        return _march(depth, mask, light_point, cfg, ts, False)
+    min_d, best_s, ts = _march(depth, mask, light_point, cfg, ts, True)
+    return min_d, ts[best_s]
+
+
+def ray_march_argmin_batch(depth, mask, light_point, cfg: RenderConfig, ts=None):
+    """(min distances, int32 index of each pixel's first winning sample in `ts`).
+
+    The argmin march as kernel K2 returns it: the index where
+    `ray_march_min_distance_batch(..., return_argmin_t=True)` returns its t.
+    """
+    min_d, best_s, _ = _march(depth, mask, light_point, cfg, ts, True)
+    return min_d, best_s.to(torch.int32)
+
+
+def _march(depth, mask, light_point, cfg: RenderConfig, ts, return_argmin: bool):
+    """min distances, or (min distances, first winning index (long), the float32 ts)."""
     scene = _Scene(depth, mask, light_point, cfg)
     b, h, w = depth.shape
     dev = scene.xx.device
@@ -319,12 +353,12 @@ def ray_march_min_distance_batch(
                          dtype=torch.float32, device=dev).reshape(-1)
 
     best = torch.full((b, h, w), float("inf"), device=dev)
-    best_s = torch.zeros((b, h, w), dtype=torch.long, device=dev) if return_argmin_t else None
+    best_s = torch.zeros((b, h, w), dtype=torch.long, device=dev) if return_argmin else None
     start = 0
     for t_chunk in ts.split(max(1, cfg.march_chunk)):
         n2 = scene.sample_n2(t_chunk.view(1, -1, 1, 1))
         chunk_min = n2.amin(dim=1)
-        if return_argmin_t:
+        if return_argmin:
             # First index of the chunk's min; strict < keeps an earlier chunk's winner.
             s = torch.arange(start, start + t_chunk.numel(), device=dev).view(1, -1, 1, 1)
             first = torch.where(n2 == chunk_min[:, None], s, ts.numel()).amin(dim=1)
@@ -333,11 +367,11 @@ def ray_march_min_distance_batch(
         start += t_chunk.numel()
 
     min_d = scene.finish(scene.distance(best), mask)
-    if not return_argmin_t:
+    if not return_argmin:
         return min_d
     if cfg.shadow_mask_cull:
         best_s = torch.where(_live_pixels(mask, cfg), best_s, 0)
-    return min_d, ts[best_s]
+    return min_d, best_s, ts
 
 
 def ray_march_min_distance(depth, mask, light_point, cfg: RenderConfig, ts=None, return_argmin_t: bool = False):

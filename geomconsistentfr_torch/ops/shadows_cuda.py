@@ -14,6 +14,18 @@ march_grad at K2's winning samples; on CPU tensors the plain argmin march and
 the plain `shadows.march_vjp`. `ray_march_min_distance_cuda` goes through it
 whenever depth or the light point needs a gradient.
 
+The sample-sharded paths, where each rank of a process group marches a
+contiguous slice of the t grid (`shadows.sharded_sample_ts`):
+  * `sharded_march` serves (`Relighter(parallel='samples'|'grid')`): K1 on
+    the slice, or K2 with `return_argmin_t`, then the MIN combine over the
+    group and, with K2, the first-winner combine of the indices;
+  * `RayMarchMinDistanceSP` is K5, the JAX package's
+    `ray_march_min_distance_pallas_vjp_sp` (the grid train step): K2 on the
+    slice (counted as 'march_sp'), both combines, then march_grad at the
+    global winner, replicated on every rank with no collective of its own.
+The combines are collectives of torch.distributed outside the kernels, as
+`pmin` is outside the Pallas kernel.
+
 The kernels are compiled by `nvcc` for sm_90a at first use into
 `<repo>/build/kernels/` (git-ignored), keyed by a hash of the source and the
 flags, and loaded with ctypes; the source has a plain C interface, so a build
@@ -36,6 +48,7 @@ import torch
 
 from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops import shadows
+from geomconsistentfr_torch.parallel.mesh import all_gather_cat, all_min, group_rank
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "march.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,7 +59,7 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0}
+LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
 
 # The kernel's `form` argument (csrc/march.cu, enum Form).
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
@@ -156,8 +169,11 @@ def _ptr(x) -> int:
     return 0 if x is None else x.data_ptr()
 
 
-def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, idx=None):
-    """Launch one form of the march kernel on the current stream; (B, H, W) distances."""
+def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, idx=None, count_as=None):
+    """Launch one form of the march kernel on the current stream; (B, H, W) distances.
+
+    The launch counts under `count_as`, by default the form's own name.
+    """
     b, h, w = depth.shape
     dev = depth.device
     bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
@@ -179,7 +195,7 @@ def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=
         )
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    LAUNCHES[count_as or kernel] += 1
     return out
 
 
@@ -197,11 +213,15 @@ def ray_march_min_distance_cuda(
     with `return_argmin_t`, which returns (min distances, t*). `ts` overrides
     the sample offsets (1-D float32, any length); t* then takes its values.
     When depth or the light point needs a gradient, the march over the full
-    grid goes through `RayMarchMinDistance` (K2 forward, march_grad backward).
+    grid goes through `RayMarchMinDistance` (K2 forward, march_grad backward),
+    and a march over given offsets through `RayMarchMinDistanceSP` with no
+    group (K5 on one shard).
     """
     if needs_grad(depth, light_point):
-        if ts is not None or return_argmin_t:
-            raise NotImplementedError("the differentiable march takes the full t grid and returns distances only")
+        if return_argmin_t:
+            raise NotImplementedError("the differentiable march returns distances only")
+        if ts is not None:
+            return RayMarchMinDistanceSP.apply(depth, mask, light_point, cfg, ts, None)
         return RayMarchMinDistance.apply(depth, mask, light_point, cfg)
     if depth.device.type == "cpu":
         return shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, ts, return_argmin_t)
@@ -221,10 +241,18 @@ def _ts_for(dev: torch.device, cfg: RenderConfig, ts=None) -> torch.Tensor:
     return torch.as_tensor(ts, dtype=torch.float32, device=dev).reshape(-1).contiguous()
 
 
-def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig):
+def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
     """K2: (min distances, int32 index of each pixel's first winning sample in ts)."""
     idx = torch.empty(depth.shape, dtype=torch.int32, device=depth.device)
-    return _launch("march_argmin", depth, mask, light_point, ts, cfg, idx=idx), idx
+    return _launch("march_argmin", depth, mask, light_point, ts, cfg, idx=idx, count_as=count_as), idx
+
+
+def _argmin_march(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
+    """(min distances, int32 first-winner index into ts): K2 on CUDA tensors, its plain version on the CPU."""
+    if depth.device.type == "cpu":
+        return shadows.ray_march_argmin_batch(depth, mask, light_point, cfg, ts)
+    _check_inputs(depth, mask, light_point, cfg, "march")
+    return _launch_argmin(depth, mask, light_point, ts, cfg, count_as)
 
 
 def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig):
@@ -276,25 +304,88 @@ class RayMarchMinDistance(torch.autograd.Function):
     def forward(ctx, depth, mask, light_point, cfg: RenderConfig):
         if cfg.shadow_resolution_scale != 1:
             raise NotImplementedError("the draft tier's march has no gradient: it serves only")
-        ctx.cfg = cfg
-        if depth.device.type == "cpu":
-            out, t_star = shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, return_argmin_t=True)
-            ctx.save_for_backward(depth, mask, light_point, t_star)
-            return out
-        _check_inputs(depth, mask, light_point, cfg, "march")
-        ctx.ts = _ts_for(depth.device, cfg)
-        out, idx = _launch_argmin(depth, mask, light_point, ctx.ts, cfg)
+        ctx.cfg, ctx.ts = cfg, _ts_for(depth.device, cfg)
+        out, idx = _argmin_march(depth, mask, light_point, ctx.ts, cfg)
         ctx.save_for_backward(depth, mask, light_point, idx)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        depth, mask, light_point, winner = ctx.saved_tensors
-        if depth.device.type == "cpu":
-            d_depth, d_light = shadows.march_vjp(depth, mask, light_point, winner, grad, ctx.cfg)
-        else:
-            d_depth, d_light = march_grad_cuda(depth, mask, light_point, winner, ctx.ts, grad, ctx.cfg)
+        depth, mask, light_point, idx = ctx.saved_tensors
+        d_depth, d_light = march_grad_cuda(depth, mask, light_point, idx, ctx.ts, grad, ctx.cfg)
         return d_depth, None, d_light, None
+
+
+_NO_WINNER = torch.iinfo(torch.int32).max
+
+
+def _first_winner(local_min, local_idx, ts_local, group):
+    """Combine the shards' marches: (global min, global first-winner index, the padded global t table).
+
+    A shard whose minimum is not the global one is strictly greater (the
+    MIN is one of the shards' values, so the equality test is exact). Among
+    the shards that reach it, the smallest index into the concatenated
+    slices wins: the slices are contiguous and increasing, so that is the
+    smallest t, the full grid's first winner (shadows_pallas.py:851-855).
+    """
+    if group is None:
+        return local_min, local_idx, ts_local
+    global_min = all_min(local_min, group)
+    offset = group_rank(group) * ts_local.numel()
+    candidate = torch.where(local_min == global_min, local_idx + offset, _NO_WINNER)
+    return global_min, all_min(candidate, group), all_gather_cat(ts_local, group)
+
+
+def sharded_march(depth, mask, light_point, cfg: RenderConfig, ts_local, group, return_argmin_t: bool = False):
+    """The march over the group's t grid, this rank marching `ts_local`; the same result on every rank.
+
+    Serving form (infer.py:280-307 of the JAX package): K1 on the slice then
+    the MIN over the group, or with `return_argmin_t` K2 on the slice, the
+    MIN and the first-winner combine -> (min distances, t*). The slices must
+    be the group ranks' contiguous rows of `shadows.sharded_sample_ts`, in
+    group-rank order. A march that needs a gradient is K5.
+    """
+    if needs_grad(depth, light_point):
+        if return_argmin_t:
+            raise NotImplementedError("the differentiable march returns distances only")
+        return RayMarchMinDistanceSP.apply(depth, mask, light_point, cfg, ts_local, group)
+    ts_local = _ts_for(depth.device, cfg, ts_local)
+    if not return_argmin_t:
+        return all_min(ray_march_min_distance_cuda(depth, mask, light_point, cfg, ts_local), group)
+    local_min, local_idx = _argmin_march(depth, mask, light_point, ts_local, cfg)
+    out, idx, table = _first_winner(local_min, local_idx, ts_local, group)
+    return out, table[idx.long()]
+
+
+class RayMarchMinDistanceSP(torch.autograd.Function):
+    """The sample-sharded differentiable march, kernel K5 (shadows_pallas.py:814-871).
+
+    apply(depth, mask, light_point, cfg, ts_local, group) -> (B, H, W), the
+    same on every rank of `group` (None: one shard, ts_local is the grid).
+    Forward: K2 on this rank's slice (counted as 'march_sp'), the MIN combine
+    and the first-winner combine of the indices. Backward: march_grad at the
+    global winner, from the same residuals on every rank, so with no
+    collective; its atomics may order the sums differently on two ranks,
+    which is why the train step averages gradients over every rank. On CPU
+    tensors: the plain argmin march on the slice and shadows.march_vjp.
+    """
+
+    @staticmethod
+    def forward(ctx, depth, mask, light_point, cfg: RenderConfig, ts_local, group):
+        if cfg.shadow_resolution_scale != 1:
+            raise NotImplementedError("the draft tier's march has no gradient: it serves only")
+        ctx.cfg = cfg
+        ts_local = _ts_for(depth.device, cfg, ts_local)
+        local_min, local_idx = _argmin_march(depth, mask, light_point, ts_local, cfg, count_as="march_sp")
+        out, idx, ctx.table = _first_winner(local_min, local_idx, ts_local, group)
+        ctx.save_for_backward(depth, mask, light_point, idx)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        depth, mask, light_point, idx = ctx.saved_tensors
+        d_depth, d_light = march_grad_cuda(depth, mask, light_point, idx, ctx.table, grad, ctx.cfg)
+        return d_depth, None, d_light, None, None, None
 
 
 def refine_min_distance_cuda(

@@ -20,12 +20,21 @@ differentiable march K4 of ops/shadows_cuda.RayMarchMinDistance). The draft tier
 (ops/shadows.scale_march_inputs) and records the argmin t* (kernel K2), then
 re-marches a window of offsets around the upsampled t* at full resolution
 (kernel K3). With shadow_refine_halfwidth 0 it upsamples the low-resolution
-distances instead (K1, then ops/shadows.upscale_min_distance). The JAX
-package's `march_fn` hook (sample and grid parallelism) is not ported yet.
+distances instead (K1, then ops/shadows.upscale_min_distance).
+
+`march_fn` replaces the march, as in the JAX package (render.py:96-113):
+sample and grid parallelism pass one that marches this rank's slice of the t
+grid and combines over its process group (ops/shadows_cuda.sharded_march,
+or K5 in training). It receives the march-resolution inputs (pooled at the
+draft tier, where it must close over the scaled config); with the draft
+refine on it is called with `return_argmin_t=True` and returns (min
+distances, first-winner t*), and its `refine_fn` attribute, if it has one,
+replaces the full-resolution refine.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -71,12 +80,14 @@ def render(
     cfg: RenderConfig,
     target_light: Optional[torch.Tensor] = None,
     target_ambient: Optional[torch.Tensor] = None,
+    march_fn=None,
 ) -> RenderOutputs:
     """Render a relit image from network outputs.
 
     albedo (B, H, W, 3) in [0, 1]; depth (B, H, W), already scaled; lighting
     (B, 4) raw head output; mask (B, H, W), exact zeros veto shadow samples;
-    target_light (B, 3), need not be unit; target_ambient (B,).
+    target_light (B, 3), need not be unit; target_ambient (B,); march_fn, an
+    optional replacement of the march (see the module docstring).
     """
     b, h, w = depth.shape
     f = cfg.focal_length
@@ -117,7 +128,7 @@ def render(
     if depth.is_cuda and not cfg.use_pallas_shadows:
         raise ValueError("use_pallas_shadows=False: CUDA tensors march only through the CUDA kernels")
     min_distance = shadow_min_distance(
-        depth.float().contiguous(), mask.float().contiguous(), light_point.float().contiguous(), cfg
+        depth.float().contiguous(), mask.float().contiguous(), light_point.float().contiguous(), cfg, march_fn
     )
     weights = shadow_weights(min_distance)
     final_shading, rendered = composite(albedo, full_shading, ambient_map, weights)
@@ -139,20 +150,26 @@ def render(
     )
 
 
-def shadow_min_distance(depth, mask, light_point, cfg: RenderConfig) -> torch.Tensor:
+def shadow_min_distance(depth, mask, light_point, cfg: RenderConfig, march_fn=None) -> torch.Tensor:
     """(B, H, W) min distances of the configured tier's march, through the kernels' wrappers.
 
     depth and mask (B, H, W) and light_point (B, 3), float32 and contiguous.
     A march that needs a gradient (training) goes through the wrapper into
     RayMarchMinDistance: K2 forward, march_grad backward. The draft tier
     serves only, as in the JAX package (render.py:189-193), and raises on one.
+    `march_fn` (and its `refine_fn`) replace the wrappers' march (and refine).
     """
     if cfg.shadow_resolution_scale == 1:
-        return ray_march_min_distance_cuda(depth, mask, light_point, cfg)
+        if march_fn is None:
+            return ray_march_min_distance_cuda(depth, mask, light_point, cfg)
+        return march_fn(depth, mask, light_point)
     if needs_grad(depth, light_point):
         raise NotImplementedError("the draft tier's march has no gradient: it serves only")
     m_depth, m_mask, m_light, m_cfg = scale_march_inputs(depth, mask, light_point, cfg)
+    if march_fn is None:
+        march_fn = functools.partial(ray_march_min_distance_cuda, cfg=m_cfg)
     if cfg.shadow_refine_halfwidth == 0:
-        return upscale_min_distance(ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg), cfg)
-    _, t_star = ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
-    return refine_min_distance_cuda(depth, mask, light_point, upsample_tstar_nn(t_star, cfg), cfg)
+        return upscale_min_distance(march_fn(m_depth, m_mask, m_light), cfg)
+    _, t_star = march_fn(m_depth, m_mask, m_light, return_argmin_t=True)
+    refine_fn = getattr(march_fn, "refine_fn", None) or functools.partial(refine_min_distance_cuda, cfg=cfg)
+    return refine_fn(depth, mask, light_point, upsample_tstar_nn(t_star, cfg))

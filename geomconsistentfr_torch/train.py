@@ -1,8 +1,8 @@
-"""Self-supervised GAN training on one device (reference train_*.py:560-693).
+"""Self-supervised GAN training (reference train_*.py:560-693).
 
-Port of geomconsistentfr_tpu/train.py (`_train_step`, :180-288, and the
-`Trainer`'s epoch loop, checkpoints and resume, :418-665) without its
-multi-device paths. Semantics kept:
+Port of geomconsistentfr_tpu/train.py: `_train_step` (:180-288), the
+data-parallel and grid steps (:303-410), and the `Trainer`'s epoch loop,
+checkpoints and resume (:418-665). Semantics kept:
   * one RelightNet train-mode forward and one `render` per step serve both
     the discriminator and the generator phase (:618, :641);
   * the discriminator loss sees a detached composite; the generator's
@@ -17,6 +17,27 @@ multi-device paths. Semantics kept:
 In training the march needs a gradient, so `render` runs the differentiable
 march K4 (ops/shadows_cuda.RayMarchMinDistance): kernel K2 forward and
 march_grad backward on the card, their plain versions on the CPU.
+
+Several ranks (parallel/mesh.py), each a process of torch.distributed:
+  * `make_data_parallel_step`: each rank steps on its slice of the global
+    batch. The masked-loss sums, the loss means and the BatchNorm moments
+    are reduced over the data group inside the graph, differentiably, as the
+    JAX step psums them; the gradients are then averaged over every rank.
+    The result is the single-device step on the global batch.
+  * `make_grid_parallel_step`: a (data x samples) mesh. The data axis shards
+    the batch as above; the samples axis shards the march's t grid: the
+    march is K5 (ops/shadows_cuda.RayMarchMinDistanceSP) on this rank's slice
+    of `sharded_sample_ts`, MIN-combined over the samples group, with its
+    backward at the global winner. Everything else runs replicated along
+    the samples axis.
+The gradients are averaged over the whole world, not the data group alone:
+march_grad's atomics (and some cuDNN backward algorithms) add in no fixed
+order, so two sample replicas' gradients can differ in their last bits,
+and only a mean over every rank gives every rank the same bits. Parameters,
+BatchNorm statistics and Adam's moments therefore stay bit-identical on all
+ranks. The ranks of a samples group replicate everything outside the march,
+so the grid step runs cuDNN's deterministic algorithms: the replicas'
+forwards, and so their statistics and losses, are then the same bits.
 
 With compute_dtype 'float32' the whole step -- forwards, backward and both
 optimizer steps -- runs with TF32 off: cuDNN would otherwise compute the
@@ -44,9 +65,12 @@ from torch.func import functional_call
 from geomconsistentfr_torch.config import PipelineConfig, preset_target_lighting_train
 from geomconsistentfr_torch.infer import resolve_device
 from geomconsistentfr_torch.losses import discriminator_losses, generator_losses, masked_composite
-from geomconsistentfr_torch.models.layers import no_tf32
+from geomconsistentfr_torch.models.layers import deterministic_convs, no_tf32
 from geomconsistentfr_torch.models.patchgan import PatchGAN
 from geomconsistentfr_torch.models.relightnet import RelightNet
+from geomconsistentfr_torch.ops import shadows
+from geomconsistentfr_torch.ops.shadows_cuda import RayMarchMinDistanceSP
+from geomconsistentfr_torch.parallel.mesh import Mesh, average_gradients
 from geomconsistentfr_torch.render import render
 from geomconsistentfr_torch.utils import checkpoint as ckpt
 
@@ -124,32 +148,42 @@ def train_step(
     batch: Dict[str, torch.Tensor],
     cfg: PipelineConfig,
     use_skips: Tuple[bool, bool, bool, bool],
+    mesh: Optional[Mesh] = None,
+    march_fn=None,
 ) -> Dict[str, torch.Tensor]:
     """One GAN step on a decoded batch; updates `state` in place, returns the losses.
 
     The returned dict holds the generator's terms and total and the
     discriminator's terms as detached 0-d tensors on the state's device.
+    With a `mesh`, `batch` is this rank's slice of the global batch: the
+    losses and BatchNorm moments reduce over the mesh's first (data) axis
+    and the gradients are averaged over all its ranks (the module docstring
+    says why). `march_fn` replaces the render's march (render.render).
     """
     precision = no_tf32() if cfg.model.compute_dtype == "float32" else contextlib.nullcontext()
-    with precision:
-        return _train_step(state, batch, cfg, tuple(use_skips))
+    # Ranks that share a batch slice (a samples axis) must compute the same
+    # bits outside the march, or their BatchNorm statistics and losses part.
+    replicated = mesh is not None and mesh.size > mesh.axis_size(mesh.axis_names[0])
+    with precision, deterministic_convs() if replicated else contextlib.nullcontext():
+        return _train_step(state, batch, cfg, tuple(use_skips), mesh, march_fn)
 
 
-def _train_step(state: TrainState, batch, cfg: PipelineConfig, use_skips) -> Dict[str, torch.Tensor]:
+def _train_step(state: TrainState, batch, cfg: PipelineConfig, use_skips, mesh, march_fn) -> Dict[str, torch.Tensor]:
     g, d = state.g.train(), state.d.train()
     lcfg = cfg.train.loss
     images, face_mask = batch["image"], batch["face_mask"]
+    group = mesh.group(mesh.axis_names[0]) if mesh is not None else None
 
-    net = g(images, use_skips)
-    out = render(net.albedo, net.depth, net.lighting, face_mask, cfg.render)
+    net = g(images, use_skips, group)
+    out = render(net.albedo, net.depth, net.lighting, face_mask, cfg.render, march_fn=march_fn)
     composite = masked_composite(out.rendered, images, face_mask)
 
     # D's BatchNorm statistics update over three forwards, in reference order.
-    fake_sg = d(composite.detach())
-    real_sg = d(images)
-    d_metrics = discriminator_losses(fake_sg, real_sg, lcfg)
+    fake_sg = d(composite.detach(), group)
+    real_sg = d(images, group)
+    d_metrics = discriminator_losses(fake_sg, real_sg, lcfg, group)
     frozen = {name: p.detach() for name, p in d.named_parameters()}
-    fake_for_g = functional_call(d, frozen, (composite,))
+    fake_for_g = functional_call(d, frozen, (composite,), {"group": group})
 
     g_metrics = generator_losses(
         rendered=out.rendered,
@@ -165,6 +199,7 @@ def _train_step(state: TrainState, batch, cfg: PipelineConfig, use_skips) -> Dic
         light_gt=batch["light_gt"],
         fake_logits=fake_for_g,
         cfg=lcfg,
+        group=group,
     )
     state.opt_g.zero_grad(set_to_none=True)
     state.opt_d.zero_grad(set_to_none=True)
@@ -175,6 +210,8 @@ def _train_step(state: TrainState, batch, cfg: PipelineConfig, use_skips) -> Dic
     for p in itertools.chain(g.parameters(), d.parameters()):
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        average_gradients(list(itertools.chain(g.parameters(), d.parameters())), mesh.world_group)
     # D's parameters and moments update only every gd_ratio-th step; its
     # BatchNorm statistics and its loss every step (reference :624-629).
     if state.step % cfg.train.gd_ratio == 0:
@@ -182,6 +219,34 @@ def _train_step(state: TrainState, batch, cfg: PipelineConfig, use_skips) -> Dic
     state.opt_g.step()
     state.step += 1
     return {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
+
+
+def make_data_parallel_step(cfg: PipelineConfig, mesh: Mesh):
+    """step(state, batch, use_skips): train_step on this rank's slice of a batch sharded over the mesh."""
+    return functools.partial(train_step, cfg=cfg, mesh=mesh)
+
+
+def make_grid_parallel_step(cfg: PipelineConfig, mesh: Mesh):
+    """step(state, batch, use_skips) on a 2-D (data, samples) mesh.
+
+    The batch shards over the data axis as in make_data_parallel_step; the
+    march is K5 on this rank's contiguous slice of
+    sharded_sample_ts(cfg.render, n_samples), combined over the samples
+    group. Batch 3 caps plain data parallelism at 3 ranks; the samples axis
+    goes on sharding the march's 160 samples at a fixed batch.
+    """
+    if len(mesh.axis_names) != 2:
+        raise ValueError("the grid step needs a 2-D (data, samples) mesh; see parallel.mesh.make_mesh_grid")
+    samples_axis = mesh.axis_names[1]
+    n_s, shard = mesh.axis_size(samples_axis), mesh.axis_index(samples_axis)
+    ts = shadows.sharded_sample_ts(cfg.render, n_s).reshape(n_s, -1)[shard]
+    ts_local = torch.as_tensor(ts, device=mesh.device)
+    group = mesh.group(samples_axis)
+
+    def march(depth, mask, light_point):
+        return RayMarchMinDistanceSP.apply(depth, mask, light_point, cfg.render, ts_local, group)
+
+    return functools.partial(train_step, cfg=cfg, mesh=mesh, march_fn=march)
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +259,15 @@ _SYNC_EVERY = 8
 
 
 class Trainer:
-    """Epoch loop on one device: batch order, GD alternation, metrics, checkpoints, resume.
+    """Epoch loop: batch order, GD alternation, metrics, checkpoints, resume.
 
-    `data` provides numpy batches (data/celebahq.py). Not ported yet (see
-    ROADMAP): data_residency='device', profile traces, the visualizer and
-    the data-parallel and grid steps; data_residency 'auto' streams.
+    `data` provides numpy batches (data/celebahq.py). With a `mesh` every
+    rank runs the same loop on its device (mesh.device): it draws the same
+    global batch, takes its slice over the mesh's data axis, and steps with
+    the grid step on a 2-D mesh or the data-parallel step on a 1-D mesh of
+    several ranks; only rank 0 writes checkpoints and metrics. Not ported
+    yet (see ROADMAP): data_residency='device', profile traces and the
+    visualizer; data_residency 'auto' streams.
     """
 
     def __init__(
@@ -207,15 +276,27 @@ class Trainer:
         data=None,
         workdir: str = "runs/train",
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         self.cfg = cfg or preset_target_lighting_train()
         if self.cfg.train.data_residency == "device":
             raise NotImplementedError("data_residency='device' is not ported yet; use 'auto' or 'stream'")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.data = data
         self.workdir = workdir
-        self.step_fn = functools.partial(train_step, cfg=self.cfg)
+        if mesh is not None and len(mesh.axis_names) == 2:
+            self.step_fn = make_grid_parallel_step(self.cfg, mesh)
+        elif mesh is not None and mesh.size > 1:
+            self.step_fn = make_data_parallel_step(self.cfg, mesh)
+        else:
+            self.step_fn = functools.partial(train_step, cfg=self.cfg)
         self.metrics_log: list = []
+
+    @property
+    def writes(self) -> bool:
+        """True on the rank that writes checkpoints and metrics (rank 0, or the only process)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @property
     def checkpoint_root(self) -> str:
@@ -230,15 +311,19 @@ class Trainer:
         return state
 
     def save(self, state: TrainState) -> str:
+        """Write a step checkpoint (on the writing rank only); its path."""
         path = os.path.join(self.checkpoint_root, f"step_{state.step:08d}")
-        ckpt.save_train_state(path, state.state_dict())
-        ckpt.prune_step_dirs(self.checkpoint_root, self.cfg.train.keep_checkpoints)
+        if self.writes:
+            ckpt.save_train_state(path, state.state_dict())
+            ckpt.prune_step_dirs(self.checkpoint_root, self.cfg.train.keep_checkpoints)
         return path
 
     def _batches(self, rng: np.random.Generator, start_batch: int):
-        """The epoch's host batches: shuffled contiguous slots where the data
-        has them, else i.i.d. index draws, else i.i.d. batch draws."""
+        """The epoch's host batches (this rank's slice of each): shuffled
+        contiguous slots where the data has them, else i.i.d. index draws,
+        else i.i.d. batch draws."""
         tcfg = self.cfg.train
+        part = self.mesh.batch_slice(tcfg.batch_size) if self.mesh is not None else slice(None)
         get_batch = getattr(self.data, "get_batch_raw", None) or getattr(self.data, "get_batch", None)
         if hasattr(self.data, "epoch_batch_indices"):
             index_iter = self.data.epoch_batch_indices(rng, tcfg.batch_size, tcfg.batches_per_epoch)
@@ -248,9 +333,9 @@ class Trainer:
             sample_batch = getattr(self.data, "sample_batch_raw", self.data.sample_batch)
             batches = (sample_batch(rng, tcfg.batch_size) for _ in range(tcfg.batches_per_epoch))
             # Draw and discard: the resumed stream equals the uninterrupted one.
-            return itertools.islice(batches, start_batch, None)
-        # Fast-forward at the index level (no IO).
-        return map(get_batch, itertools.islice(index_iter, start_batch, None))
+            return ({k: v[part] for k, v in b.items()} for b in itertools.islice(batches, start_batch, None))
+        # Fast-forward at the index level (no IO); each rank reads only its slice.
+        return (get_batch(idx[part]) for idx in itertools.islice(index_iter, start_batch, None))
 
     def run_epoch(
         self,
@@ -298,7 +383,9 @@ class Trainer:
         return state, avg
 
     def _export_metrics(self, epoch: int, avg: Dict[str, float]) -> None:
-        """CSV and the reference-compatible .mat export (train_*.py:671-683)."""
+        """CSV and the reference-compatible .mat export (train_*.py:671-683), on the writing rank."""
+        if not self.writes:
+            return
         out_dir = os.path.join(self.workdir, "losses")
         os.makedirs(out_dir, exist_ok=True)
         csv_path = os.path.join(out_dir, "metrics.csv")

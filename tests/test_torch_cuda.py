@@ -76,7 +76,7 @@ def test_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}
+    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
     assert_march_close(got, shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
 
 
@@ -90,7 +90,7 @@ def test_argmin_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0}
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0, "march_sp": 0}
     want_d, want_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
     assert_march_close(got_d, want_d)
     assert (got_t == want_t).float().mean().item() >= 0.9999
@@ -123,7 +123,7 @@ def test_refine_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 1, "march_grad": 0}
+    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 1, "march_grad": 0, "march_sp": 0}
     assert_march_close(got, shadows.refine_min_distance_batch(depth, mask, light, t_map, cfg))
     offsets = shadows.refine_offsets(cfg)[1:6]
     assert_march_close(shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets),
@@ -144,12 +144,12 @@ def test_render_on_the_card_always_launches_the_kernel(dev):
     args = (torch.rand((4, 64, 64, 3), device=dev), depth, torch.zeros((4, 4), device=dev), mask)
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}
+    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
     want = shadows.ray_march_min_distance_batch(depth, mask, cfg.light_distance * l2_normalize(light, dim=-1), cfg)
     assert_march_close(out.min_distance, want)
     with pytest.raises(ValueError):
         render(*args, dataclasses.replace(cfg, use_pallas_shadows=False), target_light=light)
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0}
+    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
 
 
 @pytest.mark.parametrize("halfwidth", [4, 0], ids=["refine", "upscale"])
@@ -161,8 +161,8 @@ def test_draft_render_launches_the_draft_kernels(dev, halfwidth):
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     torch.cuda.synchronize()
-    want_launches = ({"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0} if halfwidth
-                     else {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0})
+    want_launches = ({"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0} if halfwidth
+                     else {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0})
     assert launches_since(before) == want_launches
     lp = cfg.light_distance * l2_normalize(light, dim=-1)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, lp, cfg)
@@ -245,10 +245,10 @@ def test_march_grad_matches_plain_vjp(dev, veto, cull, gate):
     d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
     before = dict(shadows_cuda.LAUNCHES)
     out = shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg)
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0}
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0, "march_sp": 0}
     (out * g).sum().backward()
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1}
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1, "march_sp": 0}
     assert_march_close(out.detach(), shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
     # The plain VJP at the kernel's own winners: this holds march_grad alone.
     _, t_star = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
@@ -274,7 +274,7 @@ def test_render_with_a_gradient_launches_k2_and_march_grad(dev):
     before = dict(shadows_cuda.LAUNCHES)
     got_d, got_l = grads(dev)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1}
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1, "march_sp": 0}
     want_d, want_l = grads("cpu")
     # The renderer's eager ops round differently on the two devices, which
     # may move a knife-edge winner: agreement on >= 0.999 of the entries.
@@ -322,3 +322,79 @@ def test_float32_train_step_keeps_tf32_off_through_the_backward(dev):
         leaked = ((step_grads(True) - want).abs().sum() / want.abs().sum()).item()
     print(f"TF32 allowed globally, step's guard on: {rel}; guard taken out: {leaked}")
     assert rel <= 2e-4 and leaked >= 100 * max(rel, 1e-6), (rel, leaked)
+
+
+# ---------------------------------------------------------------------------
+# K5 and the grid step: two ranks on the one card (gloo; NCCL refuses two
+# ranks on one GPU), spawned with a file:// rendezvous in tmp_path.
+# ---------------------------------------------------------------------------
+
+
+def load_ranks(tmp_path, tag, n=2):
+    return [torch.load(tmp_path / f"{tag}_rank{r}.pt", map_location="cpu", weights_only=False) for r in range(n)]
+
+
+def test_k5_on_two_ranks_is_the_full_grid_k2(dev, tmp_path):
+    """K5 (RayMarchMinDistanceSP): K2 on each rank's 16 of the 32 samples, the
+    MIN and first-winner combines, march_grad at the global winner. Its
+    distances are bit-equal to K2 on the full grid, its winner equal on
+    >= 0.9999 of pixels, each rank launches one march_sp and one march_grad,
+    and each rank's gradients are the plain VJP at the winner (the bars of
+    test_march_grad_matches_plain_vjp)."""
+    from geomconsistentfr_torch.parallel import distributed
+
+    import torch_parallel_child as child
+
+    depth, mask, _ = scene(dev, seed=9)
+    light = torch.from_numpy(GRAD_LIGHTS).to(dev)
+    g = torch.from_numpy(np.random.default_rng(10).normal(size=depth.shape).astype(np.float32)).to(dev)
+    cfg = RenderConfig(**SMALL)
+    distributed.spawn(child.k5, 2, "cuda", str(tmp_path / "rdzv"),
+                      args=(str(tmp_path), "k5", cfg, *(x.cpu().numpy() for x in (depth, mask, light, g))))
+    ranks = load_ranks(tmp_path, "k5")
+    full, t_full = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
+    for r in ranks:
+        assert r["launches"] == {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 1, "march_sp": 1}
+        assert torch.equal(r["out"], full.cpu()) and torch.equal(r["served"], full.cpu())
+        assert torch.equal(r["served_min"], full.cpu()) and torch.equal(r["idx"], ranks[0]["idx"])
+        t_star = r["table"][r["idx"].long()]
+        assert (t_star == t_full.cpu()).float().mean().item() >= 0.9999
+        want_d, want_l = shadows.march_vjp(depth, mask, light, t_star.to(dev), g, cfg)
+        assert_grads_close(r["d_depth"].to(dev), r["d_light"].to(dev), want_d, want_l)
+
+
+def test_grid_step_on_two_ranks_keeps_replicas_bit_identical(dev, tmp_path):
+    """Two steps of the 1x2 grid step (K5 and march_grad on each rank): every
+    rank's parameters, BatchNorm statistics, Adam moments and gradients are
+    the same bits after each step, and the first step's losses are the
+    single-process step's on the card within rtol 1e-5 (the ranks run
+    cuDNN's deterministic algorithms, the process alone its defaults:
+    1.05e-6 measured on an H100)."""
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.config import preset_target_lighting_train
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+    from geomconsistentfr_torch.parallel import distributed
+
+    import torch_parallel_child as child
+
+    cfg = preset_target_lighting_train()
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **SMALL),
+                              train=dataclasses.replace(cfg.train, batch_size=2))
+    data = SyntheticFaceData(num_samples=4, size=64)
+    batches = [data.get_batch([0, 1]), data.get_batch([2, 3])]
+    state = T.init_state(cfg, dev, torch.Generator().manual_seed(0))
+    start = {"g": state.g.state_dict(), "d": state.d.state_dict()}
+    start = {k: {n: t.cpu() for n, t in v.items()} for k, v in start.items()}
+    distributed.spawn(child.train_steps, 2, "cuda", str(tmp_path / "rdzv"),
+                      args=(str(tmp_path), "grid", [(1, 2)], cfg, start, batches, (False,) * 4))
+    ranks = [r["results"][(1, 2)] for r in load_ranks(tmp_path, "grid")]
+    assert ranks[0]["launches"] == ranks[1]["launches"] == {
+        "march": 0, "march_argmin": 0, "refine": 0, "march_grad": 2, "march_sp": 2}
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    for i in range(2):
+        for key, values in ranks[0]["states"][i].items():
+            for name, v in values.items():
+                assert torch.equal(v, ranks[1]["states"][i][key][name]), (i, key, name)
+    want = [T.train_step(state, T.decode_batch(b, dev), cfg, (False,) * 4) for b in batches[:1]]
+    for k, v in want[0].items():
+        np.testing.assert_allclose(ranks[0]["losses"][0][k], float(v), rtol=1e-5, err_msg=k)
