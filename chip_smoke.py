@@ -2,6 +2,14 @@
 """Drive the PyTorch/CUDA port (geomconsistentfr_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-parent DIR
+
+With no argument it runs the phases below. `--compare-parent DIR` times the
+march kernels of another checkout (e.g. the parent commit, unpacked with
+`git archive` into a git-ignored directory) beside this one's, in turns
+(parent, this tree, this tree, parent), each in a child process of its own
+(`--timing-of ROOT`, which times one tree), with the SASS counts of both
+builds, and prints each run and a summary line.
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device   CUDA is required (no CPU fallback); the card's name and power
@@ -9,16 +17,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
   2. build    every kernel of the port is compiled from csrc/ (nvcc, sm_90a):
               march (K1), march_argmin (K2), refine (K3) and march_grad (the
               backward of the training march K4, whose forward is K2), with
-              the registers ptxas reports for each.
+              the registers ptxas reports for each and the counts of F2I,
+              I2F, FRND, LDG and float32 and integer arithmetic opcodes in
+              its SASS (cuobjdump -sass), in the whole function and in each
+              of its loops.
   3. march    each kernel vs its plain PyTorch version on the card, batch 8,
-              the golden fixtures' depth maps and face masks:
+              the golden fixtures' depth maps and face masks (K1-K3 bit for
+              bit, K2's winning index on every pixel):
               K1 at 256x256, 160 and 159 samples, both vetoes, cull
               off/row/col-32, all three gates;
               K2 on those maps pooled 4x4 under the draft tier (64x64, 80
               samples, plus a slice of the t grid), both vetoes, cull
               off/row, all three gates, its winning index too;
               K3 at 256x256 around the plain K2's upsampled t*, both vetoes,
-              cull off/col-64, all three gates;
+              cull off/col-64, all three gates, and around the plain K2's
+              index (the draft path's form), bit-equal to the t_map form;
               march_grad at 256x256 under preset_target_lighting_train (160
               samples) and on the transfer grid (159 from 0.03), a seeded
               random cotangent, both vetoes, cull off/col-32, all three
@@ -31,12 +44,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
   5. e2e      Relighter.forward at full width (batch 64, 256x256,
               preset_single_image) at the strict, fast and draft tiers with
               random weights from a seeded torch.Generator: img/s (median of
-              five windows), finite outputs, kernel launch counts, and the
-              forward's min distances and rendered image against the plain
-              path on the same batch.
+              five windows), finite outputs, kernel launch counts (and no
+              upsampled t* map or cull-flag pass on the path), and the
+              forward's min distances (bit for bit) and rendered image
+              against the plain path on the same batch.
   6. timing   each kernel's time per launch beside its bound and its plain
               version's time, at the main paths' shapes, after holding the
-              two outputs against each other.
+              two outputs against each other; and the whole draft march
+              (pool, K2, K3) as a row of its own.
   7. train    Trainer.run_epoch at full width (preset_target_lighting_train,
               batch 3, 256x256, SyntheticFaceData, seeded random G and D),
               six steps crossing a D update at steps 0 and 5: finite losses,
@@ -96,10 +111,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # weights 4, bilinear depth 9, BA 5, cross product 9, norm^2 5, carry 2 = 62.
 # The bilinear veto replaces the one-hot's 8 with 40 (clamps 4, floor 2,
 # hat weights 10, tap indices 10, four compares, 9 for the interpolation
-# and the threshold) = 94. Per-pixel setup (endpoint, BC, denominator,
-# final sqrt/div) is about 40.
-OPS_PER_SAMPLE = {"onehot": 62, "bilinear": 94}
+# and the threshold) = 94 before the veto shared the depth taps. It reads
+# the depth quad's corners (its floor and tap indices are the depth taps',
+# counted once): clamps 4, the clamped floors 2 (max with 0), hat weights
+# 10, four compares, 9 for the interpolation and the threshold = 29, so the
+# bilinear sample is 62 - 8 + 29 = 83. Per-pixel setup (endpoint, BC,
+# denominator, final sqrt/div) is about 40.
+OPS_PER_SAMPLE = {"onehot": 62, "bilinear": 83}
 OPS_PER_PIXEL = 40
+# The draft march's pooling, per full-resolution pixel: the face test, its
+# cast, the depth product and the two block sums.
+POOL_OPS_PER_PIXEL = 5
 # What K2 and K3 add to a sample: K2's carry is a compare and two selects
 # instead of one min (+2); K3's t is an add and a clamp (min, max) (+3).
 EXTRA_OPS_PER_SAMPLE = {"march": 0, "march_argmin": 2, "refine": 3}
@@ -157,6 +179,70 @@ def ptxas_registers(log: str) -> dict:
     return regs
 
 
+# SASS opcode groups counted per kernel (the base opcode, before its first '.').
+SASS_CONVERSIONS = ("F2I", "I2F", "FRND", "F2F", "I2FP", "F2IP")
+SASS_F32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FADD32I", "FMUL32I", "FFMA32I")
+SASS_INT = ("IADD3", "IADD", "IADD32I", "VIADD", "IMAD", "IMAD32I", "IMNMX", "VIMNMX", "VIADDMNMX", "ISETP",
+            "LOP3", "SHF", "LEA", "IABS", "SEL", "PRMT")
+SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+
+
+def sass_kernel_name(mangled: str):
+    form = re.search(r"march_kernelILi(\d)E", mangled)
+    if form:
+        return KERNELS[int(form.group(1))]
+    return "march_grad" if "march_grad_kernel" in mangled else None
+
+
+def opcode_counts(instrs) -> dict:
+    bases = [op.split(".")[0] for _, op, _ in instrs]
+    counts = {op: bases.count(op) for op in (*SASS_CONVERSIONS, "LDG")}
+    counts.update(f32=sum(b in SASS_F32 for b in bases), int=sum(b in SASS_INT for b in bases),
+                  mufu=bases.count("MUFU"), total=len(bases))
+    return counts
+
+
+def sass_counts(lib: Path, cuobjdump: Path) -> dict:
+    """kernel name -> opcode counts of its SASS, in the whole function and in each loop.
+
+    A loop is the address range from a backward branch's target to the
+    branch; loops are listed largest first (the sample loops lead).
+    """
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise PhaseError(f"build: cuobjdump failed: {proc.stderr.strip()}")
+    functions, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = sass_kernel_name(line.split("Function :", 1)[1].strip())
+            if name is not None:
+                functions[name] = []
+            continue
+        m = SASS_INSTR.search(line)
+        if m and name is not None:
+            tokens = m.group(2).split()
+            if tokens and tokens[0].startswith("@"):
+                tokens = tokens[1:]
+            if tokens:
+                functions[name].append((int(m.group(1), 16), tokens[0], tokens[1:]))
+    result = {}
+    for name, instrs in functions.items():
+        loops = []
+        for addr, op, args in instrs:
+            if op.split(".")[0] == "BRA" and args and args[0].startswith("0x") and int(args[0], 16) <= addr:
+                start = int(args[0], 16)
+                loops.append(dict(start=start, end=addr,
+                                  **opcode_counts([i for i in instrs if start <= i[0] <= addr])))
+        result[name] = dict(function=opcode_counts(instrs), loops=sorted(loops, key=lambda d: -d["total"]))
+    return result
+
+
+def cuobjdump_path() -> Path:
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    return Path(K._nvcc()).parent / "cuobjdump"
+
+
 def march_stats(got, want):
     """Sentinel agreement, 0.9999-quantile, mean and max |d| off the sentinel."""
     import torch
@@ -179,10 +265,23 @@ def check_march(got, want, phase: str, tag: str) -> float:
     return mx
 
 
+def check_equal(got, want, phase: str, tag: str) -> float:
+    """The march bars, then bit-equality (K1-K3 against their plain versions); returns max |d| off the sentinel."""
+    mx = check_march(got, want, phase, tag)
+    check(torch_equal_bits(got, want), phase, f"{tag}: not bit-equal to the plain version (max |d| {mx})")
+    return mx
+
+
+def torch_equal_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
 def check_tstar(got_t, want_t, phase: str, tag: str) -> float:
-    """K2's winning offsets agree with the plain argmin on >= 0.9999 of pixels."""
+    """K2's winning offsets agree with the plain argmin on every pixel."""
     agree = (got_t == want_t).float().mean().item()
-    check(agree >= 0.9999, phase, f"{tag}: t* agreement {agree}")
+    check(agree == 1.0, phase, f"{tag}: t* agreement {agree}")
     return agree
 
 
@@ -274,7 +373,7 @@ def phase_march(goldens, dev):
                     want = S.ray_march_min_distance_batch(depth, mask, light, cfg)
                     torch.cuda.synchronize()
                     tag = f"K1 {preset}/{gather}/{cull}/{gate}"
-                    worst["march"] = max(worst["march"], check_march(got, want, "march", tag))
+                    worst["march"] = max(worst["march"], check_equal(got, want, "march", tag))
                     runs["march"] += 1
 
                 # K2 on the draft tier's pooled inputs (64x64, 80 samples; the
@@ -293,7 +392,7 @@ def phase_march(goldens, dev):
                                                                         return_argmin_t=True)
                         torch.cuda.synchronize()
                         tag = f"K2 {preset}/{gather}/cull={cull}/{gate}/ts={'slice' if ts is not None else 'all'}"
-                        worst["march_argmin"] = max(worst["march_argmin"], check_march(got_d, want_d, "march", tag))
+                        worst["march_argmin"] = max(worst["march_argmin"], check_equal(got_d, want_d, "march", tag))
                         tstar_agree = min(tstar_agree, check_tstar(got_t, want_t, "march", tag))
                         runs["march_argmin"] += 1
                         if ts is not None:
@@ -301,9 +400,14 @@ def phase_march(goldens, dev):
                         t_map = S.upsample_tstar_nn(want_t, cfg)
                         got = K.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
                         want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
+                        # The draft path's form: the centre read from the plain K2's index.
+                        table = K._ts_for(dev, m_cfg)
+                        _, want_idx = S.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
+                        got_from_idx = K.refine_around_argmin_cuda(depth, mask, light, want_idx, table, cfg)
                         torch.cuda.synchronize()
                         tag = f"K3 {preset}/{gather}/cull={cull}/{gate}"
-                        worst["refine"] = max(worst["refine"], check_march(got, want, "march", tag))
+                        worst["refine"] = max(worst["refine"], check_equal(got, want, "march", tag))
+                        check(torch_equal_bits(got_from_idx, got), "march", f"{tag}: the index form differs")
                         runs["refine"] += 1
 
     # march_grad: K2 forward and march_grad backward through the autograd
@@ -341,7 +445,7 @@ def phase_march(goldens, dev):
                         grad_err[key] = max(grad_err[key], v)
                     runs["march_grad"] += 1
     worst["march_grad"] = grad_err["d_depth"]
-    emit("march", ok=True, configs=runs, batch=8,
+    emit("march", ok=True, configs=runs, batch=8, bit_equal=["march", "march_argmin", "refine"],
          size={"march": 256, "march_argmin": 64, "refine": 256, "march_grad": 256},
          samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8, "march_grad": [160, 159]},
          tstar_agreement=tstar_agree, max_abs_err=worst, march_grad_err=grad_err, march_grad_bars=GRAD_BARS)
@@ -440,14 +544,40 @@ TIER_LAUNCHES = {
 }
 
 
+class CallCounter:
+    """Counts the calls of module attributes (functions) while active, then restores them."""
+
+    def __init__(self, *targets):
+        self.targets, self.calls = targets, {}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), fn in zip(self.targets, self.saved):
+            key = f"{mod.__name__}.{name}"
+            self.calls[key] = 0
+
+            def counted(*a, _fn=fn, _key=key, **kw):
+                self.calls[_key] += 1
+                return _fn(*a, **kw)
+
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+
 def phase_e2e(goldens, dev, seed=0, batch=64):
     """Relighter.forward at full width, strict, fast and draft, kernel path vs plain path."""
     import numpy as np
     import torch
 
     from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch import render as R
     from geomconsistentfr_torch.infer import Relighter
     from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.ops import shadows as S
     from geomconsistentfr_torch.ops import shadows_cuda as K
     from geomconsistentfr_torch.ops.shading import composite, shadow_weights
     from geomconsistentfr_torch.render import shadow_min_distance
@@ -469,12 +599,15 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
         rl = Relighter(cfg, state)  # default device: cuda
         check(rl.device.type == "cuda", "e2e", f"Relighter chose {rl.device}")
 
-        # The main path, counted on its own.
+        # The main path, counted on its own. No tier makes an upsampled t*
+        # map or a cull-flag pass: K3 reads K2's index, the kernels cull.
         reset_launches()
-        out = rl.forward(images, masks, lights)
+        with CallCounter((S, "upsample_tstar_nn"), (R, "upsample_tstar_nn"), (S, "cull_live_blocks")) as glue:
+            out = rl.forward(images, masks, lights)
         torch.cuda.synchronize()
         n = dict(K.LAUNCHES)
         check(n == TIER_LAUNCHES[tier], "e2e", f"{tier}: forward launched {n}, expected {TIER_LAUNCHES[tier]}")
+        check(not any(glue.calls.values()), "e2e", f"{tier}: the forward called {glue.calls}")
         for name in KERNELS:
             launches[name] += n[name]
         for field in out._fields:
@@ -488,7 +621,7 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
         depth = out.depth.float().contiguous()
         light_pt = (cfg.render.light_distance * out.unit_light_direction.float()).contiguous()
         plain_md = plain_min_distance(depth, masks, light_pt, cfg.render)
-        md_err = check_march(out.min_distance, plain_md, "e2e", f"{tier}: min_distance")
+        md_err = check_equal(out.min_distance, plain_md, "e2e", f"{tier}: min_distance")
         kernel = "march" if tier != "draft" else "refine"
         worst[kernel] = max(worst[kernel], md_err)
         _, plain_rendered = composite(out.albedo, out.full_shading, out.ambient_light, shadow_weights(plain_md))
@@ -505,7 +638,7 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
             net_ms = cuda_time_ms(lambda: rl.model(images, rl.use_skips), 8, windows=5)
         march_ms = cuda_time_ms(lambda: shadow_min_distance(depth, masks, light_pt, cfg.render), 20, windows=5)
         results[tier] = dict(img_per_s=batch / (ms / 1e3), forward_ms=ms, cnn_ms=net_ms,
-                             march_ms=march_ms, launches=n, kernel_vs_plain_psnr_db=psnr,
+                             march_ms=march_ms, launches=n, glue_calls=glue.calls, kernel_vs_plain_psnr_db=psnr,
                              min_distance_max_abs_err=md_err)
         emit("e2e", ok=True, tier=tier, batch=batch, size=256, **results[tier])
         del rl, out, depth
@@ -1020,36 +1153,52 @@ def bound(ops: float, nbytes: float) -> dict:
 
 
 def timing_row(name, kernel_fn, plain_fn, ops, nbytes, phase_tag, device_name="march_kernel"):
-    """Time one kernel's wrapper, its device time and its plain version."""
+    """Time one kernel's wrapper, its device time and its plain version.
+
+    kernel_device_ms is the kernel alone; wrapper_device_ms every kernel the
+    wrapper launches (with K1-K3, the input staging too). With no
+    device_name the row is a path of several kernels, and both are its
+    device time.
+    """
     ms = cuda_time_ms(kernel_fn, 20, warmup=3, windows=5)
-    device_ms = kernel_device_ms(kernel_fn, name=device_name)
+    busy_ms = device_busy_ms(kernel_fn, 20)
+    device_ms = kernel_device_ms(kernel_fn, name=device_name) if device_name else busy_ms
     plain_ms = cuda_time_ms(plain_fn, 2)
-    row = dict(kernel=name, ms=ms, kernel_device_ms=device_ms, plain_ms=plain_ms, **bound(ops, nbytes))
+    row = dict(kernel=name, ms=ms, kernel_device_ms=device_ms, wrapper_device_ms=busy_ms, plain_ms=plain_ms,
+               **bound(ops, nbytes))
     emit("timing", ok=True, **phase_tag, **row)
     return row
 
 
+def timing_inputs(goldens, dev, batch):
+    """The timed marches' inputs: the 00104 depth map and face mask, seeded random light points."""
+    import numpy as np
+    import torch
+
+    fx = dict(goldens)["ref_transfer_00104.npz"]
+    depth = torch.from_numpy(np.repeat(fx["depth"][:, 0], batch, 0)).to(dev).contiguous()
+    mask = torch.from_numpy(np.repeat(fx["mask"][None], batch, 0)).to(dev).contiguous()
+    dirs = torch.randn((batch, 3), generator=torch.Generator().manual_seed(1))
+    dirs[:, 2] = dirs[:, 2].abs() + 0.5
+    return depth, mask, (4013.0 * torch.nn.functional.normalize(dirs, dim=-1)).to(dev)
+
+
 def phase_timing(goldens, dev, batch=64):
     """Each kernel's time per launch beside its bound and its plain version, at the main path's shapes."""
-    import numpy as np
     import torch
 
     from geomconsistentfr_torch import config as C
     from geomconsistentfr_torch.ops import shadows as S
     from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.render import shadow_min_distance
 
-    fx = dict(goldens)["ref_transfer_00104.npz"]
-    depth = torch.from_numpy(np.repeat(fx["depth"][:, 0], batch, 0)).to(dev).contiguous()
-    mask = torch.from_numpy(np.repeat(fx["mask"][None], batch, 0)).to(dev).contiguous()
-    gen = torch.Generator().manual_seed(1)
-    dirs = torch.randn((batch, 3), generator=gen)
-    dirs[:, 2] = dirs[:, 2].abs() + 0.5
-    light = (4013.0 * torch.nn.functional.normalize(dirs, dim=-1)).to(dev)
+    depth, mask, light = timing_inputs(goldens, dev, batch)
 
     def live_pixels(m, cfg):
+        if not cfg.shadow_mask_cull:
+            return m.numel()
         chunk = S.effective_col_chunk(cfg)
-        live = S.cull_live_blocks(m, chunk)
-        return int(live.sum().item()) * 8 * chunk, live.numel()
+        return int(S.cull_live_blocks(m, chunk).sum().item()) * 8 * chunk
 
     def march_ops(name, live_px, n_px, samples, cfg):
         per_sample = OPS_PER_SAMPLE[S.resolve_mask_gather(cfg)] + EXTRA_OPS_PER_SAMPLE[name]
@@ -1059,12 +1208,12 @@ def phase_timing(goldens, dev, batch=64):
     for tier in ("strict", "fast"):
         cfg = C.apply_precision_tier(C.preset_single_image(), tier).render
         s, (h, w) = cfg.num_sample_points, (cfg.img_height, cfg.img_width)
-        live_px, n_flags = live_pixels(mask, cfg)
+        live_px = live_pixels(mask, cfg)
         ops = march_ops("march", live_px, batch * h * w, s, cfg)
-        nbytes = 4 * (3 * batch * h * w + 3 * batch + s) + n_flags
+        nbytes = 4 * (3 * batch * h * w + 3 * batch + s)  # depth, mask, out; light; ts
         got = K.ray_march_min_distance_cuda(depth, mask, light, cfg)
         want = S.ray_march_min_distance_batch(depth, mask, light, cfg)
-        err = check_march(got, want, "timing", f"{tier}: batch {batch}")
+        err = check_equal(got, want, "timing", f"{tier}: batch {batch}")
         del got, want
         rows[tier] = timing_row(
             "march", lambda: K.ray_march_min_distance_cuda(depth, mask, light, cfg),
@@ -1082,11 +1231,11 @@ def phase_timing(goldens, dev, batch=64):
     s, (h, w) = m_cfg.num_sample_points, (m_cfg.img_height, m_cfg.img_width)
     got_d, got_t = K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
     want_d, want_t = S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
-    err = check_march(got_d, want_d, "timing", f"draft K2: batch {batch}")
+    err = check_equal(got_d, want_d, "timing", f"draft K2: batch {batch}")
     agree = check_tstar(got_t, want_t, "timing", f"draft K2: batch {batch}")
-    live_px, n_flags = live_pixels(m_mask, m_cfg)
+    live_px = live_pixels(m_mask, m_cfg)
     ops = march_ops("march_argmin", live_px, batch * h * w, s, m_cfg)
-    nbytes = 4 * (4 * batch * h * w + 3 * batch + s) + n_flags  # depth, mask, out, idx
+    nbytes = 4 * (4 * batch * h * w + 3 * batch + s)  # depth, mask, out, idx; light; ts
     tag = dict(tier="draft", batch=batch, size=h, veto=S.resolve_mask_gather(m_cfg), samples=s,
                live_pixel_fraction=live_px / (batch * h * w))
     rows["draft_argmin"] = timing_row(
@@ -1097,22 +1246,45 @@ def phase_timing(goldens, dev, batch=64):
     )
     rows["draft_argmin"]["max_abs_err"] = err
 
-    t_map = S.upsample_tstar_nn(got_t, cfg)
-    got = K.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
+    # K3 as the draft path runs it: around K2's int32 index (64, 64, 64) into
+    # its table, with no upsampled t* map; bit-equal to the t_map form too.
+    sc = cfg.shadow_resolution_scale
+    table = K._ts_for(dev, m_cfg)
+    _, idx = K._argmin_march(m_depth, m_mask, m_light, table, m_cfg)
+    t_map = S.upsample_tstar_nn(table[idx.long()], cfg)
+    got = K.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg)
     want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
-    err = check_march(got, want, "timing", f"draft K3: batch {batch}")
-    del got, want, got_d, want_d, want_t
+    err = check_equal(got, want, "timing", f"draft K3: batch {batch}")
+    check(torch_equal_bits(K.refine_min_distance_cuda(depth, mask, light, t_map, cfg), got), "timing",
+          f"draft K3: batch {batch}: the index form differs from the t_map form")
+    del got, want, got_d, want_d, want_t, t_map
     n_off, (h, w) = 2 * cfg.shadow_refine_halfwidth, (cfg.img_height, cfg.img_width)
-    live_px, n_flags = live_pixels(mask, cfg)
+    live_px = live_pixels(mask, cfg)
     ops = march_ops("refine", live_px, batch * h * w, n_off, cfg)
-    nbytes = 4 * (4 * batch * h * w + 3 * batch + n_off) + n_flags  # depth, mask, t_map, out
+    # depth, mask, out; K2's index; light; the offsets and K2's table
+    nbytes = 4 * (3 * batch * h * w + batch * (h // sc) * (w // sc) + 3 * batch + n_off + table.numel())
+    tag = dict(tier="draft", batch=batch, size=h, veto=S.resolve_mask_gather(cfg), samples=n_off,
+               live_pixel_fraction=live_px / (batch * h * w))
     rows["draft_refine"] = timing_row(
-        "refine", lambda: K.refine_min_distance_cuda(depth, mask, light, t_map, cfg),
-        lambda: S.refine_min_distance_batch(depth, mask, light, t_map, cfg), ops, nbytes,
-        dict(tier="draft", batch=batch, size=h, veto=S.resolve_mask_gather(cfg), samples=n_off,
-             live_pixel_fraction=live_px / (batch * h * w)),
+        "refine", lambda: K.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg),
+        lambda: S.refine_min_distance_batch(depth, mask, light, S.upsample_tstar_nn(table[idx.long()], cfg), cfg),
+        ops, nbytes, tag,
     )
     rows["draft_refine"]["max_abs_err"] = err
+
+    # The whole draft march, as render() runs it: pool, K2, K3. Its bound
+    # counts the pooling's operations and the three kernels' work, and the
+    # bytes the function itself must move (depth and mask in, distances out).
+    got = shadow_min_distance(depth, mask, light, cfg)
+    err = check_equal(got, plain_min_distance(depth, mask, light, cfg), "timing", f"draft march: batch {batch}")
+    del got
+    ops = POOL_OPS_PER_PIXEL * batch * h * w + rows["draft_argmin"]["ops"] + rows["draft_refine"]["ops"]
+    rows["draft_march"] = timing_row(
+        "draft_march", lambda: shadow_min_distance(depth, mask, light, cfg),
+        lambda: plain_min_distance(depth, mask, light, cfg), ops, 4 * (3 * batch * h * w + 3 * batch),
+        dict(tag, samples=[m_cfg.num_sample_points, n_off]), device_name=None,
+    )
+    rows["draft_march"]["max_abs_err"] = err
 
     # The training march at its shapes (preset_target_lighting_train: batch
     # 3, 256x256, 160 samples, one-hot veto, no cull, no gate): K2 forward,
@@ -1122,7 +1294,7 @@ def phase_timing(goldens, dev, batch=64):
     td, tm, tl = depth[:b].contiguous(), mask[:b].contiguous(), light[:b].contiguous()
     got_d, got_t = K.ray_march_min_distance_cuda(td, tm, tl, cfg, return_argmin_t=True)
     want_d, want_t = S.ray_march_min_distance_batch(td, tm, tl, cfg, return_argmin_t=True)
-    err = check_march(got_d, want_d, "timing", f"train K2: batch {b}")
+    err = check_equal(got_d, want_d, "timing", f"train K2: batch {b}")
     agree = check_tstar(got_t, want_t, "timing", f"train K2: batch {b}")
     tag = dict(tier="train", batch=b, size=h, veto=S.resolve_mask_gather(cfg), samples=s, live_pixel_fraction=1.0)
     rows["train_argmin"] = timing_row(
@@ -1163,7 +1335,105 @@ def phase_timing(goldens, dev, batch=64):
     return rows
 
 
+def compare_timing(goldens, dev, batch=64) -> dict:
+    """The march kernels at the main paths' shapes, through the API this tree and
+    its parent share: K1 strict and fast, K2 at draft and at the training
+    shape, the whole draft march with K2's and K3's kernel times in it, and
+    K3 alone at 1, 8 and 16 offsets and fully culled. Each row: the call's ms
+    (CUDA events), the kernel alone and every kernel the call launches
+    (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.ops import shadows as S
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.render import shadow_min_distance
+
+    depth, mask, light = timing_inputs(goldens, dev, batch)
+
+    def row(fn, name="march_kernel", **kernels):
+        r = dict(ms=cuda_time_ms(fn, 20, warmup=3, windows=5), kernel_device_ms=kernel_device_ms(fn, name=name),
+                 device_busy_ms=device_busy_ms(fn, 20))
+        r.update({k: kernel_device_ms(fn, name=v) for k, v in kernels.items()})
+        return r
+
+    rows = {}
+    for tier in ("strict", "fast"):
+        cfg = C.apply_precision_tier(C.preset_single_image(), tier).render
+        rows[f"K1_{tier}"] = row(lambda: K.ray_march_min_distance_cuda(depth, mask, light, cfg))
+    cfg = C.apply_precision_tier(C.preset_single_image(), "draft").render
+    m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(depth, mask, light, cfg)
+    rows["K2_draft"] = row(lambda: K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True))
+    rows["draft_march"] = row(lambda: shadow_min_distance(depth, mask, light, cfg), name="march_kernel<2>",
+                              k2_device_ms="march_kernel<1>")
+    # K3 alone around the upsampled t*, at 1, 8 and 16 offsets and with every
+    # cull unit empty: its time per sample and per pixel apart.
+    _, t_star = K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    t_map = S.upsample_tstar_nn(t_star, cfg).contiguous()
+    for n in (1, 8, 16):
+        offsets = ((np.arange(n) - n // 2) * cfg.t_step).astype(np.float32)
+        rows[f"K3_{n}_offsets"] = row(lambda: K.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets))
+    empty = torch.zeros_like(mask)
+    rows["K3_all_culled"] = row(lambda: K.refine_min_distance_cuda(depth, empty, light, t_map, cfg))
+    tcfg = C.preset_target_lighting_train().render
+    td, tm, tl = depth[:3].contiguous(), mask[:3].contiguous(), light[:3].contiguous()
+    rows["K2_train"] = row(lambda: K.ray_march_min_distance_cuda(td, tm, tl, tcfg, return_argmin_t=True))
+    return rows
+
+
+def timing_child(root: Path) -> int:
+    """--timing-of ROOT, compare_parent's child: build ROOT's kernels and print one compare_run line."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        emit("compare_run", ok=False, error="torch.cuda.is_available() is false")
+        return 1
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    check(Path(K.__file__).resolve().is_relative_to(root), "compare", f"imported {K.__file__}, not {root}'s package")
+    lib, log = K.build()
+    K._library()
+    emit("compare_run", ok=True, root=str(root), ptxas=ptxas_registers(log), sass=sass_counts(lib, cuobjdump_path()),
+         timing=compare_timing(load_goldens(), torch.device("cuda:0")), nvidia_smi=nvidia_smi_line())
+    return 0
+
+
+def compare_parent(parent: Path) -> int:
+    """--compare-parent DIR: DIR's kernels and this tree's, timed in turns in processes of their own."""
+    runs = []
+    for tree, root in (("parent", parent), ("change", ROOT), ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--timing-of", str(root)],
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"phase": "compare_run"')]
+        if proc.returncode != 0 or not lines:
+            emit("compare", ok=False, tree=tree, error=proc.stderr[-3000:])
+            return 1
+        run = json.loads(lines[-1])
+        print(json.dumps(dict(run, tree=tree)), flush=True)
+        runs.append((tree, run))
+    summary = {key: {f"{tree}_{i}": {k: run["timing"][key][k] for k in ("ms", "kernel_device_ms")}
+                     for i, (tree, run) in enumerate(runs)} for key in runs[0][1]["timing"]}
+    emit("compare", ok=True, order=[t for t, _ in runs], rows=summary)
+    print(runs[0][1]["nvidia_smi"], flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--timing-of", "--compare-parent"):
+        target = Path(sys.argv[2]).resolve()
+        if not (target / "geomconsistentfr_torch" / "csrc" / "march.cu").is_file():
+            print(f"chip_smoke.py: {target} holds no geomconsistentfr_torch/csrc/march.cu", file=sys.stderr)
+            return 2
+        try:
+            return timing_child(target) if sys.argv[1] == "--timing-of" else compare_parent(target)
+        except PhaseError as e:
+            emit("failed", ok=False, error=str(e))
+            return 1
+    if len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--compare-parent DIR]", file=sys.stderr)
+        return 2
     if not (ROOT / "geomconsistentfr_torch" / "csrc" / "march.cu").is_file():
         print("chip_smoke.py: the geomconsistentfr_torch package is not beside this script", file=sys.stderr)
         return 2
@@ -1184,11 +1454,16 @@ def main() -> int:
         from geomconsistentfr_torch.ops import shadows_cuda as K
 
         t0 = time.perf_counter()
-        _, log = K.build()
+        lib, log = K.build()
         K._library()
+        seconds = time.perf_counter() - t0
         regs = ptxas_registers(log)
         check(sorted(regs) == sorted(KERNELS), "build", f"ptxas reported {sorted(regs)}, expected {sorted(KERNELS)}")
-        emit("build", ok=True, seconds=time.perf_counter() - t0, kernels=list(KERNELS), ptxas=regs)
+        sass = sass_counts(lib, cuobjdump_path())
+        check(sorted(sass) == sorted(KERNELS), "build", f"cuobjdump showed {sorted(sass)}, expected {sorted(KERNELS)}")
+        emit("build", ok=True, seconds=seconds, kernels=list(KERNELS), ptxas=regs, sass=sass,
+             loop_conversions={k: sum(lp[op] for lp in v["loops"] for op in ("F2I", "I2F", "FRND"))
+                               for k, v in sass.items()})
 
         goldens = load_goldens()
         march_err = phase_march(goldens, dev)
@@ -1204,7 +1479,8 @@ def main() -> int:
     # max_abs_err: the worst kernel-vs-plain |d| of every comparison of that
     # kernel: the march phase (batch 8), the main path's own batches and the
     # timing inputs (batch 64, and batch 3 for training); for march_grad, of
-    # d_depth. `ms` and the bound are at the main paths' shapes: K1 at the
+    # d_depth. `ms` (the wrapper, K1-K3's input staging included), kernel_ms
+    # (the kernel alone) and the bound are at the main paths' shapes: K1 at the
     # strict tier, K2 and K3 at the draft tier (K2 at the training shape in
     # the train_* keys), march_grad at training, K5 at the training shape on
     # two ranks. `launches` sums the main paths' runs: one forward per tier,
@@ -1223,10 +1499,12 @@ def main() -> int:
             launches=launches[name] + train_launches[name] + parallel_launches[name], max_abs_err=max_err,
             ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            kernel_ms=t["kernel_device_ms"],
         )
         if name == "march_argmin":
             k2 = timing["train_argmin"]
-            row.update(train_ms=k2["ms"], train_plain_ms=k2["plain_ms"], train_bound_ms=k2["bound_ms"])
+            row.update(train_ms=k2["ms"], train_kernel_ms=k2["kernel_device_ms"], train_plain_ms=k2["plain_ms"],
+                       train_bound_ms=k2["bound_ms"])
         kernels.append(row)
     kernels.append(dict(
         name="march_sp", route="cuda", source="geomconsistentfr_torch/csrc/march.cu",

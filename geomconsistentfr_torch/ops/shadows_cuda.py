@@ -3,10 +3,19 @@
 The wrappers, one per kernel:
   * `ray_march_min_distance_cuda` launches K1 ('march'), or K2
     ('march_argmin') with `return_argmin_t`;
-  * `refine_min_distance_cuda` launches K3 ('refine');
+  * `refine_min_distance_cuda` launches K3 ('refine') around a full-
+    resolution t_map, `refine_around_argmin_cuda` K3 around K2's winning
+    indices (no t_map in memory);
+  * `draft_march` is the draft tier's march with the refine on: the pooling,
+    K2 at low resolution, then K3 around K2's winners;
   * `march_grad_cuda` launches the backward of K4 ('march_grad').
 For a CUDA tensor a wrapper launches its kernel (or raises); for a CPU tensor
 it runs the plain version of ops/shadows.py. There is no other fallback.
+K1-K3 read depth and mask interleaved and padded, (B, H + 1, W + 1, 2),
+which the launch stages first (csrc/march.cu stage_kernel, in scratch the
+wrapper allocates), and cull inside the kernel; the
+sample offsets t they march must lie in [0, 1] (checked on the host; see
+csrc/march.cu), H and W at most 2048.
 
 `RayMarchMinDistance` is the differentiable march K4 (the JAX package's
 `ray_march_min_distance_pallas_vjp`): its forward is K2, its backward
@@ -65,7 +74,7 @@ LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_c_int] + [_c_void_p] * 8 + [_c_int] * 8 + [_c_float] * 7 + [_c_void_p]
+_ARGTYPES = [_c_int] + [_c_void_p] * 10 + [_c_int] * 10 + [_c_float] * 7 + [_c_void_p]
 _GRAD_ARGTYPES = [_c_void_p] * 9 + [_c_int] * 6 + [_c_void_p]
 
 
@@ -114,10 +123,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_t_range(lo: float, hi: float, what: str) -> None:
+    """The kernels march t in [0, 1], between the pixel and the border (csrc/march.cu)."""
+    if not (0.0 <= lo and hi <= 1.0):
+        raise ValueError(f"{what} must lie in [0, 1], got [{lo}, {hi}]")
+
+
 @functools.lru_cache(maxsize=16)
 def _ts_on(device: torch.device, t_start: float, t_stop: float, t_step: float, n: int) -> torch.Tensor:
     cfg = RenderConfig(t_start=t_start, t_stop=t_stop, t_step=t_step, num_sample_points=n)
-    return torch.as_tensor(shadows.sample_ts(cfg).astype(np.float32), device=device)
+    ts = shadows.sample_ts(cfg).astype(np.float32)
+    _check_t_range(float(ts.min()), float(ts.max()), "the sample offsets")
+    return torch.as_tensor(ts, device=device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -149,15 +166,15 @@ def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> Non
     b, h, w = depth.shape
     if (h, w) != (cfg.img_height, cfg.img_width):
         raise ValueError(f"depth {tuple(depth.shape)} does not match the config's {cfg.img_height}x{cfg.img_width}")
-    if h % 8 or w % 32:
-        raise ValueError(f"the {what} kernel needs H % 8 == 0 and W % 32 == 0; got {h}x{w}")
+    if h % 8 or w % 32 or h > 2048 or w > 2048:
+        raise ValueError(f"the {what} kernel needs H % 8 == 0, W % 32 == 0 and both <= 2048; got {h}x{w}")
     _check("depth", depth, (b, h, w), depth.device)
     _check("mask", mask, (b, h, w), depth.device)
     _check("light_point", light_point, (b, 3), depth.device)
 
 
 def _cull_flags(mask, cfg: RenderConfig):
-    """(uint8 live flags or None, cull blocks per 8-row group or 0, block width)."""
+    """march_grad's cull: (uint8 live flags or None, cull blocks per 8-row group or 0, block width)."""
     chunk = shadows.effective_col_chunk(cfg)
     if not cfg.shadow_mask_cull:
         return None, 0, chunk
@@ -169,28 +186,37 @@ def _ptr(x) -> int:
     return 0 if x is None else x.data_ptr()
 
 
-def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, idx=None, count_as=None):
+def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, centre=None, idx=None,
+            count_as=None):
     """Launch one form of the march kernel on the current stream; (B, H, W) distances.
 
-    The launch counts under `count_as`, by default the form's own name.
+    K3's centre is `t_map`, or `centre` = (K2's int32 index (B, H/s, W/s),
+    the float32 table it indexes). The launch counts under `count_as`, by
+    default the form's own name.
     """
     b, h, w = depth.shape
     dev = depth.device
     bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
-    live, live_cols, chunk = _cull_flags(mask, cfg)
+    chunk = shadows.effective_col_chunk(cfg)
+    if cfg.shadow_mask_cull and w % chunk:
+        raise ValueError(f"cull blocks need W % C == 0; got W={w}, C={chunk}")
     bounds = shadows.gate_bounds(cfg)
     gate_on = bounds is not None
     lo_x, hi_x, lo_y, hi_y = bounds if gate_on else (0.0, 0.0, 0.0, 0.0)
-    t_lo, t_hi = shadows.refine_t_range(cfg) if t_map is not None else (0.0, 0.0)
+    t_lo, t_hi = shadows.refine_t_range(cfg) if kernel == "refine" else (0.0, 0.0)
+    centre_idx, centre_ts = centre if centre is not None else (None, None)
 
+    staged = torch.empty((b, h + 1, w + 1, 2), dtype=torch.float32, device=dev)  # the kernel's padded input
     out = torch.empty_like(depth)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.gcfr_march_launch(
-            _FORMS[kernel], depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(),
-            ts.data_ptr(), _ptr(t_map), _ptr(live), out.data_ptr(), _ptr(idx),
-            b, h, w, ts.numel(), int(bilinear), live_cols, chunk, int(gate_on),
+            _FORMS[kernel], depth.data_ptr(), mask.data_ptr(), staged.data_ptr(), light_point.data_ptr(),
+            ts.data_ptr(), _ptr(t_map),
+            _ptr(centre_idx), _ptr(centre_ts), out.data_ptr(), _ptr(idx),
+            b, h, w, ts.numel(), int(bilinear), int(cfg.shadow_mask_cull), chunk, int(gate_on),
+            cfg.shadow_resolution_scale, 0 if centre_ts is None else centre_ts.numel(),
             lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, stream,
         )
     if err != 0:
@@ -235,10 +261,14 @@ def ray_march_min_distance_cuda(
 
 
 def _ts_for(dev: torch.device, cfg: RenderConfig, ts=None) -> torch.Tensor:
-    """The float32 t table on `dev`: the config's grid, or the given offsets."""
+    """The float32 t table on `dev`: the config's grid, or the given offsets (checked to lie in [0, 1])."""
     if ts is None:
         return _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
-    return torch.as_tensor(ts, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+    ts = torch.as_tensor(ts, dtype=torch.float32).reshape(-1)
+    if ts.numel():
+        lo, hi = ts.aminmax()  # on a CUDA tensor this waits for the card
+        _check_t_range(lo.item(), hi.item(), "the sample offsets")
+    return ts.to(dev).contiguous()
 
 
 def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
@@ -408,9 +438,66 @@ def refine_min_distance_cuda(
         return shadows.refine_min_distance_batch(depth, mask, light_point, t_map, cfg, offsets)
     _check_inputs(depth, mask, light_point, cfg, "refine")
     _check("t_map", t_map, tuple(depth.shape), depth.device)
-    dev = depth.device
+    return _launch("refine", depth, mask, light_point, _refine_offsets(depth.device, cfg, offsets), cfg, t_map=t_map)
+
+
+def _refine_offsets(dev: torch.device, cfg: RenderConfig, offsets=None) -> torch.Tensor:
+    """K3's window offsets on `dev`; its t range, the config's grid, checked to lie in [0, 1]."""
+    _check_t_range(*shadows.refine_t_range(cfg), "the refine's t range")
     if offsets is None:
-        offsets = _offsets_on(dev, cfg.shadow_refine_halfwidth, cfg.t_step)
-    else:
-        offsets = torch.as_tensor(offsets, dtype=torch.float32, device=dev).reshape(-1).contiguous()
-    return _launch("refine", depth, mask, light_point, offsets, cfg, t_map=t_map)
+        return _offsets_on(dev, cfg.shadow_refine_halfwidth, cfg.t_step)
+    return torch.as_tensor(offsets, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+
+
+def refine_around_argmin_cuda(
+    depth: torch.Tensor,
+    mask: torch.Tensor,
+    light_point: torch.Tensor,
+    idx: torch.Tensor,
+    ts: torch.Tensor,
+    cfg: RenderConfig,
+    offsets=None,
+) -> torch.Tensor:
+    """K3 around K2's winners: (B, H, W) depth and mask, (B, 3) light points -> (B, H, W).
+
+    idx is K2's int32 (B, H/s, W/s) winning index into the float32 table
+    `ts` it read, s = cfg.shadow_resolution_scale. Same function as
+    refine_min_distance_cuda(..., upsample_tstar_nn(ts[idx], cfg), cfg,
+    offsets): the kernel reads each pixel's centre ts[idx[b, row/s, col/s]]
+    itself, so no full-resolution t_map is made. Serves only, as the refine.
+    """
+    if needs_grad(depth, light_point):
+        raise NotImplementedError("the draft tier's refine has no gradient: it serves only")
+    if depth.device.type == "cpu":
+        t_map = shadows.upsample_tstar_nn(ts[idx.long()], cfg)
+        return shadows.refine_min_distance_batch(depth, mask, light_point, t_map, cfg, offsets)
+    _check_inputs(depth, mask, light_point, cfg, "refine")
+    b, h, w = depth.shape
+    s, dev = cfg.shadow_resolution_scale, depth.device
+    if h % s or w % s:
+        raise ValueError(f"the draft scale {s} does not divide {h}x{w}")
+    if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h // s, w // s) or not idx.is_contiguous() \
+            or idx.device != dev:
+        raise ValueError(f"idx must be a contiguous int32 {(b, h // s, w // s)} tensor on the depth's device")
+    _check("ts", ts, (ts.numel(),), dev)
+    return _launch("refine", depth, mask, light_point, _refine_offsets(dev, cfg, offsets), cfg, centre=(idx, ts))
+
+
+def draft_march(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """The draft tier's march with its refine: (B, H, W) depth and mask, (B, 3) light points -> (B, H, W).
+
+    Pools the inputs (shadows.scale_march_inputs), marches them with K2 for
+    each low-resolution pixel's winning index, then refines at full
+    resolution with K3 around those winners. Same function as
+    refine_min_distance_batch(depth, mask, light_point, upsample_tstar_nn(t*),
+    cfg), t* the argmin march of the pooled inputs; on CPU tensors it runs
+    those plain versions. Serves only, as the refine.
+    """
+    if cfg.shadow_resolution_scale == 1 or cfg.shadow_refine_halfwidth == 0:
+        raise ValueError("draft_march needs shadow_resolution_scale > 1 and shadow_refine_halfwidth > 0")
+    if needs_grad(depth, light_point):
+        raise NotImplementedError("the draft tier's march has no gradient: it serves only")
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light_point, cfg)
+    ts = _ts_for(depth.device, m_cfg)
+    _, idx = _argmin_march(m_depth, m_mask, m_light, ts, m_cfg)
+    return refine_around_argmin_cuda(depth, mask, light_point, idx, ts, cfg)

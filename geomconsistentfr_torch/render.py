@@ -17,10 +17,11 @@ Strict, high and fast march at full resolution (kernel K1; in training,
 where the march needs a gradient, K2 forward and march_grad backward: the
 differentiable march K4 of ops/shadows_cuda.RayMarchMinDistance). The draft tier
 (shadow_resolution_scale > 1) marches pooled inputs at reduced resolution
-(ops/shadows.scale_march_inputs) and records the argmin t* (kernel K2), then
-re-marches a window of offsets around the upsampled t* at full resolution
-(kernel K3). With shadow_refine_halfwidth 0 it upsamples the low-resolution
-distances instead (K1, then ops/shadows.upscale_min_distance).
+(ops/shadows.scale_march_inputs) and records each pixel's winning sample
+(kernel K2), then re-marches a window of offsets around it at full
+resolution (kernel K3, which reads K2's int32 index and t table itself: no
+upsampled t* map is made; ops/shadows_cuda.draft_march). With shadow_refine_halfwidth 0 it upsamples the
+low-resolution distances instead (K1, then ops/shadows.upscale_min_distance).
 
 `march_fn` replaces the march, as in the JAX package (render.py:96-113):
 sample and grid parallelism pass one that marches this rank's slice of the t
@@ -28,8 +29,8 @@ grid and combines over its process group (ops/shadows_cuda.sharded_march,
 or K5 in training). It receives the march-resolution inputs (pooled at the
 draft tier, where it must close over the scaled config); with the draft
 refine on it is called with `return_argmin_t=True` and returns (min
-distances, first-winner t*), and its `refine_fn` attribute, if it has one,
-replaces the full-resolution refine.
+distances, first-winner t*), which is upsampled for the refine, and its
+`refine_fn` attribute, if it has one, replaces the full-resolution refine.
 """
 
 from __future__ import annotations
@@ -43,7 +44,12 @@ from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops.geometry import depth_to_normals, l2_normalize, pixel_grid_centered
 from geomconsistentfr_torch.ops.shading import composite, directional_shading, shadow_weights
 from geomconsistentfr_torch.ops.shadows import scale_march_inputs, upsample_tstar_nn, upscale_min_distance
-from geomconsistentfr_torch.ops.shadows_cuda import needs_grad, ray_march_min_distance_cuda, refine_min_distance_cuda
+from geomconsistentfr_torch.ops.shadows_cuda import (
+    draft_march,
+    needs_grad,
+    ray_march_min_distance_cuda,
+    refine_min_distance_cuda,
+)
 
 
 class RenderOutputs(NamedTuple):
@@ -165,6 +171,8 @@ def shadow_min_distance(depth, mask, light_point, cfg: RenderConfig, march_fn=No
         return march_fn(depth, mask, light_point)
     if needs_grad(depth, light_point):
         raise NotImplementedError("the draft tier's march has no gradient: it serves only")
+    if march_fn is None and cfg.shadow_refine_halfwidth > 0:
+        return draft_march(depth, mask, light_point, cfg)
     m_depth, m_mask, m_light, m_cfg = scale_march_inputs(depth, mask, light_point, cfg)
     if march_fn is None:
         march_fn = functools.partial(ray_march_min_distance_cuda, cfg=m_cfg)

@@ -398,3 +398,113 @@ def test_grid_step_on_two_ranks_keeps_replicas_bit_identical(dev, tmp_path):
     want = [T.train_step(state, T.decode_batch(b, dev), cfg, (False,) * 4) for b in batches[:1]]
     for k, v in want[0].items():
         np.testing.assert_allclose(ranks[0]["losses"][0][k], float(v), rtol=1e-5, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The sample evaluator's edges (csrc/march.cu): integer sample coordinates,
+# lights on the border and at integer points inside the image, faces on the
+# first column and row (where xt or yt lies in [-1e-4, 0)), offsets at 0 and
+# 1. K1, K2 and K3 are bit-equal to their plain versions there.
+# ---------------------------------------------------------------------------
+
+EDGE_LIGHTS = np.asarray(
+    [[-32.0, 7.0, 25.0], [31.0, -12.0, 40.0], [5.0, 32.0, 30.0], [-9.0, -31.0, 35.0], [3.0, -4.0, 20.0],
+     [1203.9, 1605.2, 3475.3]],
+    np.float32,
+)
+
+
+def edge_scene(dev, seed=11):
+    rng = np.random.default_rng(seed)
+    depth = (rng.normal(size=(6, 64, 64)) * 20).astype(np.float32)
+    depth[:, ::3] = np.round(depth[:, ::3])  # integer depths on every third row
+    yy, xx = np.mgrid[:64, :64]
+    face = ((xx - 28) / 20.0) ** 2 + ((yy - 34) / 24.0) ** 2 <= 1.0
+    mask = (face & (rng.uniform(size=(6, 64, 64)) > 0.08)).astype(np.float32)
+    mask[:, :, 0] = mask[:, 0, :] = 1.0
+    mask[5] = 0.0  # an image with no face: every unit culled
+    return [torch.from_numpy(a).to(dev) for a in (depth, mask, EDGE_LIGHTS)]
+
+
+def assert_bits_equal(got, want):
+    assert got.shape == want.shape
+    assert torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
+@pytest.mark.parametrize("cull", **CULLS)
+@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+def test_kernels_bit_equal_on_edge_scenes(dev, veto, cull, gate):
+    depth, mask, light = edge_scene(dev)
+    kw = dict(shadow_mask_gather=veto, shadow_bias_gate=gate, shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
+    cfg = RenderConfig(**SMALL, **kw)
+    ends = np.asarray([0.0, 0.005, 0.1, 0.25, 0.5, 0.995, 1.0], np.float32)  # t at 0 and 1, exact halves between
+    for ts in (None, ends):
+        assert_bits_equal(shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, ts),
+                          shadows.ray_march_min_distance_batch(depth, mask, light, cfg, ts))
+        got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, ts, return_argmin_t=True)
+        want_d, want_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, ts, return_argmin_t=True)
+        assert_bits_equal(got_d, want_d)
+        assert torch.equal(got_t, want_t)
+
+    dcfg = RenderConfig(**DRAFT, **kw)
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, dcfg)
+    table = shadows_cuda._ts_for(dev, m_cfg)
+    _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
+    t_map = shadows.upsample_tstar_nn(table[idx.long()], dcfg)
+    want = shadows.refine_min_distance_batch(depth, mask, light, t_map, dcfg)
+    assert_bits_equal(shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, dcfg), want)
+    assert_bits_equal(shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, table, dcfg), want)
+
+
+def test_refine_index_form_is_the_t_map_form(dev):
+    """K3 around K2's winners: the kernel's own index form equals its t_map
+    form bit for bit, offsets overridden too, and both count one refine
+    launch."""
+    depth, mask, light = scene(dev, seed=12)
+    cfg = RenderConfig(**DRAFT, shadow_mask_gather="bilinear", shadow_mask_cull=True, shadow_col_chunk=64)
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
+    table = shadows_cuda._ts_for(dev, m_cfg)
+    _, idx = shadows_cuda._argmin_march(m_depth, m_mask, m_light, table, m_cfg)
+    t_map = shadows.upsample_tstar_nn(table[idx.long()], cfg)
+    before = dict(shadows_cuda.LAUNCHES)
+    for offsets in (None, shadows.refine_offsets(cfg)[1:6]):
+        assert_bits_equal(shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg, offsets),
+                          shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets))
+    torch.cuda.synchronize()
+    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 4, "march_grad": 0, "march_sp": 0}
+    with pytest.raises(ValueError):
+        shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx.long(), table, cfg)
+    with pytest.raises(ValueError):
+        shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx[:, :16].contiguous(), table, cfg)
+    with pytest.raises(ValueError):
+        shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, RenderConfig(**SMALL), np.float32([0.2, 1.01]))
+
+
+def test_draft_render_reads_k2s_index_directly(dev, monkeypatch):
+    """A draft render launches K2 once and K3 once, and makes no full-resolution
+    t* map and no cull-flag pass: K3 reads K2's index, the kernels cull."""
+    import geomconsistentfr_torch.render as render_module
+
+    depth, mask, light = scene(dev, seed=13)
+    cfg = RenderConfig(**DRAFT, shadow_mask_gather="bilinear", shadow_mask_cull=True, shadow_col_chunk=64)
+    args = (torch.rand((4, 64, 64, 3), device=dev), depth, torch.zeros((4, 4), device=dev), mask)
+
+    def refused(*a, **k):
+        raise AssertionError("the draft path made a full-resolution t* map or cull flags")
+
+    monkeypatch.setattr(shadows, "upsample_tstar_nn", refused)
+    monkeypatch.setattr(render_module, "upsample_tstar_nn", refused)
+    monkeypatch.setattr(shadows, "cull_live_blocks", refused)
+    before = dict(shadows_cuda.LAUNCHES)
+    out = render(*args, cfg, target_light=light)
+    torch.cuda.synchronize()
+    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0}
+    monkeypatch.undo()
+    lp = cfg.light_distance * l2_normalize(light, dim=-1)
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, lp, cfg)
+    _, t_star = shadows.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    assert_bits_equal(out.min_distance,
+                      shadows.refine_min_distance_batch(depth, mask, lp, shadows.upsample_tstar_nn(t_star, cfg), cfg))
+    assert_bits_equal(shadows_cuda.draft_march(depth, mask, lp, cfg), out.min_distance)
