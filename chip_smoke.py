@@ -9,14 +9,16 @@ march kernels of another checkout (e.g. the parent commit, unpacked with
 `git archive` into a git-ignored directory) beside this one's, in turns
 (parent, this tree, this tree, parent), each in a child process of its own
 (`--timing-of ROOT`, which times one tree), with the SASS counts of both
-builds, and prints each run and a summary line.
+builds, and prints each run and a summary line (compare_timing lists the
+rows).
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device   CUDA is required (no CPU fallback); the card's name and power
               limit as nvidia-smi reports them.
   2. build    every kernel of the port is compiled from csrc/ (nvcc, sm_90a):
-              march (K1), march_argmin (K2), refine (K3) and march_grad (the
-              backward of the training march K4, whose forward is K2), with
+              march (K1), march_argmin (K2), refine (K3), march_grad (the
+              backward of the training march K4, whose forward is K2) and
+              stage (the staging every march reads), with
               the registers ptxas reports for each and the counts of F2I,
               I2F, FRND, LDG and float32 and integer arithmetic opcodes in
               its SASS (cuobjdump -sass), in the whole function and in each
@@ -32,6 +34,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
               K3 at 256x256 around the plain K2's upsampled t*, both vetoes,
               cull off/col-64, all three gates, and around the plain K2's
               index (the draft path's form), bit-equal to the t_map form;
+              the staging (full resolution with the cull's flags, and the
+              draft pass: pooled and full quads, both flags, the light) bit
+              for bit, and the draft march (staging, K2, K3) bit-equal to
+              the plain draft path;
               march_grad at 256x256 under preset_target_lighting_train (160
               samples) and on the transfer grid (159 from 0.03), a seeded
               random cotangent, both vetoes, cull off/col-32, all three
@@ -45,13 +51,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
               preset_single_image) at the strict, fast and draft tiers with
               random weights from a seeded torch.Generator: img/s (median of
               five windows), finite outputs, kernel launch counts (and no
-              upsampled t* map or cull-flag pass on the path), and the
+              upsampled t* map, cull-flag pass or pooling op on the path;
+              the march's device launches by torch.profiler), and the
               forward's min distances (bit for bit) and rendered image
               against the plain path on the same batch.
   6. timing   each kernel's time per launch beside its bound and its plain
               version's time, at the main paths' shapes, after holding the
-              two outputs against each other; and the whole draft march
-              (pool, K2, K3) as a row of its own.
+              two outputs against each other; the draft staging alone; the
+              whole draft march (staging, K2, K3: three device launches) as
+              a row of its own; march_grad at batch 3 and 64 (one fill and
+              the kernel); a one-element fill, the launch floor.
   7. train    Trainer.run_epoch at full width (preset_target_lighting_train,
               batch 3, 256x256, SyntheticFaceData, seeded random G and D),
               six steps crossing a D update at steps 0 and 5: finite losses,
@@ -87,6 +96,7 @@ those of tests/test_torch_cuda.py (GRAD_BARS below).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -96,9 +106,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
-KERNELS = ("march", "march_argmin", "refine", "march_grad")  # the compiled functions, in form order
+# The kernels by the names their launches count under: the march's three forms
+# in form order, its backward, and the staging every march reads (at the draft
+# tier, pooled).
+KERNELS = ("march", "march_argmin", "refine", "march_grad", "stage")
+# The compiled functions: K2 is built twice, one thread a pixel and (at 128
+# samples or more) two threads a pixel, "march_argmin_split".
+COMPILED = KERNELS + ("march_argmin_split",)
 # K5 (march_sp) launches the march_argmin form on a rank's slice of the t grid.
 ALL_KERNELS = KERNELS + ("march_sp",)
+
+
+def counts(**n) -> dict:
+    """Launch counts by kernel name (shadows_cuda.LAUNCHES' keys), 0 where not given."""
+    return {k: n.get(k, 0) for k in ("stage", *KERNELS[:4], "march_sp")}
 
 # Published H100 SXM peaks (dense, no sparsity) used for bounds.
 PEAK_F32_FLOPS = 67e12
@@ -171,11 +192,9 @@ def ptxas_registers(log: str) -> dict:
         if m:
             entry = m.group(1)
         elif "registers" in line and entry is not None:
-            form = re.search(r"march_kernelILi(\d)E", entry)
-            if form:
-                regs[KERNELS[int(form.group(1))]] = line.split(":", 1)[-1].strip()
-            elif "march_grad_kernel" in entry:
-                regs["march_grad"] = line.split(":", 1)[-1].strip()
+            name = sass_kernel_name(entry)
+            if name is not None:
+                regs[name] = line.split(":", 1)[-1].strip()
     return regs
 
 
@@ -188,10 +207,12 @@ SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 
 def sass_kernel_name(mangled: str):
-    form = re.search(r"march_kernelILi(\d)E", mangled)
+    form = re.search(r"march_kernelILi(\d)E(?:Li(\d)E)?", mangled)  # a parent's has no lanes argument
     if form:
-        return KERNELS[int(form.group(1))]
-    return "march_grad" if "march_grad_kernel" in mangled else None
+        return KERNELS[int(form.group(1))] + ("_split" if form.group(2) not in (None, "1") else "")
+    if "march_grad_kernel" in mangled:
+        return "march_grad"
+    return "stage" if "stage_kernel" in mangled else None
 
 
 def opcode_counts(instrs) -> dict:
@@ -278,6 +299,26 @@ def torch_equal_bits(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
 
 
+def staged_equal(got, want) -> bool:
+    """Two shadows.Staged bit for bit: the same fields present, each the same bits."""
+    import torch
+
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        if (g is None) != (w is None):
+            return False
+        if g is not None and not (g.dtype == w.dtype and g.shape == w.shape
+                                  and torch.equal(g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8))):
+            return False
+    return True
+
+
+def device_activities(fn, per_call: int, calls: int = 5) -> list:
+    """The names of the device activities (kernels, fills, copies) of `calls` calls of fn(), by torch.profiler
+    (the fullest of up to PROFILE_WINDOWS windows, enough at per_call a call: see `profiled`)."""
+    return [n for n, _ in profiled(fn, calls, lambda n: True, per_call)]
+
+
 def check_tstar(got_t, want_t, phase: str, tag: str) -> float:
     """K2's winning offsets agree with the plain argmin on every pixel."""
     agree = (got_t == want_t).float().mean().item()
@@ -307,23 +348,82 @@ def cuda_time_ms(fn, iters: int, warmup: int = 1, windows: int = 1) -> float:
     return statistics.median(per_call)
 
 
-def kernel_device_ms(fn, iters: int = 20, name: str = "march_kernel"):
-    """Device time per launch of the kernel `name` that fn() launches, as
-    torch.profiler reports it (None if the profiler sees no CUDA kernel)."""
+def paired_host_ms(a, b, iters: int = 20, rounds: int = 15) -> dict:
+    """a() and b() by wall clock in turns within one process: windows of
+    `iters` calls of each, the order alternating, each window ending on a
+    synchronize. The medians per call, and the median over rounds of a's
+    window over b's: the host's load moves a whole process by tens of
+    percent, and moves a and b alike."""
+    import statistics
+
+    import torch
+
+    a()
+    b()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for r in range(rounds):
+        for fn, out in ((a, ta), (b, tb)) if r % 2 == 0 else ((b, tb), (a, ta)):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) / iters * 1e3)
+    return dict(a_ms=statistics.median(ta), b_ms=statistics.median(tb),
+                a_over_b=statistics.median(x / y for x, y in zip(ta, tb)))
+
+
+# torch.profiler on the card's machine drops a window's first device activity
+# in some windows, and now and then most of a window's (a window of 20
+# launches has read 2); it never adds any. So each window opens on a marker
+# kernel (a one-element negation, left out), and a reading is taken again, up
+# to three windows, until the window holds a whole number of launches per
+# call; the fullest window is kept.
+PROFILE_WINDOWS = 3
+
+
+def profiled(fn, iters: int, keep, per_call: int = 0) -> list:
+    """(name, device us) of the device activities of `iters` calls of fn() that
+    keep(name) accepts, from the fullest of up to PROFILE_WINDOWS windows; a
+    window is enough when it holds per_call activities a call (given) or a
+    whole number of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
-    return total / iters / 1e3 if total > 0 else None
+    best = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.neg_()
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "neg_kernel" not in e.name and keep(e.name)]
+        if len(seen) > len(best):
+            best = seen
+        if best and (len(best) == per_call * iters if per_call else len(best) % iters == 0):
+            break
+    return best
+
+
+def kernel_device_ms(fn, iters: int = 20, name: str = "march_kernel", readings: int = 3):
+    """Device time per call of the kernels named `name` that fn() launches, as
+    torch.profiler reports them: the median of `readings` readings (one has
+    read half the kernel's time against its call's whole device time), or
+    None if it sees no such kernel."""
+    import statistics
+
+    per_reading = []
+    for _ in range(readings):
+        seen = profiled(fn, iters, lambda n: name in n)
+        if seen:
+            per_call = max(1, round(len(seen) / iters))
+            per_reading.append(sum(us for _, us in seen) / len(seen) * per_call / 1e3)
+    return statistics.median(per_reading) if per_reading else None
 
 
 def load_goldens():
@@ -373,6 +473,10 @@ def phase_march(goldens, dev):
                     want = S.ray_march_min_distance_batch(depth, mask, light, cfg)
                     torch.cuda.synchronize()
                     tag = f"K1 {preset}/{gather}/{cull}/{gate}"
+                    if gate == "none":  # the staging at full resolution, with the cull's flags
+                        check(staged_equal(K._stage(depth, mask, light, cfg, flags=True),
+                                           S.stage_inputs(depth, mask, light, cfg)), "march", f"stage {tag}")
+                        runs["stage"] += 1
                     worst["march"] = max(worst["march"], check_equal(got, want, "march", tag))
                     runs["march"] += 1
 
@@ -409,6 +513,13 @@ def phase_march(goldens, dev):
                         worst["refine"] = max(worst["refine"], check_equal(got, want, "march", tag))
                         check(torch_equal_bits(got_from_idx, got), "march", f"{tag}: the index form differs")
                         runs["refine"] += 1
+                        # The draft path itself: the staging pass (bit-equal to its
+                        # plain version), K2 on its pooled quad and flags, K3 on its
+                        # full-resolution quad and flags.
+                        check(staged_equal(K._stage(depth, mask, light, cfg, draft=True, flags=True),
+                                           S.stage_inputs(depth, mask, light, cfg)), "march", f"draft stage {tag}")
+                        runs["stage"] += 1
+                        check_equal(K.draft_march(depth, mask, light, cfg), want, "march", f"draft march {tag}")
 
     # march_grad: K2 forward and march_grad backward through the autograd
     # Function under the training presets, against the plain VJP at the
@@ -445,7 +556,7 @@ def phase_march(goldens, dev):
                         grad_err[key] = max(grad_err[key], v)
                     runs["march_grad"] += 1
     worst["march_grad"] = grad_err["d_depth"]
-    emit("march", ok=True, configs=runs, batch=8, bit_equal=["march", "march_argmin", "refine"],
+    emit("march", ok=True, configs=runs, batch=8, bit_equal=["march", "march_argmin", "refine", "stage"],
          size={"march": 256, "march_argmin": 64, "refine": 256, "march_grad": 256},
          samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8, "march_grad": [160, 159]},
          tstar_agreement=tstar_agree, max_abs_err=worst, march_grad_err=grad_err, march_grad_bars=GRAD_BARS)
@@ -491,7 +602,7 @@ def phase_golden(goldens, dev):
             cfg = dataclasses.replace(strict, shadow_mask_cull=cull)
             reset_launches()
             outs[cull] = render(*args, cfg, **targets)
-            check(K.LAUNCHES == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}, "golden",
+            check(K.LAUNCHES == counts(stage=1, march=1), "golden",
                   f"{name}: strict render launched {K.LAUNCHES}")
         w = outs[False].shadow_mask_weights.cpu().numpy()
         sw = float(np.abs(w - fx["shadow_weights"]).mean())
@@ -509,7 +620,7 @@ def phase_golden(goldens, dev):
         # The draft tier: K2 then K3, at the bars of tests/test_torch_draft.py.
         reset_launches()
         draft = render(*args, C.apply_precision_tier(preset, "draft").render, **targets)
-        check(K.LAUNCHES == {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0}, "golden",
+        check(K.LAUNCHES == counts(stage=1, march_argmin=1, refine=1), "golden",
               f"{name}: draft render launched {K.LAUNCHES}")
         dw = draft.shadow_mask_weights.cpu().numpy()
         row["draft_sw_face_mean_abs"] = float(np.abs(dw - fx["shadow_weights"])[face].mean())
@@ -538,9 +649,9 @@ def plain_min_distance(depth, mask, light_pt, cfg):
 
 
 TIER_LAUNCHES = {
-    "strict": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0},
-    "fast": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0},
-    "draft": {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0},
+    "strict": counts(stage=1, march=1),
+    "fast": counts(stage=1, march=1),
+    "draft": counts(stage=1, march_argmin=1, refine=1),  # one staging pass for K2 and K3
 }
 
 
@@ -600,9 +711,11 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
         check(rl.device.type == "cuda", "e2e", f"Relighter chose {rl.device}")
 
         # The main path, counted on its own. No tier makes an upsampled t*
-        # map or a cull-flag pass: K3 reads K2's index, the kernels cull.
+        # map, a cull-flag pass or the draft pooling's eager ops: K3 reads K2's
+        # index, the staging pass pools and flags, the kernels cull.
         reset_launches()
-        with CallCounter((S, "upsample_tstar_nn"), (R, "upsample_tstar_nn"), (S, "cull_live_blocks")) as glue:
+        with CallCounter((S, "upsample_tstar_nn"), (R, "upsample_tstar_nn"), (S, "cull_live_blocks"),
+                         (S, "scale_march_inputs"), (R, "pool_march_inputs")) as glue:
             out = rl.forward(images, masks, lights)
         torch.cuda.synchronize()
         n = dict(K.LAUNCHES)
@@ -620,6 +733,11 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
         # then the same shadow weights and composite as render().
         depth = out.depth.float().contiguous()
         light_pt = (cfg.render.light_distance * out.unit_light_direction.float()).contiguous()
+        # The march's device launches (torch.profiler): staging and K1, or at
+        # draft the staging pass, K2 and K3, and nothing else.
+        march_names = device_activities(lambda: shadow_min_distance(depth, masks, light_pt, cfg.render),
+                                        sum(n.values()))
+        check(len(march_names) == 5 * sum(n.values()), "e2e", f"{tier}: five marches ran {march_names}")
         plain_md = plain_min_distance(depth, masks, light_pt, cfg.render)
         md_err = check_equal(out.min_distance, plain_md, "e2e", f"{tier}: min_distance")
         kernel = "march" if tier != "draft" else "refine"
@@ -638,7 +756,8 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
             net_ms = cuda_time_ms(lambda: rl.model(images, rl.use_skips), 8, windows=5)
         march_ms = cuda_time_ms(lambda: shadow_min_distance(depth, masks, light_pt, cfg.render), 20, windows=5)
         results[tier] = dict(img_per_s=batch / (ms / 1e3), forward_ms=ms, cnn_ms=net_ms,
-                             march_ms=march_ms, launches=n, glue_calls=glue.calls, kernel_vs_plain_psnr_db=psnr,
+                             march_ms=march_ms, launches=n, march_device_launches=len(march_names) / 5,
+                             glue_calls=glue.calls, kernel_vs_plain_psnr_db=psnr,
                              min_distance_max_abs_err=md_err)
         emit("e2e", ok=True, tier=tier, batch=batch, size=256, **results[tier])
         del rl, out, depth
@@ -655,7 +774,7 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
 # alone when the images move by one ulp. 1.7e-3 (G) and 1.3e-5 (D) were
 # measured on an H100.
 TRAIN_BARS = {"loss_rel": 1e-4, "g_grad_norm_rel": 1e-2, "d_grad_norm_rel": 1e-3}
-TRAIN_STEP_LAUNCHES = {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1, "march_sp": 0}
+TRAIN_STEP_LAUNCHES = counts(stage=1, march_argmin=1, march_grad=1)
 
 
 def flat_params(module):
@@ -678,17 +797,7 @@ def grad_norms(grads: dict) -> dict:
 
 def device_busy_ms(fn, iters: int) -> float:
     """Device time per fn() summed over every kernel and copy the profiler sees."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
-                for ev in prof.key_averages())
-    return total / iters / 1e3
+    return sum(us for _, us in profiled(fn, iters, lambda n: True)) / iters / 1e3
 
 
 def phase_train(dev, seed=0, steps=6):
@@ -804,7 +913,7 @@ def phase_train(dev, seed=0, steps=6):
         depth = out.depth.contiguous()
         light_pt = (rcfg.light_distance * out.unit_light_direction).contiguous()
         ts = K._ts_for(dev, rcfg)
-        _, idx = K._launch_argmin(depth, mask, light_pt, ts, rcfg)
+        _, idx, staged = K._launch_argmin(depth, mask, light_pt, ts, rcfg)
         cot = torch.randn(depth.shape, device=dev, generator=torch.Generator(dev).manual_seed(seed))
 
         def cnn():
@@ -822,8 +931,8 @@ def phase_train(dev, seed=0, steps=6):
 
         split = dict(cnn_fwd_bwd_ms=cuda_time_ms(cnn, 4, windows=5), d_fwd_bwd_ms=cuda_time_ms(disc, 4, windows=5),
                      march_fwd_k2_ms=cuda_time_ms(march_fwd, 20, windows=5),
-                     march_bwd_grad_ms=cuda_time_ms(lambda: K.march_grad_cuda(depth, mask, light_pt, idx, ts, cot, rcfg),
-                                                    20, windows=5))
+                     march_bwd_grad_ms=cuda_time_ms(
+                         lambda: K.march_grad_cuda(depth, mask, light_pt, idx, ts, cot, rcfg, staged), 20, windows=5))
         split["rest_ms"] = step_ms - sum(split.values())
         busy_ms = device_busy_ms(lambda: T.train_step(state, batch, cfg, skips), 4)
         result = dict(step_ms=step_ms, img_per_s=b / (step_ms / 1e3), epoch_s=epoch_s,
@@ -839,10 +948,12 @@ def phase_train(dev, seed=0, steps=6):
 # it over gloo (NCCL refuses two ranks on one GPU); with a card each, NCCL.
 PARALLEL_RANKS = 2
 SAMPLES_LAUNCHES = {  # per rank, per sample-parallel Relighter.forward
-    "strict": {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0},
-    "draft": {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0},
+    "strict": counts(stage=1, march=1),
+    # The pooling (the draft staging's, shadows_cuda.pool_march_inputs), K2 on the rank's slice of the
+    # pooled inputs, K3 around the combined t*: each stages its own input
+    "draft": counts(stage=3, march_argmin=1, refine=1),
 }
-GRID_STEP_LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 1, "march_sp": 1}
+GRID_STEP_LAUNCHES = counts(stage=1, march_grad=1, march_sp=1)
 LATER_STEP_BARS = {k: 10 * v for k, v in TRAIN_BARS.items()}
 DP_G_GRAD_NORM_REL = 0.15
 
@@ -964,9 +1075,9 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
     torch.cuda.synchronize()
     n = dict(K.LAUNCHES)
     check(n == GRID_STEP_LAUNCHES, "parallel", f"K5 forward and backward launched {n}")
-    full, full_idx = K._launch_argmin(depth, mask, light, K._ts_for(dev, cfg), cfg)
+    full, full_idx, _ = K._launch_argmin(depth, mask, light, K._ts_for(dev, cfg), cfg)
     check(torch.equal(out.detach(), full), "parallel", "K5: distances differ from K2 on the full grid")
-    local_min, local_idx = K._argmin_march(depth, mask, light, ts_local, cfg)
+    local_min, local_idx, _ = K._argmin(depth, mask, light, ts_local, cfg)
     _, idx, _ = K._first_winner(local_min, local_idx, ts_local, group)
     idx_agree = (idx == full_idx).float().mean().item()
     check(idx_agree >= 0.9999, "parallel", f"K5: winner equal to the full grid's on {idx_agree} of pixels")
@@ -986,18 +1097,20 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
               "parallel", f"K5 gradients {tag}: d_depth {dd_rel}, d_light {dl_rel}")
         grad_err[tag] = dict(d_depth_rel_to_max=dd_rel, d_light_rel_to_image_max=dl_rel)
 
-    # K5 timed at the training shape (3, 256, 256): the whole forward, the
-    # kernel on the slice alone, the combine alone, march_grad at the winner,
-    # and the plain version (the plain argmin march on the slice, the combine).
+    # K5 timed at the training shape (3, 256, 256): the whole forward, K2 on
+    # the slice (the call with its staging by CUDA events, slice_ms, and the
+    # kernel alone by the profiler, kernel_ms), the combine alone, march_grad
+    # at the winner, and the plain version (the plain argmin march on the
+    # slice, the combine).
     td, tm, tl, tc = (x[:3].contiguous() for x in (depth, mask, light, cot))
     with torch.no_grad():
         k5_ms = cuda_time_ms(lambda: K.RayMarchMinDistanceSP.apply(td, tm, tl, cfg, ts_local, group), 10, windows=5)
     slice_ms = cuda_time_ms(lambda: K._launch_argmin(td, tm, tl, ts_local, cfg), 20, windows=5)
     slice_device_ms = kernel_device_ms(lambda: K._launch_argmin(td, tm, tl, ts_local, cfg))
-    t_min, t_idx = K._launch_argmin(td, tm, tl, ts_local, cfg)
+    t_min, t_idx, t_staged = K._launch_argmin(td, tm, tl, ts_local, cfg)
     combine_ms = cuda_time_ms(lambda: K._first_winner(t_min, t_idx, ts_local, group), 10, windows=5)
     _, t_gidx, t_table = K._first_winner(t_min, t_idx, ts_local, group)
-    bwd_ms = cuda_time_ms(lambda: K.march_grad_cuda(td, tm, tl, t_gidx, t_table, tc, cfg), 20, windows=5)
+    bwd_ms = cuda_time_ms(lambda: K.march_grad_cuda(td, tm, tl, t_gidx, t_table, tc, cfg, t_staged), 20, windows=5)
     plain_ms = cuda_time_ms(lambda: K._first_winner(*S.ray_march_argmin_batch(td, tm, tl, cfg, ts_local),
                                                     ts_local, group), 2)
     b, h, w = td.shape
@@ -1010,7 +1123,7 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
     nbytes = 4 * (4 * b * h * w + 3 * b + ts_local.numel()) + 4 * 4 * b * h * w
     res["k5"] = dict(launches=n, distances_equal_full_grid=True, winner_agreement=idx_agree,
                      plain_winner_agreement=plain_idx_agree, max_abs_err=k5_err, grad_err=grad_err,
-                     ms=k5_ms, kernel_ms=slice_ms, kernel_device_ms=slice_device_ms, combine_ms=combine_ms,
+                     ms=k5_ms, slice_ms=slice_ms, kernel_ms=slice_device_ms, combine_ms=combine_ms,
                      backward_ms=bwd_ms, plain_ms=plain_ms, samples_per_rank=ts_local.numel(),
                      **bound(ops, nbytes))
     del d, lp, d4, lp4, out, full, want_d
@@ -1250,7 +1363,7 @@ def phase_timing(goldens, dev, batch=64):
     # its table, with no upsampled t* map; bit-equal to the t_map form too.
     sc = cfg.shadow_resolution_scale
     table = K._ts_for(dev, m_cfg)
-    _, idx = K._argmin_march(m_depth, m_mask, m_light, table, m_cfg)
+    _, idx, _ = K._argmin(m_depth, m_mask, m_light, table, m_cfg)
     t_map = S.upsample_tstar_nn(table[idx.long()], cfg)
     got = K.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg)
     want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
@@ -1272,18 +1385,37 @@ def phase_timing(goldens, dev, batch=64):
     )
     rows["draft_refine"]["max_abs_err"] = err
 
-    # The whole draft march, as render() runs it: pool, K2, K3. Its bound
-    # counts the pooling's operations and the three kernels' work, and the
-    # bytes the function itself must move (depth and mask in, distances out).
+    # The draft march's staging pass alone: bit-equal to its plain version,
+    # bound by the bytes it must move (depth and mask in; both quads, both
+    # resolutions' flags and the light out).
+    check(staged_equal(K._stage(depth, mask, light, cfg, draft=True, flags=True), S.stage_inputs(depth, mask, light, cfg)),
+          "timing", f"draft staging: batch {batch}")
+    hs, ws, chunk = h // sc, w // sc, S.effective_col_chunk(cfg)
+    nbytes = (8 * batch * h * w + 8 * batch * ((h + 1) * (w + 1) + (hs + 1) * (ws + 1))
+              + batch * (hs // 8) * (ws // S.effective_col_chunk(m_cfg)) + batch * (h // 8) * (w // chunk) + 24 * batch)
+    rows["draft_stage"] = timing_row(
+        "stage", lambda: K._stage(depth, mask, light, cfg, draft=True, flags=True),
+        lambda: S.stage_inputs(depth, mask, light, cfg), POOL_OPS_PER_PIXEL * batch * h * w, nbytes,
+        dict(tier="draft", batch=batch, size=h, scale=sc), device_name="stage_kernel",
+    )
+    rows["draft_stage"]["max_abs_err"] = 0.0
+
+    # The whole draft march, as render() runs it: the staging pass, K2, K3,
+    # three device launches and nothing else. Its bound counts the pooling's
+    # operations and the two marches' work, and the bytes the function itself
+    # must move (depth and mask in, distances out).
     got = shadow_min_distance(depth, mask, light, cfg)
     err = check_equal(got, plain_min_distance(depth, mask, light, cfg), "timing", f"draft march: batch {batch}")
     del got
+    activities = device_activities(lambda: shadow_min_distance(depth, mask, light, cfg), 3)
+    check(len(activities) == 3 * 5, "timing", f"five draft marches ran {activities}")
     ops = POOL_OPS_PER_PIXEL * batch * h * w + rows["draft_argmin"]["ops"] + rows["draft_refine"]["ops"]
     rows["draft_march"] = timing_row(
         "draft_march", lambda: shadow_min_distance(depth, mask, light, cfg),
         lambda: plain_min_distance(depth, mask, light, cfg), ops, 4 * (3 * batch * h * w + 3 * batch),
-        dict(tag, samples=[m_cfg.num_sample_points, n_off]), device_name=None,
+        dict(tag, samples=[m_cfg.num_sample_points, n_off], device_activities=len(activities) / 5), device_name=None,
     )
+    rows["draft_march"]["device_launches"] = len(activities) / 5
     rows["draft_march"]["max_abs_err"] = err
 
     # The training march at its shapes (preset_target_lighting_train: batch
@@ -1305,43 +1437,65 @@ def phase_timing(goldens, dev, batch=64):
     )
     rows["train_argmin"]["max_abs_err"] = err
 
+    # march_grad on the forward's staged quad, at the training batch and at 64
+    # (the intercept is its fixed cost, the slope its cost a pixel), with a
+    # seeded random cotangent; beside it the floor no launch goes under, a
+    # one-element fill's device time.
     ts = K._ts_for(dev, cfg)
-    _, idx = K._launch_argmin(td, tm, tl, ts, cfg)
-    t_star = ts[idx.long()]
-    cot = torch.randn((b, h, w), generator=torch.Generator().manual_seed(2)).to(dev)
-    got_dd, got_dl = K.march_grad_cuda(td, tm, tl, idx, ts, cot, cfg)
-    want_dd, want_dl = S.march_vjp(td, tm, tl, t_star, cot, cfg)
-    err = (got_dd - want_dd).abs().max().item()
-    check(err <= GRAD_BARS["d_depth_rel_to_max"] * want_dd.abs().max().item(), "timing", f"train march_grad: d_depth {err}")
-    dl_rel = ((got_dl - want_dl).abs() / want_dl.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
-    check(dl_rel <= GRAD_BARS["d_light_rel_to_image_max"], "timing", f"train march_grad: d_light {dl_rel}")
-    # The work this run's data needs: pixels whose winner is on the face and
-    # whose cotangent is nonzero differentiate, vetoed winners stop early.
-    vetoed = S.sample_distance_at_batch(td, tm, tl, t_star, cfg) >= 1e5
-    n_grad = int((~vetoed & (cot != 0)).sum().item())
-    n_vetoed = int(vetoed.sum().item())
-    bilinear = GRAD_OPS["bilinear_extra"] if S.resolve_mask_gather(cfg) == "bilinear" else 0
-    ops = (n_grad * (GRAD_OPS["grad"] + bilinear) + n_vetoed * (GRAD_OPS["vetoed"] + bilinear)
-           + (b * h * w - n_grad - n_vetoed) * GRAD_OPS["other"])
-    nbytes = 4 * (5 * b * h * w + 6 * b + s)  # depth, mask, idx, cotangent, d_depth; light, d_light; ts
-    rows["train_grad"] = timing_row(
-        "march_grad", lambda: K.march_grad_cuda(td, tm, tl, idx, ts, cot, cfg),
-        lambda: S.march_vjp(td, tm, tl, t_star, cot, cfg), ops, nbytes,
-        dict(tier="train", batch=b, size=h, veto=S.resolve_mask_gather(cfg), pixels_with_gradient=n_grad,
-             pixels_vetoed=n_vetoed, d_light_rel_to_image_max=dl_rel),
-        device_name="march_grad_kernel",
-    )
-    rows["train_grad"]["max_abs_err"] = err
+    for b in (3, batch):
+        td, tm, tl = depth[:b].contiguous(), mask[:b].contiguous(), light[:b].contiguous()
+        _, idx, staged = K._launch_argmin(td, tm, tl, ts, cfg)
+        t_star = ts[idx.long()]
+        cot = torch.randn((b, h, w), generator=torch.Generator().manual_seed(2)).to(dev)
+        grad_fn = functools.partial(K.march_grad_cuda, td, tm, tl, idx, ts, cot, cfg, staged)
+        got_dd, got_dl = grad_fn()
+        want_dd, want_dl = S.march_vjp(td, tm, tl, t_star, cot, cfg)
+        err = (got_dd - want_dd).abs().max().item()
+        check(err <= GRAD_BARS["d_depth_rel_to_max"] * want_dd.abs().max().item(), "timing",
+              f"train march_grad, batch {b}: d_depth {err}")
+        dl_rel = ((got_dl - want_dl).abs() / want_dl.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
+        check(dl_rel <= GRAD_BARS["d_light_rel_to_image_max"], "timing", f"train march_grad, batch {b}: d_light {dl_rel}")
+        activities = device_activities(grad_fn, 2)
+        check(len(activities) == 2 * 5, "timing", f"five march_grad_cuda calls ran {activities}: one zero fill and the kernel each")
+        # The work this run's data needs: pixels whose winner is on the face and
+        # whose cotangent is nonzero differentiate, vetoed winners stop early.
+        vetoed = S.sample_distance_at_batch(td, tm, tl, t_star, cfg) >= 1e5
+        n_grad = int((~vetoed & (cot != 0)).sum().item())
+        n_vetoed = int(vetoed.sum().item())
+        bilinear = GRAD_OPS["bilinear_extra"] if S.resolve_mask_gather(cfg) == "bilinear" else 0
+        ops = (n_grad * (GRAD_OPS["grad"] + bilinear) + n_vetoed * (GRAD_OPS["vetoed"] + bilinear)
+               + (b * h * w - n_grad - n_vetoed) * GRAD_OPS["other"])
+        nbytes = 4 * (5 * b * h * w + 6 * b + s)  # depth, mask, idx, cotangent, d_depth; light, d_light; ts
+        key = "train_grad" if b == 3 else f"train_grad_{b}"
+        rows[key] = timing_row(
+            "march_grad", grad_fn, lambda: S.march_vjp(td, tm, tl, t_star, cot, cfg), ops, nbytes,
+            dict(tier="train", batch=b, size=h, veto=S.resolve_mask_gather(cfg), pixels_with_gradient=n_grad,
+                 pixels_vetoed=n_vetoed, d_light_rel_to_image_max=dl_rel, device_activities=len(activities) / 5),
+            device_name="march_grad_kernel",
+        )
+        rows[key]["max_abs_err"] = err
+        del want_dd, staged
+    rows["train_grad"]["launch_floor_ms"] = device_busy_ms(lambda: torch.zeros(1, device=dev), 20)
+    emit("timing", ok=True, kernel="launch_floor", what="a one-element fill (torch.zeros(1))",
+         device_ms=rows["train_grad"]["launch_floor_ms"])
     return rows
 
 
 def compare_timing(goldens, dev, batch=64) -> dict:
     """The march kernels at the main paths' shapes, through the API this tree and
-    its parent share: K1 strict and fast, K2 at draft and at the training
-    shape, the whole draft march with K2's and K3's kernel times in it, and
-    K3 alone at 1, 8 and 16 offsets and fully culled. Each row: the call's ms
-    (CUDA events), the kernel alone and every kernel the call launches
-    (torch.profiler)."""
+    its parent share: K1 strict and fast, K2 at draft, at the training shape
+    and on one rank's half of training's samples (K5's forward), the whole
+    draft march with its staging's, K2's and K3's kernel times in it, the
+    draft march of one shard of two as sample parallelism runs it (pooling,
+    K2 on the slice, K3 around a t_map) and with the refine off (pooling, K1,
+    upsampling), K3 alone around a t_map at 1, 8 and 16 offsets and fully
+    culled, K3 fully culled in the draft march, march_grad (K4's backward)
+    through autograd at batch 3 and 64 and through its wrapper at batch 3;
+    and a one-element fill, the floor no launch goes under. Each row: the
+    call's ms (CUDA events), the kernel alone and every kernel the call
+    launches (torch.profiler). The march_grad wrapper's host time is also
+    read in turns with a one-element fill's (`paired_host_ms`) and, where the
+    tree has the unchecked launch the autograd backward runs, with that."""
     import numpy as np
     import torch
 
@@ -1364,21 +1518,85 @@ def compare_timing(goldens, dev, batch=64) -> dict:
         rows[f"K1_{tier}"] = row(lambda: K.ray_march_min_distance_cuda(depth, mask, light, cfg))
     cfg = C.apply_precision_tier(C.preset_single_image(), "draft").render
     m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(depth, mask, light, cfg)
-    rows["K2_draft"] = row(lambda: K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True))
-    rows["draft_march"] = row(lambda: shadow_min_distance(depth, mask, light, cfg), name="march_kernel<2>",
-                              k2_device_ms="march_kernel<1>")
+    rows["K2_draft"] = row(lambda: K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True),
+                           name="march_kernel<1")
+    rows["draft_march"] = row(lambda: shadow_min_distance(depth, mask, light, cfg), name="march_kernel<2",
+                              k2_device_ms="march_kernel<1", stage_device_ms="stage_kernel")
     # K3 alone around the upsampled t*, at 1, 8 and 16 offsets and with every
-    # cull unit empty: its time per sample and per pixel apart.
+    # cull unit empty (it scans the mask): its time per sample and per pixel
+    # apart; then fully culled in the draft march, where it reads flags.
     _, t_star = K.ray_march_min_distance_cuda(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
     t_map = S.upsample_tstar_nn(t_star, cfg).contiguous()
     for n in (1, 8, 16):
         offsets = ((np.arange(n) - n // 2) * cfg.t_step).astype(np.float32)
-        rows[f"K3_{n}_offsets"] = row(lambda: K.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets))
+        rows[f"K3_{n}_offsets"] = row(lambda: K.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets),
+                                      name="march_kernel<2")
     empty = torch.zeros_like(mask)
-    rows["K3_all_culled"] = row(lambda: K.refine_min_distance_cuda(depth, empty, light, t_map, cfg))
+    rows["K3_all_culled_t_map"] = row(lambda: K.refine_min_distance_cuda(depth, empty, light, t_map, cfg),
+                                      name="march_kernel<2")
+    rows["K3_all_culled"] = row(lambda: shadow_min_distance(depth, empty, light, cfg), name="march_kernel<2")
+    # The draft march of rank 0 of two (Relighter(parallel='samples')), on one
+    # process (no group, so no combine), and the draft march without refine.
+    ts0 = torch.as_tensor(S.sharded_sample_ts(m_cfg, 2).reshape(2, -1)[0], device=dev)
+
+    def one_shard(d, m, lp, return_argmin_t=False):
+        return K.sharded_march(d, m, lp, m_cfg, ts0, None, return_argmin_t)
+
+    one_shard.refine_fn = functools.partial(K.refine_min_distance_cuda, cfg=cfg)
+    rows["draft_march_one_shard"] = row(lambda: shadow_min_distance(depth, mask, light, cfg, march_fn=one_shard),
+                                        name="march_kernel<2", k2_device_ms="march_kernel<1")
+    up_cfg = dataclasses.replace(cfg, shadow_refine_halfwidth=0, shadow_lowres_t_stride=1)
+    rows["draft_march_upscale"] = row(lambda: shadow_min_distance(depth, mask, light, up_cfg), name="march_kernel<0")
     tcfg = C.preset_target_lighting_train().render
     td, tm, tl = depth[:3].contiguous(), mask[:3].contiguous(), light[:3].contiguous()
-    rows["K2_train"] = row(lambda: K.ray_march_min_distance_cuda(td, tm, tl, tcfg, return_argmin_t=True))
+    rows["K2_train"] = row(lambda: K.ray_march_min_distance_cuda(td, tm, tl, tcfg, return_argmin_t=True),
+                           name="march_kernel<1")
+    ts_half = torch.as_tensor(S.sharded_sample_ts(tcfg, 2).reshape(2, -1)[0], device=dev)
+    rows["K2_train_half_samples"] = row(
+        lambda: K.ray_march_min_distance_cuda(td, tm, tl, tcfg, ts_half, return_argmin_t=True), name="march_kernel<1")
+    # march_grad through its wrapper, as a caller outside autograd calls it:
+    # the host's checks and the fill around the kernel. A tree whose kernel
+    # reads the forward's staged quad takes it as the last argument.
+    ts = K._ts_for(dev, tcfg)
+    _, idx3, *staged3 = K._launch_argmin(td, tm, tl, ts, tcfg)
+    cot3 = torch.randn(td.shape, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    def wrapper():
+        return K.march_grad_cuda(td, tm, tl, idx3, ts, cot3, tcfg, *staged3)
+
+    rows["K4_wrapper_b3"] = row(wrapper, name="march_grad_kernel")
+    rows["K4_wrapper_b3"]["vs_fill"] = paired_host_ms(wrapper, lambda: torch.zeros(1, device=dev))
+    if hasattr(K, "_march_grad"):
+        rows["K4_wrapper_b3"]["vs_unchecked"] = paired_host_ms(
+            wrapper, lambda: K._march_grad(tl, idx3, ts, cot3, staged3[0], tcfg))
+    for b in (3, batch):
+        d, lp = depth[:b].clone().requires_grad_(), light[:b].clone().requires_grad_()
+        out = K.ray_march_min_distance_cuda(d, mask[:b].contiguous(), lp, tcfg)
+        cot = torch.randn(out.shape, device=dev, generator=torch.Generator(dev).manual_seed(b))
+        rows[f"K4_backward_b{b}"] = row(lambda: torch.autograd.grad(out, (d, lp), cot, retain_graph=True),
+                                        name="march_grad_kernel")
+        del out
+    rows["launch_floor"] = row(lambda: torch.zeros(1, device=dev), name="Fill")
+
+    # End to end, where the host's load moves the numbers between calls: the
+    # forward at batch 64 at each tier and the training step at batch 3 (median
+    # of five windows, as phases e2e and train time them).
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+
+    images, masks, lights = serving_inputs(goldens, dev, 0, batch)
+    for tier in ("strict", "fast", "draft"):
+        cfg = C.apply_precision_tier(C.preset_single_image(), tier)
+        rl = Relighter(cfg, RelightNet(cfg.model, generator=torch.Generator().manual_seed(0)).state_dict(), device=dev)
+        ms = cuda_time_ms(lambda: rl.forward(images, masks, lights), 8, windows=5)
+        rows[f"forward_{tier}"] = dict(ms=ms, img_per_s=batch / (ms / 1e3))
+        del rl
+    tcfg = C.preset_target_lighting_train()
+    state = T.init_state(tcfg, dev, torch.Generator().manual_seed(0))
+    step_batch = T.decode_batch(train_batches(0, tcfg.train.batch_size, 1)[0], dev)
+    skips = tcfg.model.skip_gates(0)
+    ms = cuda_time_ms(lambda: T.train_step(state, step_batch, tcfg, skips), 4, warmup=2, windows=5)
+    rows["train_step"] = dict(ms=ms, device_busy_ms=device_busy_ms(lambda: T.train_step(state, step_batch, tcfg, skips), 4))
     return rows
 
 
@@ -1413,7 +1631,7 @@ def compare_parent(parent: Path) -> int:
         run = json.loads(lines[-1])
         print(json.dumps(dict(run, tree=tree)), flush=True)
         runs.append((tree, run))
-    summary = {key: {f"{tree}_{i}": {k: run["timing"][key][k] for k in ("ms", "kernel_device_ms")}
+    summary = {key: {f"{tree}_{i}": {k: run["timing"][key].get(k) for k in ("ms", "kernel_device_ms")}
                      for i, (tree, run) in enumerate(runs)} for key in runs[0][1]["timing"]}
     emit("compare", ok=True, order=[t for t, _ in runs], rows=summary)
     print(runs[0][1]["nvidia_smi"], flush=True)
@@ -1458,10 +1676,10 @@ def main() -> int:
         K._library()
         seconds = time.perf_counter() - t0
         regs = ptxas_registers(log)
-        check(sorted(regs) == sorted(KERNELS), "build", f"ptxas reported {sorted(regs)}, expected {sorted(KERNELS)}")
+        check(sorted(regs) == sorted(COMPILED), "build", f"ptxas reported {sorted(regs)}, expected {sorted(COMPILED)}")
         sass = sass_counts(lib, cuobjdump_path())
-        check(sorted(sass) == sorted(KERNELS), "build", f"cuobjdump showed {sorted(sass)}, expected {sorted(KERNELS)}")
-        emit("build", ok=True, seconds=seconds, kernels=list(KERNELS), ptxas=regs, sass=sass,
+        check(sorted(sass) == sorted(COMPILED), "build", f"cuobjdump showed {sorted(sass)}, expected {sorted(COMPILED)}")
+        emit("build", ok=True, seconds=seconds, kernels=list(COMPILED), ptxas=regs, sass=sass,
              loop_conversions={k: sum(lp[op] for lp in v["loops"] for op in ("F2I", "I2F", "FRND"))
                                for k, v in sass.items()})
 
@@ -1502,16 +1720,27 @@ def main() -> int:
             kernel_ms=t["kernel_device_ms"],
         )
         if name == "march_argmin":
-            k2 = timing["train_argmin"]
+            k2, st = timing["train_argmin"], timing["draft_stage"]
             row.update(train_ms=k2["ms"], train_kernel_ms=k2["kernel_device_ms"], train_plain_ms=k2["plain_ms"],
-                       train_bound_ms=k2["bound_ms"])
+                       train_bound_ms=k2["bound_ms"],
+                       # the staging pass that feeds the draft march (K2 and K3), and every march
+                       stage_launches=launches["stage"] + train_launches["stage"] + parallel_launches["stage"],
+                       draft_stage_ms=st["ms"], draft_stage_kernel_ms=st["kernel_device_ms"],
+                       draft_stage_plain_ms=st["plain_ms"], draft_stage_bound_ms=st["bound_ms"],
+                       draft_stage_bound_by=st["bound_by"],
+                       draft_march_device_ms=timing["draft_march"]["wrapper_device_ms"],
+                       draft_march_device_launches=timing["draft_march"]["device_launches"])
+        if name == "march_grad":
+            g64 = timing["train_grad_64"]
+            row.update(b64_ms=g64["ms"], b64_kernel_ms=g64["kernel_device_ms"], b64_plain_ms=g64["plain_ms"],
+                       b64_bound_ms=g64["bound_ms"], launch_floor_ms=t["launch_floor_ms"])
         kernels.append(row)
     kernels.append(dict(
         name="march_sp", route="cuda", source="geomconsistentfr_torch/csrc/march.cu",
         replaces="geomconsistentfr_tpu/ops/shadows_pallas.py:815", launches=parallel_launches["march_sp"],
         max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
-        bound_by=k5["bound_by"], library_ms=None, kernel_ms=k5["kernel_ms"], combine_ms=k5["combine_ms"],
-        backward_ms=k5["backward_ms"], ranks=PARALLEL_RANKS,
+        bound_by=k5["bound_by"], library_ms=None, kernel_ms=k5["kernel_ms"], slice_ms=k5["slice_ms"],
+        combine_ms=k5["combine_ms"], backward_ms=k5["backward_ms"], ranks=PARALLEL_RANKS,
     ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

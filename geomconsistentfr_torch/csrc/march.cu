@@ -1,8 +1,9 @@
 // Shadow ray-march kernels: per pixel, the minimum over a set of offsets t of
 // the 3D distance from the pixel->light ray to the bilinearly sampled depth
-// point on the pixel->border segment. One templated kernel, three forms, and
-// the backward of K2 (march_grad_kernel, below them: the training march K4 is
-// K2 forward and march_grad backward):
+// point on the pixel->border segment. One templated kernel, three forms, fed
+// by one staging kernel (stage_kernel, below them, which at the draft tier
+// also pools), and the backward of K2 (march_grad_kernel, last: the training
+// march K4 is K2 forward and march_grad backward):
 //
 //  K1 (kMin)     the min over the t grid. Replaces the inference form of
 //                geomconsistentfr_tpu/ops/shadows_pallas.py `_march_kernel`,
@@ -53,13 +54,21 @@
 // crosses the whole image), so a TMA copy of a fixed tile has nothing to
 // feed; nor does the image fit a block's shared memory.
 //
-// Design. One thread per pixel; a block is 8 rows x 32 columns, the cull's
-// 8-row unit (8 x 16 measured the same, 8 x 64 slower); the loop unrolled 4
+// Design. One thread per pixel (K2 at training: 2 threads, below); a block is
+// 8 rows x 32 threads, the cull's 8-row unit (8 x 16 measured the same, 8 x
+// 64 slower); the loop unrolled 4
 // times, K1 and K2 held to 64 registers (4 blocks an SM) and K3 to 5 blocks
 // (unrolling 1 or 2 times, or 40 registers, measured slower). Per-pixel
 // constants (endpoint, BC, denominator, K3's centre) are computed once in
 // registers; the t table (K1, K2) or the window offsets (K3) are staged in
-// shared memory. Per sample (sample_n2):
+// shared memory. K2 marches small grids (the draft tier's 64 x 64^2 pixels,
+// training's 3 x 256^2: 1.45 waves of blocks on the card, the second at
+// half occupancy), so where a pixel has 128 samples or more it runs on two
+// neighbouring threads of a warp, lane l over samples l, l + 2, ...
+// (interleaved, so the lanes' taps stay a step apart, in the same cache
+// lines; contiguous slices measured slower), and the lanes combine their
+// first winners with shuffles on (norm^2, index): exact, so K2 keeps the
+// strict-< first winner. Per sample (sample_taps, sample_n2):
 //  * No conversion-unit instruction. floor(x) is the bit pattern of
 //    __fadd_rd(x, 1.5 * 2^23) less 0x4B400000 (for |x| < 2^22 the sum lies on
 //    a grid of step 1, so rounding toward -inf lands on floor(x) + 1.5 * 2^23
@@ -95,12 +104,13 @@
 //    kernel clamps every t into [0, 1] as it stages it, so no input reads
 //    out of bounds; the wrapper refuses tables outside [0, 1], so the clamp
 //    changes none.
-//  * The cull is in the kernel: each block reads the mask of its cull units
-//    (8 rows x col_chunk, or the whole row group for the row cull), and a
-//    thread whose unit holds no face writes the all-vetoed sentinel and skips
-//    the loop. A block inside one unit (chunks of 32, 64 and the row) decides
-//    with one __syncthreads_or; one that meets several keeps a shared flag
-//    per unit.
+//  * The cull is in the kernel. K2 and the draft path's K3 read one byte per
+//    cull unit (8 rows x col_chunk, or the whole row group for the row
+//    cull) that stage_kernel wrote; K1 and K3 around a t_map read the
+//    unit's mask themselves: a block inside one unit (chunks of 32, 64 and
+//    the row) decides with one __syncthreads_or, one that meets several
+//    keeps a shared flag per unit. A thread whose unit holds no face writes
+//    the all-vetoed sentinel and skips the loop.
 // The loop carries the min of the raw cross-product norm^2 (1e30 for a
 // vetoed sample); sqrt(n2 + 1e-4) / denom is monotone in n2, so the result
 // equals the min of per-sample distances exactly, and is taken once at the
@@ -146,6 +156,20 @@ constexpr float kOffFaceN2 = 1.0e30f;
 constexpr float kRound = 12582912.0f;   // 1.5 * 2^23: x + kRound lies on a grid of step 1
 constexpr int kRoundBits = 0x4B400000;  // its bit pattern
 
+// K2's threads a pixel: kSplitLanes where the table has at least kSplitFrom
+// samples, else 1. Two lanes fill the tail of a grid whose last wave is
+// part empty (at one thread a pixel, (3, 256^2) is 768 blocks, 1.45 waves
+// of 528), but each lane repeats the pixel's prologue. Two lanes against
+// one on an H100 (PERF.md §6): -9% at (3, 256^2, 160 samples, training),
+// -1%, within the spread, at (3, 256^2, 80: K5's slice), +4% at (64, 64^2,
+// 80: the draft tier, 1.94 waves). So the split pays by the samples a lane
+// shares out, not by the tail alone. Lane l marches samples l, l + lanes,
+// ... of the table and the lanes combine their (norm^2, index) pairs with
+// warp shuffles.
+constexpr int kSplitLanes = 2, kSplitFrom = 128;
+static_assert(kSplitLanes == 1 || kSplitLanes == 2 || kSplitLanes == 4 || kSplitLanes == 8,
+              "K2's lanes per pixel: a power of two that divides a warp's 32 columns");
+
 enum Form : int { kMin = 0, kArgmin = 1, kRefine = 2 };
 
 struct MarchParams {
@@ -173,35 +197,109 @@ __device__ __forceinline__ int div_by(int a, int d, int shift) {
 struct Pixel {
   float xx, yy, diff_x, diff_y, bc_x, bc_y, bc_z, d0, half_w, half_h;
   int half_w_i;
-  unsigned quad_bias, dy_bias;  // see sample_n2
+  unsigned quad_bias, dy_bias;  // see sample_taps
 };
 
-// The cross-product norm^2 of one sample at offset t, or 1e30 where the veto
-// rejects it: _Scene.sample_n2 of ops/shadows.py, for t in [0, 1].
+// The border endpoint and what march_grad differentiates it through:
+// branchless 9-case analysis of the reference (:363-442).
+struct Endpoint {
+  float den, slope, icpt, se, xv, ex_h, ex_raw, ey_raw, ex, ey;
+  bool zx_mid, zy_mid, inter, inside;
+};
+
+__device__ __forceinline__ Endpoint border_endpoint(float lx, float ly, float xx, float yy, float left,
+                                                    float right, float bottom, float top) {
+  Endpoint e;
+  e.den = (lx - xx) + kEps;
+  e.slope = (ly - yy) / e.den;
+  e.icpt = ly - e.slope * lx;
+  const bool zx_neg = lx < left, zx_pos = lx > right;
+  e.zx_mid = !(zx_neg || zx_pos);
+  const bool zy_neg = ly < bottom, zy_pos = ly > top;
+  e.zy_mid = !(zy_neg || zy_pos);
+  e.xv = zx_neg ? left : right;
+  const float ey_v = e.slope * e.xv + e.icpt;
+  const float yh = zy_neg ? bottom : top;
+  e.se = e.slope + kEps;
+  e.ex_h = (yh - e.icpt) / e.se;
+  e.inter = e.ex_h >= left && e.ex_h <= right;
+  const float ex_c = e.inter ? e.ex_h : e.xv;
+  const float ey_c = e.inter ? yh : ey_v;
+  e.inside = e.zx_mid && e.zy_mid;
+  e.ex_raw = e.inside ? lx : (e.zy_mid ? e.xv : (e.zx_mid ? e.ex_h : ex_c));
+  e.ey_raw = e.inside ? ly : (e.zy_mid ? ey_v : (e.zx_mid ? yh : ey_c));
+  e.ex = clampf(e.ex_raw, left, right);
+  e.ey = clampf(e.ey_raw, bottom, top);
+  return e;
+}
+
+// The pixel's constants from its image's padded plane and the light point;
+// returns the denominator sqrt(|BC|^2 + 1e-4). Shared by the march and
+// march_grad, so both march from the same endpoint.
+__device__ __forceinline__ float init_pixel(Pixel& q, Endpoint& e, const float2* __restrict__ img, int row,
+                                            int col, int h, int w, float lx, float ly, float lz) {
+  const unsigned wp = w + 1;
+  q.half_w = 0.5f * (float)w;
+  q.half_h = 0.5f * (float)h;
+  q.half_w_i = w / 2;
+  // (floor(yt) + 1) * wp + floor(xt) + 1 = by * wp + bx + quad_bias, and
+  // vy - floor(yt) = H/2 - (ry - K) - (by - K) = dy_bias - ry - by, where
+  // bx, by, ry are the biased sums' bits and K their bias; mod 2^32.
+  q.quad_bias = (1u - (unsigned)kRoundBits) * (wp + 1u);
+  q.dy_bias = (unsigned)(h / 2) + 2u * (unsigned)kRoundBits;
+  const float left = -q.half_w, right = (float)w - q.half_w - 1.0f;
+  const float bottom = 1.0f - q.half_h, top = q.half_h;
+  q.xx = (float)col - q.half_w;
+  q.yy = q.half_h - (float)row;
+  e = border_endpoint(lx, ly, q.xx, q.yy, left, right, bottom, top);
+  q.diff_x = e.ex - q.xx;
+  q.diff_y = e.ey - q.yy;
+  q.d0 = img[(size_t)(row + 1) * wp + col + 1].x;
+  q.bc_x = lx - q.xx;
+  q.bc_y = ly - q.yy;
+  q.bc_z = lz - q.d0;
+  return sqrtf(q.bc_x * q.bc_x + q.bc_y * q.bc_y + q.bc_z * q.bc_z + kEps);
+}
+
+// One sample's position, its tap quad and its veto: everything of a sample
+// that the march and march_grad share.
+struct Taps {
+  float xt, yt, x0, y0, x1, y1;  // shifted coordinates, their floors and ceils
+  unsigned bxi, byi, cxi, cyi;   // the floor (b) and ceil (c) rounding adds' bits
+  float2 q00, q01, q10, q11;     // (depth, mask) at rows floor(yt) + (0, 1), columns floor(xt) + (0, 1)
+  bool face;                     // the veto passes
+};
+
 // img is the image's padded plane: (H + 1) x (W + 1) float2, wp = W + 1.
 template <bool kBilinear>
-__device__ __forceinline__ float sample_n2(const float2* __restrict__ img, unsigned wp,
-                                           float wm1, float hm1, const Pixel& q,
-                                           float t) {
+__device__ __forceinline__ Taps sample_taps(const float2* __restrict__ img, unsigned wp, float wm1, float hm1,
+                                            const Pixel& q, float t) {
+  Taps s;
   const float sx = __fmaf_rn(t, q.diff_x, q.xx);
   const float sy = __fmaf_rn(t, q.diff_y, q.yy);
-  const float xt = (sx + q.half_w) - kEps;
-  const float yt = (q.half_h - sy) - kEps;
+  s.xt = (sx + q.half_w) - kEps;
+  s.yt = (q.half_h - sy) - kEps;
 
   // floor and ceil on the float32 pipe, the quad's indices on the integer pipe.
-  const float bx0 = __fadd_rd(xt, kRound), by0 = __fadd_rd(yt, kRound);
-  const float x0 = bx0 - kRound, y0 = by0 - kRound;
-  const float x1 = __fadd_ru(xt, kRound) - kRound;
-  const float y1 = __fadd_ru(yt, kRound) - kRound;
+  const float bx0 = __fadd_rd(s.xt, kRound), by0 = __fadd_rd(s.yt, kRound);
+  const float bx1 = __fadd_ru(s.xt, kRound), by1 = __fadd_ru(s.yt, kRound);
+  s.x0 = bx0 - kRound;
+  s.y0 = by0 - kRound;
+  s.x1 = bx1 - kRound;
+  s.y1 = by1 - kRound;
+  s.bxi = __float_as_uint(bx0);
+  s.byi = __float_as_uint(by0);
+  s.cxi = __float_as_uint(bx1);
+  s.cyi = __float_as_uint(by1);
   // The quad's first corner, padded (floor(yt) + 1, floor(xt) + 1), straight
   // from the biased sums' bits: by * wp + bx + quad_bias (mod 2^32).
-  const unsigned bxi = __float_as_uint(bx0), byi = __float_as_uint(by0);
-  const float2* __restrict__ p0 = img + (byi * wp + bxi + q.quad_bias);
+  const float2* __restrict__ p0 = img + (s.byi * wp + s.bxi + q.quad_bias);
   const float2* __restrict__ p1 = p0 + wp;
-  const float2 q00 = __ldg(p0), q01 = __ldg(p0 + 1);
-  const float2 q10 = __ldg(p1), q11 = __ldg(p1 + 1);
+  s.q00 = __ldg(p0);
+  s.q01 = __ldg(p0 + 1);
+  s.q10 = __ldg(p1);
+  s.q11 = __ldg(p1 + 1);
 
-  bool face;
   if constexpr (!kBilinear) {
     // The mask at (H/2 - rint(sy), rint(sx) + W/2), a corner of the quad: its
     // offsets from the quad's first corner, dx = vx - floor(xt) and
@@ -209,45 +307,55 @@ __device__ __forceinline__ float sample_n2(const float2* __restrict__ img, unsig
     // from the quad with no load of its own.
     const unsigned rxi = __float_as_uint(__fadd_rn(sx, kRound));
     const unsigned ryi = __float_as_uint(__fadd_rn(sy, kRound));
-    const unsigned dx = rxi - bxi + q.half_w_i, dy = q.dy_bias - ryi - byi;
-    face = (dy ? (dx ? q11.y : q10.y) : (dx ? q01.y : q00.y)) != 0.0f;
+    const unsigned dx = rxi - s.bxi + q.half_w_i, dy = q.dy_bias - ryi - s.byi;
+    s.face = (dy ? (dx ? s.q11.y : s.q10.y) : (dx ? s.q01.y : s.q00.y)) != 0.0f;
   } else {
     // The bilinear face indicator at the clipped position, thresholded at 0.5.
     // floor(clip(xt)) is max(floor(xt), 0) on [-1e-4, W - 1); the 0/1
     // indicator times a weight >= 0 is a select.
-    const float xtc = clampf(xt, 0.0f, wm1), ytc = clampf(yt, 0.0f, hm1);
-    const float vx0 = fmaxf(x0, 0.0f), vy0 = fmaxf(y0, 0.0f);
+    const float xtc = clampf(s.xt, 0.0f, wm1), ytc = clampf(s.yt, 0.0f, hm1);
+    const float vx0 = fmaxf(s.x0, 0.0f), vy0 = fmaxf(s.y0, 0.0f);
     const float ux0 = 1.0f - (xtc - vx0), ux1 = 1.0f - ((vx0 + 1.0f) - xtc);
     const float uy0 = 1.0f - (ytc - vy0), uy1 = 1.0f - ((vy0 + 1.0f) - ytc);
-    const float vtop = (q00.y != 0.0f ? ux0 : 0.0f) + (q01.y != 0.0f ? ux1 : 0.0f);
-    const float vbot = (q10.y != 0.0f ? ux0 : 0.0f) + (q11.y != 0.0f ? ux1 : 0.0f);
-    face = (vtop * uy0 + vbot * uy1) > 0.5f;
+    const float vtop = (s.q00.y != 0.0f ? ux0 : 0.0f) + (s.q01.y != 0.0f ? ux1 : 0.0f);
+    const float vbot = (s.q10.y != 0.0f ? ux0 : 0.0f) + (s.q11.y != 0.0f ? ux1 : 0.0f);
+    s.face = (vtop * uy0 + vbot * uy1) > 0.5f;
   }
+  return s;
+}
 
-  const float wx0 = x1 - xt, wx1 = xt - x0;
-  const float iu = q00.x * wx0 + q01.x * wx1;
-  const float il = q10.x * wx0 + q11.x * wx1;
-  const float d_interp = iu * (y1 - yt) + il * (yt - y0);
+// The cross-product norm^2 of one sample at offset t, or 1e30 where the veto
+// rejects it: _Scene.sample_n2 of ops/shadows.py, for t in [0, 1].
+template <bool kBilinear>
+__device__ __forceinline__ float sample_n2(const float2* __restrict__ img, unsigned wp,
+                                           float wm1, float hm1, const Pixel& q,
+                                           float t) {
+  const Taps s = sample_taps<kBilinear>(img, wp, wm1, hm1, q, t);
+  const float wx0 = s.x1 - s.xt, wx1 = s.xt - s.x0;
+  const float iu = s.q00.x * wx0 + s.q01.x * wx1;
+  const float il = s.q10.x * wx0 + s.q11.x * wx1;
+  const float d_interp = iu * (s.y1 - s.yt) + il * (s.yt - s.y0);
 
-  const float ba_x = (xt - q.half_w) - q.xx;
-  const float ba_y = (q.half_h - yt) - q.yy;
+  const float ba_x = (s.xt - q.half_w) - q.xx;
+  const float ba_y = (q.half_h - s.yt) - q.yy;
   const float ba_z = d_interp - q.d0;
   const float cx = ba_y * q.bc_z - ba_z * q.bc_y;
   const float cy = ba_z * q.bc_x - ba_x * q.bc_z;
   const float cz = ba_x * q.bc_y - ba_y * q.bc_x;
   const float n2 = cx * cx + cy * cy + cz * cz;
-  return face ? n2 : kOffFaceN2;
+  return s.face ? n2 : kOffFaceN2;
 }
 
-// The min (K1, K3) or first argmin (K2) of sample_n2 over the staged table.
-template <int kForm, bool kBilinear>
+// The min (K1, K3) or first argmin (K2) of sample_n2 over samples begin,
+// begin + kStep, ... < n of the staged table.
+template <int kForm, bool kBilinear, int kStep>
 __device__ __forceinline__ void march_samples(const float2* __restrict__ img, unsigned wp,
                                               float wm1, float hm1, const Pixel& q,
-                                              const float* s_ts, int n, float t_centre,
+                                              const float* s_ts, int begin, int n, float t_centre,
                                               float t_lo, float t_hi, float& best,
                                               int& best_s) {
 #pragma unroll (kUnroll)
-  for (int s = 0; s < n; ++s) {
+  for (int s = begin; s < n; s += kStep) {
     float t = s_ts[s];
     if constexpr (kForm == kRefine) t = clampf(t_centre + t, t_lo, t_hi);
     const float v = sample_n2<kBilinear>(img, wp, wm1, hm1, q, t);
@@ -263,30 +371,36 @@ __device__ __forceinline__ void march_samples(const float2* __restrict__ img, un
 }
 
 // dm: depth and mask interleaved and padded, (B, H + 1, W + 1, 2), as
-// stage_kernel writes them; mask: the (B, H, W) mask, which the cull reads
-// (4 bytes a pixel, not dm's 8). ts: the t table (K1, K2) or
+// stage_kernel writes them. The cull reads `flags` (one byte per 8-row x
+// col_chunk unit, stage_kernel's) where given, else each unit's (B, H, W)
+// `mask` (4 bytes a pixel, not dm's 8). ts: the t table (K1, K2) or
 // the window offsets (K3). K3's centre: t_map (B, H, W), or, where centre_idx
 // is given, centre_ts[centre_idx[b, row / s, col / s]] (K2's winners and the
 // table they index). idx: K2's winning sample indices. Unused pointers may be
 // null.
 // K1 and K2 hold 4 blocks an SM (64 registers); K3, whose 8-sample loop gains
-// less from registers than from blocks, 5.
-template <int kForm>
+// less from registers than from blocks, 5. With kLanes threads a pixel (K2
+// only) a block is 8 rows x 32 / kLanes columns.
+template <int kForm, int kLanes>
 __global__ void __launch_bounds__(kThreads, kForm == kRefine ? 5 : 4)
 march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
-             const float* __restrict__ light,
+             const uint8_t* __restrict__ flags, const float* __restrict__ light,
              const float* __restrict__ ts, const float* __restrict__ t_map,
              const int32_t* __restrict__ centre_idx, const float* __restrict__ centre_ts,
              float* __restrict__ out, int32_t* __restrict__ idx, MarchParams p) {
+  static_assert(kLanes == 1 || kForm == kArgmin, "only K2 splits a pixel's samples");
+  constexpr int kCols = kBlockCols / kLanes;  // pixel columns a block covers
   extern __shared__ float s_ts[];
   __shared__ int s_live[kBlockCols];
   const int tid = threadIdx.y * kBlockCols + threadIdx.x;
+  const int lane = threadIdx.x % kLanes;  // the pixel's lanes are neighbours in a warp
   const int h = p.height, w = p.width;
   const int b = blockIdx.z;
   const int row = blockIdx.y * kBlockRows + threadIdx.y;
-  const int col0 = blockIdx.x * kBlockCols;
-  const int col = col0 + threadIdx.x;
+  const int col0 = blockIdx.x * kCols;
+  const int col = col0 + threadIdx.x / kLanes;
   const bool inb = row < h && col < w;
+  const bool writer = inb && lane == 0;
   const unsigned wp = w + 1;
   const size_t o = (size_t)b * h * w + (size_t)row * w + col;
   const float2* __restrict__ img = dm + (size_t)b * (h + 1) * wp;
@@ -299,38 +413,45 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   const float bias = gate ? p.gate_bias : 0.0f;
   const float sentinel = p.gate_on ? kOffFace + bias : kOffFace;
 
-  // The cull: flag each cull unit (8 rows x chunk) that meets the block from
-  // its mask. A block inside one unit, as at the tiers' chunks of 32 and 64
-  // and the row cull, decides with one barrier; one that spans several
-  // (chunks under the block's width) keeps a flag per unit. any_live is the
-  // block's: with none, it writes the sentinel and skips the rest.
+  // The cull. With flags, each thread reads its unit's byte. Without, the
+  // block flags each cull unit (8 rows x chunk) that meets it from the mask:
+  // a block inside one unit, as at the tiers' chunks of 32 and 64 and the
+  // row cull, decides with one barrier; one that spans several (chunks under
+  // the block's width) keeps a flag per unit. any_live is the block's: with
+  // none, it writes the sentinel and skips the rest.
   bool live = inb, any_live = true;
   if (p.cull) {
     const int chunk = p.col_chunk, shift = p.chunk_shift;
-    const int u_first = div_by(col0, chunk, shift);
-    const int n_units = div_by(min(col0 + kBlockCols, w) - 1, chunk, shift) + 1 - u_first;
-    const float* __restrict__ unit = mask + ((size_t)b * h + min(row, h - 1)) * w + (size_t)u_first * chunk;
-    if (n_units == 1) {
-      bool face = false;
-      for (int c = threadIdx.x; c < chunk; c += kBlockCols) face |= unit[c] != 0.0f;
-      any_live = __syncthreads_or(face);
-      live = inb && any_live;
-    } else {
-      if (tid < kBlockCols) s_live[tid] = 0;
-      __syncthreads();
-      for (int u = 0; u < n_units; ++u, unit += chunk) {
-        for (int c = threadIdx.x; c < chunk; c += kBlockCols) {
-          if (unit[c] != 0.0f) s_live[u] = 1;
-        }
-      }
-      __syncthreads();
-      live = inb && s_live[div_by(col, chunk, shift) - u_first] != 0;
+    if (flags != nullptr) {
+      live = inb && flags[((size_t)b * (h / kBlockRows) + blockIdx.y) * div_by(w, chunk, shift) +
+                          div_by(col, chunk, shift)] != 0;
       any_live = __syncthreads_or(live);
+    } else {
+      const int u_first = div_by(col0, chunk, shift);
+      const int n_units = div_by(min(col0 + kCols, w) - 1, chunk, shift) + 1 - u_first;
+      const float* __restrict__ unit = mask + ((size_t)b * h + min(row, h - 1)) * w + (size_t)u_first * chunk;
+      if (n_units == 1) {
+        bool face = false;
+        for (int c = threadIdx.x; c < chunk; c += kBlockCols) face |= unit[c] != 0.0f;
+        any_live = __syncthreads_or(face);
+        live = inb && any_live;
+      } else {
+        if (tid < kBlockCols) s_live[tid] = 0;
+        __syncthreads();
+        for (int u = 0; u < n_units; ++u, unit += chunk) {
+          for (int c = threadIdx.x; c < chunk; c += kBlockCols) {
+            if (unit[c] != 0.0f) s_live[u] = 1;
+          }
+        }
+        __syncthreads();
+        live = inb && s_live[div_by(col, chunk, shift) - u_first] != 0;
+        any_live = __syncthreads_or(live);
+      }
     }
   }
 
   if (!any_live) {
-    if (inb) {
+    if (writer) {
       out[o] = sentinel;
       if constexpr (kForm == kArgmin) idx[o] = 0;
     }
@@ -341,7 +462,7 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   }
   __syncthreads();
   if (!live) {
-    if (inb) {
+    if (writer) {
       out[o] = sentinel;
       if constexpr (kForm == kArgmin) idx[o] = 0;
     }
@@ -349,51 +470,14 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   }
 
   Pixel q;
-  q.half_w = 0.5f * (float)w;
-  q.half_h = 0.5f * (float)h;
-  q.half_w_i = w / 2;
-  // (floor(yt) + 1) * wp + floor(xt) + 1 = by * wp + bx + quad_bias, and
-  // vy - floor(yt) = H/2 - (ry - K) - (by - K) = dy_bias - ry - by, where
-  // bx, by, ry are the biased sums' bits and K their bias; mod 2^32.
-  q.quad_bias = (1u - (unsigned)kRoundBits) * (wp + 1u);
-  q.dy_bias = (unsigned)(h / 2) + 2u * (unsigned)kRoundBits;
-  const float left = -q.half_w, right = (float)w - q.half_w - 1.0f;
-  const float bottom = 1.0f - q.half_h, top = q.half_h;
-  q.xx = (float)col - q.half_w;
-  q.yy = q.half_h - (float)row;
-
-  // Border endpoint: branchless 9-case analysis of the reference (:363-442).
-  const float slope = (ly - q.yy) / ((lx - q.xx) + kEps);
-  const float icpt = ly - slope * lx;
-  const bool zx_neg = lx < left, zx_pos = lx > right;
-  const bool zx_mid = !(zx_neg || zx_pos);
-  const bool zy_neg = ly < bottom, zy_pos = ly > top;
-  const bool zy_mid = !(zy_neg || zy_pos);
-  const float xv = zx_neg ? left : right;
-  const float ey_v = slope * xv + icpt;
-  const float yh = zy_neg ? bottom : top;
-  const float ex_h = (yh - icpt) / (slope + kEps);
-  const bool inter = ex_h >= left && ex_h <= right;
-  const float ex_c = inter ? ex_h : xv;
-  const float ey_c = inter ? yh : ey_v;
-  const bool inside = zx_mid && zy_mid;
-  float ex = inside ? lx : (zy_mid ? xv : (zx_mid ? ex_h : ex_c));
-  float ey = inside ? ly : (zy_mid ? ey_v : (zx_mid ? yh : ey_c));
-  ex = clampf(ex, left, right);
-  ey = clampf(ey, bottom, top);
-
-  q.diff_x = ex - q.xx;
-  q.diff_y = ey - q.yy;
-  q.d0 = img[(size_t)(row + 1) * wp + col + 1].x;
-  q.bc_x = lx - q.xx;
-  q.bc_y = ly - q.yy;
-  q.bc_z = lz - q.d0;
-  const float denom = sqrtf(q.bc_x * q.bc_x + q.bc_y * q.bc_y + q.bc_z * q.bc_z + kEps);
+  Endpoint e;
+  const float denom = init_pixel(q, e, img, row, col, h, w, lx, ly, lz);
 
   // K3 starts from the sentinel, as the plain refine does; K1 and K2 from inf
   // (an all-vetoed pixel then still records sample 0 as its winner).
   float best = kForm == kRefine ? kOffFaceN2 : INFINITY;
-  int best_s = 0;
+  const int begin = lane;  // this lane's first sample; it takes every kLanes-th
+  int best_s = begin;
   float t_centre = 0.0f;
   if constexpr (kForm == kRefine) {
     if (centre_idx != nullptr) {
@@ -408,10 +492,28 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   const float t_lo = fmaxf(p.t_lo, 0.0f), t_hi = fminf(p.t_hi, 1.0f);
   const float wm1 = (float)(w - 1), hm1 = (float)(h - 1);
   if (p.bilinear) {
-    march_samples<kForm, true>(img, wp, wm1, hm1, q, s_ts, p.n_ts, t_centre, t_lo, t_hi, best, best_s);
+    march_samples<kForm, true, kLanes>(img, wp, wm1, hm1, q, s_ts, begin, p.n_ts, t_centre, t_lo, t_hi, best,
+                                       best_s);
   } else {
-    march_samples<kForm, false>(img, wp, wm1, hm1, q, s_ts, p.n_ts, t_centre, t_lo, t_hi, best, best_s);
+    march_samples<kForm, false, kLanes>(img, wp, wm1, hm1, q, s_ts, begin, p.n_ts, t_centre, t_lo, t_hi, best,
+                                        best_s);
   }
+  if constexpr (kLanes > 1) {
+    // The lanes' first winners: the smaller norm^2, on a tie the smaller
+    // index, which is the whole table's first winner (each lane's is the
+    // first of its samples by strict <). Exact, so K2 stays bit-equal.
+    const unsigned group = ((1u << kLanes) - 1u) << (threadIdx.x & ~(kLanes - 1));
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(group, best, off);
+      const int oi = __shfl_xor_sync(group, best_s, off);
+      if (ov < best || (ov == best && oi < best_s)) {
+        best = ov;
+        best_s = oi;
+      }
+    }
+  }
+  if (!writer) return;
 
   float min_d = sqrtf(best + kEps) / denom;
   if constexpr (kForm == kRefine) min_d = fminf(min_d, kOffFace);
@@ -420,19 +522,169 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   if constexpr (kForm == kArgmin) idx[o] = best_s;
 }
 
-// The kernels' input staging: depth and mask interleaved, with a replicated
-// first row and column, (B, H, W) x 2 -> (B, H + 1, W + 1, 2): padded
-// (y, x) holds (depth, mask) at (max(y - 1, 0), max(x - 1, 0)). The pad is
-// the reference's clamp of a floor of -1 (xt or yt in [-1e-4, 0)) to 0, so
-// the quad needs no clamp. One thread per padded element.
-__global__ void __launch_bounds__(256)
+// The kernels' input staging, once per march (the draft tier's one pass for
+// K2 and K3 both). One block per image and band of 8 rows of the march's
+// grid, the grid at 1/s of (H, W) (s = 1 outside the draft tier), so a band
+// holds whole cull units at both resolutions. It reads depth and mask once
+// and writes:
+//  * quad: the march's input, (B, H/s + 1, W/s + 1, 2) float2, padded
+//    (y, x) holding (depth, mask) at (max(y - 1, 0), max(x - 1, 0)): the pad
+//    is the reference's clamp of a floor of -1 (xt or yt in [-1e-4, 0)) to
+//    0, so the quad needs no clamp. At s > 1 it holds the pooled inputs of
+//    ops/shadows.scale_march_inputs: depth the mean of the block's on-face
+//    pixels (the plain mean where none is), divided by s; mask 1 where at
+//    least half the block is on face. Each block's sums run row by row, left
+//    to right, from the first pixel, as the plain version adds them; so the
+//    pooled quad is bit-equal to it. The mask is written 0/1 (nonzero is
+//    face) at every s;
+//  * full (s > 1, may be null): the same padding of the full-resolution
+//    inputs, K3's input;
+//  * flags, full_flags (may be null): one byte per cull unit, 8 rows x
+//    chunk of the march's grid, 8 rows x full_chunk at full resolution: the
+//    unit holds face. K2 and K3 read one byte in place of the unit's mask;
+//  * light_out (s > 1, may be null): the light point scaled for the pooled
+//    grid, (lx / s - off, ly / s + off, lz / s), off = (s - 1) / (2s).
+// A block is 32 x 8 threads: threadIdx.y is the band's row, threadIdx.x
+// strides its columns, so no thread divides an index; each block row of s
+// pixels arrives in one vector load (float4 at the draft tier's s = 4). The
+// full-resolution quad is a second pass over the band with consecutive
+// threads on consecutive pixels, so its stores coalesce (written from the
+// pooling loop, each store instruction of a warp touched 32 sectors).
+// It replaces no Pallas kernel: the JAX package pools with XLA ops
+// (ops/shadows.py scale_march_inputs) and its kernel pads in VMEM. What
+// bounds it is bytes: at the draft shape (64 x 256^2) it reads 34 MB and
+// writes 36 MB, 0.021 ms at 3.35 TB/s; it takes about 0.05 ms, one wave of
+// 512 blocks (PERF.md).
+struct StageParams {
+  int height, width, scale, chunk, full_chunk;
+  int chunk_shift, full_shift;  // log2 of the chunks, -1 if not a power of two
+};
+
+// s floats from a 4s-byte-aligned address: one vector load.
+template <int S>
+struct Row {
+  float v[S];
+  __device__ __forceinline__ explicit Row(const float* __restrict__ p) {
+    if constexpr (S == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else if constexpr (S == 2) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = q.x, v[1] = q.y;
+    } else {
+      v[0] = __ldg(p);
+    }
+  }
+};
+
+// The band's pixels of the march's grid at scale S; s_flag as stage_kernel's.
+template <int S>
+__device__ __forceinline__ void stage_band(const float* __restrict__ dimg, const float* __restrict__ mimg,
+                                           float2* __restrict__ qimg, int* s_flag, int n_low,
+                                           const StageParams& p) {
+  const int w = p.width, ws = w / S;
+  const int band = blockIdx.x, r = band * kBlockRows + threadIdx.y;
+  constexpr float ss = (float)(S * S);
+  for (int c = threadIdx.x; c < ws; c += kBlockCols) {
+    float cnt = 0.0f, fsum = 0.0f, tot = 0.0f;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int y = r * S + i;
+      const Row<S> d(dimg + (size_t)y * w + c * S), m(mimg + (size_t)y * w + c * S);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const float on = m.v[j] != 0.0f ? 1.0f : 0.0f;
+        const float fd = d.v[j] * on;
+        if (i == 0 && j == 0) {
+          cnt = on;
+          fsum = fd;
+          tot = d.v[j];
+        } else {
+          cnt = cnt + on;
+          fsum = fsum + fd;
+          tot = tot + d.v[j];
+        }
+      }
+    }
+    const float face_mean = fsum / fmaxf(cnt, 1.0f);
+    const float2 v = make_float2((cnt > 0.0f ? face_mean : tot / ss) / (float)S, cnt >= 0.5f * ss ? 1.0f : 0.0f);
+    qimg[(size_t)(r + 1) * (ws + 1) + c + 1] = v;
+    if (r == 0) qimg[c + 1] = v;
+    if (c == 0) qimg[(size_t)(r + 1) * (ws + 1)] = v;
+    if (r == 0 && c == 0) qimg[0] = v;
+    if (n_low != 0 && v.y != 0.0f) s_flag[div_by(c, p.chunk, p.chunk_shift)] = 1;
+  }
+}
+
+// The band's 8s full-resolution rows: the padded quad (fimg, may be null)
+// and the full-resolution cull flags (s_full, when full_per_row != 0).
+__device__ __forceinline__ void stage_full(const float* __restrict__ dimg, const float* __restrict__ mimg,
+                                           float2* __restrict__ fimg, int* s_full, int full_per_row,
+                                           const StageParams& p) {
+  const int w = p.width, rows = kBlockRows * p.scale, y0 = blockIdx.x * rows;
+  for (int ry = threadIdx.y; ry < rows; ry += kBlockRows) {
+    const int y = y0 + ry;
+    for (int x = threadIdx.x; x < w; x += kBlockCols) {
+      const float d = __ldg(dimg + (size_t)y * w + x);
+      const float on = __ldg(mimg + (size_t)y * w + x) != 0.0f ? 1.0f : 0.0f;
+      if (fimg != nullptr) {
+        const float2 v = make_float2(d, on);
+        fimg[(size_t)(y + 1) * (w + 1) + x + 1] = v;
+        if (y == 0) fimg[x + 1] = v;
+        if (x == 0) fimg[(size_t)(y + 1) * (w + 1)] = v;
+        if (y == 0 && x == 0) fimg[0] = v;
+      }
+      if (full_per_row != 0 && on != 0.0f) {  // the unit's row group within the band
+        s_full[(ry >> 3) * full_per_row + div_by(x, p.full_chunk, p.full_shift)] = 1;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
 stage_kernel(const float* __restrict__ depth, const float* __restrict__ mask,
-             float2* __restrict__ out, int h, int w) {
-  const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y, b = blockIdx.z;
-  if (px > w) return;
-  const size_t src = ((size_t)b * h + max(py - 1, 0)) * w + max(px - 1, 0);
-  out[((size_t)b * (h + 1) + py) * (w + 1) + px] = make_float2(depth[src], mask[src]);
+             const float* __restrict__ light, float2* __restrict__ quad, float2* __restrict__ full,
+             uint8_t* __restrict__ flags, uint8_t* __restrict__ full_flags,
+             float* __restrict__ light_out, StageParams p) {
+  extern __shared__ int s_flag[];  // the band's units: the march grid's, then full resolution's
+  const int s = p.scale, h = p.height, w = p.width, hs = h / s, ws = w / s;
+  const int band = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.y * kBlockCols + threadIdx.x;
+  const int n_low = flags != nullptr ? ws / p.chunk : 0;
+  const int full_per_row = full_flags != nullptr ? w / p.full_chunk : 0;
+  const int n_full = s * full_per_row;
+  for (int i = tid; i < n_low + n_full; i += kThreads) s_flag[i] = 0;
+  if (light_out != nullptr && band == 0 && tid < 3) {
+    const float off = (s - 1.0f) / (2.0f * s);  // exact at the config's scales 2 and 4
+    const float v = light[3 * b + tid] / (float)s;
+    light_out[3 * b + tid] = tid == 0 ? v - off : (tid == 1 ? v + off : v);
+  }
+  __syncthreads();
+
+  const float* __restrict__ dimg = depth + (size_t)b * h * w;
+  const float* __restrict__ mimg = mask + (size_t)b * h * w;
+  float2* __restrict__ qimg = quad + (size_t)b * (hs + 1) * (ws + 1);
+  float2* __restrict__ fimg = full != nullptr ? full + (size_t)b * (h + 1) * (w + 1) : nullptr;
+  switch (s) {  // the config's scales
+    case 1:
+      stage_band<1>(dimg, mimg, qimg, s_flag, n_low, p);
+      break;
+    case 2:
+      stage_band<2>(dimg, mimg, qimg, s_flag, n_low, p);
+      break;
+    case 4:
+      stage_band<4>(dimg, mimg, qimg, s_flag, n_low, p);
+      break;
+  }
+  if (fimg != nullptr || full_per_row != 0) stage_full(dimg, mimg, fimg, s_flag + n_low, full_per_row, p);
+  __syncthreads();
+  for (int i = tid; i < n_low; i += kThreads) {
+    flags[((size_t)b * (hs / kBlockRows) + band) * n_low + i] = (uint8_t)s_flag[i];
+  }
+  for (int i = tid; i < n_full; i += kThreads) {
+    const int g = i / full_per_row, u = i - g * full_per_row;
+    full_flags[((size_t)b * (h / kBlockRows) + band * s + g) * full_per_row + u] = (uint8_t)s_flag[n_low + i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -447,140 +699,84 @@ stage_kernel(const float* __restrict__ depth, const float* __restrict__ mask,
 // (through BA_z, BC_z and the denominator), and into the light point through
 // BC and through the sample position, which moves with the border endpoint
 // (ex, ey). The endpoint's 2x2 Jacobian d(ex, ey)/d(lx, ly) follows the
-// branch that march_kernel's branchless selection takes and is zero where
-// the clamp binds (torch.clamp passes the gradient at the bounds themselves,
-// as the plain version does). Semantics are those of
+// branch that border_endpoint's selection takes and is zero where the clamp
+// binds (torch.clamp passes the gradient at the bounds themselves, as the
+// plain version does). Semantics are those of
 // geomconsistentfr_torch/ops/shadows.py `march_vjp`, torch.autograd.grad of
 // the plain sample evaluator.
 //
-// The sample's coordinates, its veto and its taps are those of march_kernel's
-// sample_n2 (the same __fmaf_rn; rintf, floorf and ceilf give the integers
-// its rounding adds give, and the clamped floor/ceil taps the same values as
-// its quad), so the backward vetoes the samples the forward vetoed. A vetoed
-// sample (a constant 1e6), a culled pixel (a constant sentinel) and a zero
-// cotangent give no gradient: those threads skip the work. Each other thread atomicAdds its five depth
-// contributions into d_depth (taps of neighbouring pixels overlap), and the
-// block reduces its light gradient with warp shuffles, then across its eight
-// warps in shared memory, into three atomics per block: a block is one image's
-// 8 x 32 tile. Atomics make the float32 sums' order, and so their last bits,
-// vary from run to run.
+// It reads the forward's own input: the padded, interleaved quad K2's
+// staging wrote (RayMarchMinDistance keeps it), and its cull flags. The
+// sample's endpoint, coordinates, tap quad and veto come from the march's
+// own code (init_pixel, sample_taps), so the backward vetoes exactly the
+// samples the forward vetoed. One difference is the reference's: where xt
+// (yt) is an integer, its ceil tap is its floor tap. The forward's weights
+// of the quad's second column (row) are then exactly 0, so it adds +-0, but
+// the position term below differentiates the weights, and there the
+// reference's (d_ur - d_ul) is 0; so the backward takes the floor tap as the
+// ceil tap on such an axis. The taps' (H, W) addresses for the atomics come
+// from the rounding adds' bits, on the integer pipe.
+//
+// A vetoed sample (a constant 1e6), a culled pixel (a constant sentinel) and
+// a zero cotangent give no gradient: those threads skip the work. Each other
+// thread atomicAdds its five depth contributions into d_depth (taps of
+// neighbouring pixels overlap), and the block reduces its light gradient
+// with warp shuffles, then across its eight warps in shared memory, into
+// three atomics per block: a block is one image's 8 x 32 tile. Atomics make
+// the float32 sums' order, and so their last bits, vary from run to run.
 //
 // What bounds it on an H100: per pixel about 60 float32 operations for the
 // sample (as K1's) and about 110 for the endpoint Jacobian and the chain rule,
-// against reading depth (five taps), mask, idx and the cotangent and writing
-// d_depth: ~20 bytes a pixel. At the training shape (batch 3, 256^2) that is
-// ~35 MFLOP (~0.5 us at 67 TFLOP/s) against ~4 MB (~1.2 us at 3.35 TB/s), both
-// far below a launch's own few microseconds.
-
-// march_grad runs once per pixel, not per sample, so it keeps the first
-// version's per-tap helpers: clamped floorf/ceilf taps read from separate
-// depth and mask arrays, rintf and float->int casts.
-__device__ __forceinline__ float tap(const float* __restrict__ img, float iy,
-                                     float ix, int h, int w) {
-  const int y = (int)clampf(iy, 0.0f, (float)(h - 1));
-  const int x = (int)clampf(ix, 0.0f, (float)(w - 1));
-  return __ldg(img + y * w + x);
-}
-
-__device__ __forceinline__ float on_face(const float* __restrict__ m, float iy,
-                                         float ix, int h, int w) {
-  return tap(m, iy, ix, h, w) != 0.0f ? 1.0f : 0.0f;
-}
+// against reading the quad's taps, idx and the cotangent and writing d_depth:
+// ~20 bytes a pixel. At the training shape (batch 3, 256^2) that is ~35
+// MFLOP (~0.5 us at 67 TFLOP/s) against ~4 MB (~1.2 us at 3.35 TB/s), both
+// below a launch's own few microseconds: at batch 3 its 1.45 waves of one
+// thread's dependent chain (index, table, taps, ~200 float32 operations
+// with 5 divisions and 2 square roots, the atomics, the block's reduction)
+// set its time.
 
 // A block is one image's 8 x 32 tile: each row is one warp (the light
-// gradient's reduction below relies on it).
+// gradient's reduction below relies on it). At 64 registers the card holds
+// 528 blocks, so training's 768 (batch 3, 256^2) run in 1.45 waves; capped at
+// 40 registers for one wave, it spilled and measured slower (PERF.md §6).
 constexpr int kGradRows = 8, kGradCols = 32;
 
 struct GradParams {
   int batch, height, width;
   int bilinear;                 // 0: one-hot veto, 1: bilinear veto
-  int live_cols;                // cull blocks per 8-row group; 0 = no cull
-  int col_chunk;                // cull block width in pixels
+  int col_chunk, chunk_shift;   // the cull unit's width (flags given) and its log2, or -1
 };
-
-__device__ __forceinline__ int tap_index(float iy, float ix, int h, int w) {
-  const int y = (int)clampf(iy, 0.0f, (float)(h - 1));
-  const int x = (int)clampf(ix, 0.0f, (float)(w - 1));
-  return y * w + x;
-}
 
 // One pixel's gradient: adds its depth contributions to dgrad and returns its
 // light gradient in (gl_x, gl_y, gl_z). Returns early where there is none.
+template <bool kBilinear>
 __device__ __forceinline__ void pixel_grad(
-    const float* __restrict__ dimg, const float* __restrict__ mimg,
-    float* __restrict__ dgrad, float lx, float ly, float lz, float t, float g,
-    int row, int col, int h, int w, bool bilinear, float& gl_x, float& gl_y,
-    float& gl_z) {
-  const float half_w = 0.5f * (float)w, half_h = 0.5f * (float)h;
-  const float left = -half_w, right = (float)w - half_w - 1.0f;
-  const float bottom = 1.0f - half_h, top = half_h;
-  const float xx = (float)col - half_w;
-  const float yy = half_h - (float)row;
+    const float2* __restrict__ img, float* __restrict__ dgrad, float lx, float ly, float lz, float t,
+    float g, int row, int col, int h, int w, float& gl_x, float& gl_y, float& gl_z) {
+  Pixel q;
+  Endpoint e;
+  const float denom = init_pixel(q, e, img, row, col, h, w, lx, ly, lz);
+  const Taps s = sample_taps<kBilinear>(img, w + 1, (float)(w - 1), (float)(h - 1), q, t);
+  if (!s.face) return;
 
-  // Border endpoint, as in march_kernel.
-  const float den = (lx - xx) + kEps;
-  const float slope = (ly - yy) / den;
-  const float icpt = ly - slope * lx;
-  const bool zx_neg = lx < left, zx_pos = lx > right;
-  const bool zx_mid = !(zx_neg || zx_pos);
-  const bool zy_neg = ly < bottom, zy_pos = ly > top;
-  const bool zy_mid = !(zy_neg || zy_pos);
-  const float xv = zx_neg ? left : right;
-  const float ey_v = slope * xv + icpt;
-  const float yh = zy_neg ? bottom : top;
-  const float se = slope + kEps;
-  const float ex_h = (yh - icpt) / se;
-  const bool inter = ex_h >= left && ex_h <= right;
-  const float ex_c = inter ? ex_h : xv;
-  const float ey_c = inter ? yh : ey_v;
-  const bool inside = zx_mid && zy_mid;
-  const float ex_raw = inside ? lx : (zy_mid ? xv : (zx_mid ? ex_h : ex_c));
-  const float ey_raw = inside ? ly : (zy_mid ? ey_v : (zx_mid ? yh : ey_c));
-  const float ex = clampf(ex_raw, left, right);
-  const float ey = clampf(ey_raw, bottom, top);
-
-  // The sample at t*, as in march_kernel.
-  const float diff_x = ex - xx, diff_y = ey - yy;
-  const float sx = __fmaf_rn(t, diff_x, xx);
-  const float sy = __fmaf_rn(t, diff_y, yy);
-  const float xt = (sx + half_w) - kEps;
-  const float yt = (half_h - sy) - kEps;
-  bool face;
-  if (!bilinear) {
-    face = on_face(mimg, half_h - rintf(sy), rintf(sx) + half_w, h, w) != 0.0f;
-  } else {
-    const float xtc = clampf(xt, 0.0f, (float)(w - 1));
-    const float ytc = clampf(yt, 0.0f, (float)(h - 1));
-    const float vx0 = floorf(xtc), vy0 = floorf(ytc);
-    const float ux0 = 1.0f - (xtc - vx0), ux1 = 1.0f - ((vx0 + 1.0f) - xtc);
-    const float uy0 = 1.0f - (ytc - vy0), uy1 = 1.0f - ((vy0 + 1.0f) - ytc);
-    const float vtop = on_face(mimg, vy0, vx0, h, w) * ux0 +
-                       on_face(mimg, vy0, vx0 + 1.0f, h, w) * ux1;
-    const float vbot = on_face(mimg, vy0 + 1.0f, vx0, h, w) * ux0 +
-                       on_face(mimg, vy0 + 1.0f, vx0 + 1.0f, h, w) * ux1;
-    face = (vtop * uy0 + vbot * uy1) > 0.5f;
-  }
-  if (!face) return;
-
-  const float x0 = floorf(xt), x1 = ceilf(xt);
-  const float y0 = floorf(yt), y1 = ceilf(yt);
-  const float wx0 = x1 - xt, wx1 = xt - x0;
-  const float wy0 = y1 - yt, wy1 = yt - y0;
-  const int i_ul = tap_index(y0, x0, h, w), i_ur = tap_index(y0, x1, h, w);
-  const int i_ll = tap_index(y1, x0, h, w), i_lr = tap_index(y1, x1, h, w);
-  const float d_ul = __ldg(dimg + i_ul), d_ur = __ldg(dimg + i_ur);
-  const float d_ll = __ldg(dimg + i_ll), d_lr = __ldg(dimg + i_lr);
+  // The reference's taps: on an integer axis the ceil tap is the floor tap.
+  const bool xint = s.x1 == s.x0, yint = s.y1 == s.y0;
+  const float d_ul = s.q00.x, d_ur = xint ? s.q00.x : s.q01.x;
+  const float d_ll = yint ? s.q00.x : s.q10.x;
+  const float d_lr = xint ? d_ll : (yint ? s.q01.x : s.q11.x);
+  const float wx0 = s.x1 - s.xt, wx1 = s.xt - s.x0;
+  const float wy0 = s.y1 - s.yt, wy1 = s.yt - s.y0;
   const float iu = d_ul * wx0 + d_ur * wx1;
   const float il = d_ll * wx0 + d_lr * wx1;
   const float d_interp = iu * wy0 + il * wy1;
+  // Their (H, W) addresses: floor clamped to 0 (it is >= -1), ceil in range.
+  const int ix0 = max((int)(s.bxi - (unsigned)kRoundBits), 0), ix1 = (int)(s.cxi - (unsigned)kRoundBits);
+  const int iy0 = max((int)(s.byi - (unsigned)kRoundBits), 0), iy1 = (int)(s.cyi - (unsigned)kRoundBits);
 
-  const int i_px = row * w + col;
-  const float d0 = __ldg(dimg + i_px);
-  const float bc_x = lx - xx, bc_y = ly - yy, bc_z = lz - d0;
-  const float denom = sqrtf(bc_x * bc_x + bc_y * bc_y + bc_z * bc_z + kEps);
-  const float ba_x = (xt - half_w) - xx;
-  const float ba_y = (half_h - yt) - yy;
-  const float ba_z = d_interp - d0;
+  const float ba_x = (s.xt - q.half_w) - q.xx;
+  const float ba_y = (q.half_h - s.yt) - q.yy;
+  const float ba_z = d_interp - q.d0;
+  const float bc_x = q.bc_x, bc_y = q.bc_y, bc_z = q.bc_z;
   const float cx = ba_y * bc_z - ba_z * bc_y;
   const float cy = ba_z * bc_x - ba_x * bc_z;
   const float cz = ba_x * bc_y - ba_y * bc_x;
@@ -601,11 +797,11 @@ __device__ __forceinline__ void pixel_grad(
 
   // Depth: the four taps through d_interp, and d0 through BA_z and BC_z.
   const float g_u = g_baz * wy0, g_l = g_baz * wy1;
-  atomicAdd(dgrad + i_ul, g_u * wx0);
-  atomicAdd(dgrad + i_ur, g_u * wx1);
-  atomicAdd(dgrad + i_ll, g_l * wx0);
-  atomicAdd(dgrad + i_lr, g_l * wx1);
-  atomicAdd(dgrad + i_px, -g_baz - g_bcz);
+  atomicAdd(dgrad + iy0 * w + ix0, g_u * wx0);
+  atomicAdd(dgrad + iy0 * w + ix1, g_u * wx1);
+  atomicAdd(dgrad + iy1 * w + ix0, g_l * wx0);
+  atomicAdd(dgrad + iy1 * w + ix1, g_l * wx1);
+  atomicAdd(dgrad + row * w + col, -g_baz - g_bcz);
 
   // The sample position: BA_x, BA_y and the bilinear weights move with it.
   const float g_xt = g_bax + g_baz * ((d_ur - d_ul) * wy0 + (d_lr - d_ll) * wy1);
@@ -614,38 +810,40 @@ __device__ __forceinline__ void pixel_grad(
   const float g_ey = -(t * g_yt);  // yt = half_h - sy - ...
 
   // d(ex, ey)/d(lx, ly) along the branch taken; zero where the clamp binds.
-  const float ds_lx = -slope / den, ds_ly = 1.0f / den;
-  const float di_lx = -(ds_lx * lx) - slope, di_ly = 1.0f - ds_ly * lx;
+  const float left = -q.half_w, right = (float)w - q.half_w - 1.0f;
+  const float bottom = 1.0f - q.half_h, top = q.half_h;
+  const float ds_lx = -e.slope / e.den, ds_ly = 1.0f / e.den;
+  const float di_lx = -(ds_lx * lx) - e.slope, di_ly = 1.0f - ds_ly * lx;
   float jxx = 0.0f, jxy = 0.0f, jyx = 0.0f, jyy = 0.0f;
-  if (inside) {
+  if (e.inside) {
     jxx = 1.0f;
     jyy = 1.0f;
   } else {
-    if (!zy_mid && (zx_mid || inter)) {  // ex = ex_h
-      jxx = -(di_lx + ex_h * ds_lx) / se;
-      jxy = -(di_ly + ex_h * ds_ly) / se;
+    if (!e.zy_mid && (e.zx_mid || e.inter)) {  // ex = ex_h
+      jxx = -(di_lx + e.ex_h * ds_lx) / e.se;
+      jxy = -(di_ly + e.ex_h * ds_ly) / e.se;
     }
-    if (zy_mid || (!zx_mid && !inter)) {  // ey = ey_v
-      jyx = ds_lx * xv + di_lx;
-      jyy = ds_ly * xv + di_ly;
+    if (e.zy_mid || (!e.zx_mid && !e.inter)) {  // ey = ey_v
+      jyx = ds_lx * e.xv + di_lx;
+      jyy = ds_ly * e.xv + di_ly;
     }
   }
-  if (!(ex_raw >= left && ex_raw <= right)) jxx = jxy = 0.0f;
-  if (!(ey_raw >= bottom && ey_raw <= top)) jyx = jyy = 0.0f;
+  if (!(e.ex_raw >= left && e.ex_raw <= right)) jxx = jxy = 0.0f;
+  if (!(e.ey_raw >= bottom && e.ey_raw <= top)) jyx = jyy = 0.0f;
 
   gl_x = g_bcx + (g_ex * jxx + g_ey * jyx);
   gl_y = g_bcy + (g_ex * jxy + g_ey * jyy);
   gl_z = g_bcz;
 }
 
-// idx: K2's winning sample per pixel; ts: the table it indexes; g: the
+// dm: the forward's staged quad; flags: its cull flags, or null without the
+// cull; idx: K2's winning sample per pixel; ts: the table it indexes; g: the
 // cotangent of the march's output. d_depth and d_light arrive zeroed.
 __global__ void __launch_bounds__(kGradRows * kGradCols)
-march_grad_kernel(const float* __restrict__ depth, const float* __restrict__ mask,
+march_grad_kernel(const float2* __restrict__ dm, const uint8_t* __restrict__ flags,
                   const float* __restrict__ light, const float* __restrict__ ts,
-                  const int32_t* __restrict__ idx, const uint8_t* __restrict__ live,
-                  const float* __restrict__ g, float* __restrict__ d_depth,
-                  float* __restrict__ d_light, GradParams p) {
+                  const int32_t* __restrict__ idx, const float* __restrict__ g,
+                  float* __restrict__ d_depth, float* __restrict__ d_light, GradParams p) {
   const int h = p.height, w = p.width;
   const int b = blockIdx.z;
   const int row = blockIdx.y * kGradRows + threadIdx.y;
@@ -657,15 +855,21 @@ march_grad_kernel(const float* __restrict__ depth, const float* __restrict__ mas
     const size_t o = (size_t)b * plane + (size_t)row * w + col;
     const float gv = g[o];
     bool on = gv != 0.0f;
-    if (on && p.live_cols > 0) {
-      const int grp = row / 8, c = col / p.col_chunk;
-      on = live[((size_t)b * (h / 8) + grp) * p.live_cols + c] != 0;
+    if (on && flags != nullptr) {
+      const int chunk = p.col_chunk, shift = p.chunk_shift;
+      on = flags[((size_t)b * (h / kGradRows) + row / kGradRows) * div_by(w, chunk, shift) +
+                 div_by(col, chunk, shift)] != 0;
     }
     if (on) {
-      pixel_grad(depth + (size_t)b * plane, mask + (size_t)b * plane,
-                 d_depth + (size_t)b * plane, light[3 * b + 0], light[3 * b + 1],
-                 light[3 * b + 2], ts[idx[o]], gv, row, col, h, w, p.bilinear != 0,
-                 gl_x, gl_y, gl_z);
+      const float2* __restrict__ img = dm + (size_t)b * (h + 1) * (w + 1);
+      const float t = ts[idx[o]];
+      float* __restrict__ dgrad = d_depth + (size_t)b * plane;
+      const float lx = light[3 * b + 0], ly = light[3 * b + 1], lz = light[3 * b + 2];
+      if (p.bilinear) {
+        pixel_grad<true>(img, dgrad, lx, ly, lz, t, gv, row, col, h, w, gl_x, gl_y, gl_z);
+      } else {
+        pixel_grad<false>(img, dgrad, lx, ly, lz, t, gv, row, col, h, w, gl_x, gl_y, gl_z);
+      }
     }
   }
 
@@ -698,12 +902,32 @@ static int log2_or_minus1(int v) {
   return -1;
 }
 
-// Plain C entry point (bound with ctypes): `form` is K1 (0), K2 (1) or K3 (2).
-// Stages depth and mask into `staged` ((B, H + 1, W + 1, 2) float32 scratch,
-// stage_kernel), then launches the march, both on `stream`, and returns
-// cudaGetLastError() so that the caller can raise on a refused launch.
+// Plain C entry points (bound with ctypes). Each launches on `stream` and
+// returns cudaGetLastError() so that the caller can raise on a refused launch.
+
+// The staging (stage_kernel): `quad` (B, H/s + 1, W/s + 1, 2) float32, and
+// where not null `full` (B, H + 1, W + 1, 2), `flags` (B, H/s/8, W/s/chunk),
+// `full_flags` (B, H/8, W/full_chunk) uint8 and `light_out` (B, 3). s is 1,
+// 2 or 4, H/s a multiple of 8.
+extern "C" int gcfr_stage_launch(
+    const float* depth, const float* mask, const float* light, float* quad, float* full,
+    uint8_t* flags, uint8_t* full_flags, float* light_out, int batch, int height, int width,
+    int scale, int chunk, int full_chunk, void* stream) {
+  if (scale != 1 && scale != 2 && scale != 4) return (int)cudaErrorInvalidValue;
+  StageParams p{height, width, scale, chunk, full_chunk, log2_or_minus1(chunk), log2_or_minus1(full_chunk)};
+  const int n_units = (flags != nullptr ? width / scale / chunk : 0) +
+                      (full_flags != nullptr ? scale * (width / full_chunk) : 0);
+  stage_kernel<<<dim3(height / scale / kBlockRows, batch), dim3(kBlockCols, kBlockRows), (size_t)n_units * sizeof(int),
+                 (cudaStream_t)stream>>>(depth, mask, light, reinterpret_cast<float2*>(quad),
+                                         reinterpret_cast<float2*>(full), flags, full_flags, light_out, p);
+  return (int)cudaGetLastError();
+}
+
+// The march: `form` is K1 (0), K2 (1) or K3 (2); `staged` the quad
+// stage_kernel wrote; `flags` its cull flags, or null for the in-kernel scan
+// of `mask`.
 extern "C" int gcfr_march_launch(
-    int form, const float* depth, const float* mask, float* staged,
+    int form, const float* staged, const float* mask, const uint8_t* flags,
     const float* light, const float* ts,
     const float* t_map, const int32_t* centre_idx, const float* centre_ts,
     float* out, int32_t* idx, int batch, int height, int width, int n_ts,
@@ -715,21 +939,27 @@ extern "C" int gcfr_march_launch(
                 log2_or_minus1(centre_scale), lo_x, hi_x, lo_y, hi_y, gate_bias,
                 t_lo, t_hi};
   dim3 block(kBlockCols, kBlockRows);
-  dim3 grid((width + kBlockCols - 1) / kBlockCols,
+  const bool split = form == kArgmin && n_ts >= kSplitFrom;
+  dim3 grid((width * (split ? kSplitLanes : 1) + kBlockCols - 1) / kBlockCols,
             (height + kBlockRows - 1) / kBlockRows, batch);
   const size_t smem = (size_t)n_ts * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  float2* dm2 = reinterpret_cast<float2*>(staged);
-  stage_kernel<<<dim3((width + 256) / 256, height + 1, batch), 256, 0, st>>>(depth, mask, dm2, height, width);
+  const float2* dm2 = reinterpret_cast<const float2*>(staged);
   switch (form) {
     case kMin:
-      march_kernel<kMin><<<grid, block, smem, st>>>(dm2, mask, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
+      march_kernel<kMin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
       break;
     case kArgmin:
-      march_kernel<kArgmin><<<grid, block, smem, st>>>(dm2, mask, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
+      if (split) {
+        march_kernel<kArgmin, kSplitLanes><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx,
+                                                                      centre_ts, out, idx, p);
+      } else {
+        march_kernel<kArgmin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts,
+                                                            out, idx, p);
+      }
       break;
     case kRefine:
-      march_kernel<kRefine><<<grid, block, smem, st>>>(dm2, mask, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
+      march_kernel<kRefine, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -737,18 +967,18 @@ extern "C" int gcfr_march_launch(
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point of K4's backward (march_grad); d_depth (B, H, W) and
-// d_light (B, 3) must be zeroed by the caller. Returns cudaGetLastError().
+// K4's backward (march_grad) on the forward's staged quad and flags (null
+// without the cull); d_depth (B, H, W) and d_light (B, 3) must be zeroed by
+// the caller.
 extern "C" int gcfr_march_grad_launch(
-    const float* depth, const float* mask, const float* light, const float* ts,
-    const int32_t* idx, const uint8_t* live, const float* g, float* d_depth,
-    float* d_light, int batch, int height, int width, int bilinear,
-    int live_cols, int col_chunk, void* stream) {
-  GradParams p{batch, height, width, bilinear, live_cols, col_chunk};
+    const float* staged, const uint8_t* flags, const float* light, const float* ts,
+    const int32_t* idx, const float* g, float* d_depth, float* d_light, int batch, int height,
+    int width, int bilinear, int col_chunk, void* stream) {
+  GradParams p{batch, height, width, bilinear, col_chunk, log2_or_minus1(col_chunk)};
   dim3 block(kGradCols, kGradRows);
   dim3 grid((width + kGradCols - 1) / kGradCols,
             (height + kGradRows - 1) / kGradRows, batch);
   march_grad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      depth, mask, light, ts, idx, live, g, d_depth, d_light, p);
+      reinterpret_cast<const float2*>(staged), flags, light, ts, idx, g, d_depth, d_light, p);
   return (int)cudaGetLastError();
 }

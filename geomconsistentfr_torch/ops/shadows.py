@@ -14,6 +14,9 @@ path of the port, and what the kernels are held against on the card.
     a few offsets around a per-pixel t.
   * `march_vjp` is the backward of the training march K4 (kernel
     march_grad): autograd of `sample_distance_at_batch` at K2's t*.
+  * `stage_inputs` is the kernels' input staging (stage_kernel): depth and
+    mask padded and interleaved, with the cull's flags, at the draft tier
+    the pooled inputs of `scale_march_inputs` too.
 Their arithmetic is written op by op in the order the kernels evaluate it.
 Each loop carries the min of the raw cross-product norm^2 (1e30 for a vetoed
 sample) and takes sqrt(n2 + 1e-4) / denominator once at the end; both are
@@ -58,7 +61,7 @@ interpolates the low-resolution distances instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -447,28 +450,100 @@ def scaled_render_cfg(cfg: RenderConfig) -> RenderConfig:
     )
 
 
+def _block_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, H/s, s, W/s, s) -> (B, H/s, W/s): each block summed in a stated order.
+
+    Row by row, left to right, from the block's first element: s^2 - 1
+    elementwise adds, so the CUDA staging (csrc/march.cu stage_kernel) adds
+    the same floats in the same order and pools bit for bit (a reduction's
+    order is the library's to choose).
+    """
+    s = x.shape[2]
+    acc = x[:, :, 0, :, 0]
+    for i in range(s):
+        for j in range(s):
+            if i or j:
+                acc = acc + x[:, :, i, :, j]
+    return acc
+
+
 def scale_march_inputs(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tensor, cfg: RenderConfig):
     """Pool (depth, mask) s x s and scale the light for the draft march.
 
     Returns (depth/s pooled (B, H/s, W/s), majority-pooled {0,1} mask, the
     scaled light (B, 3), the scaled RenderConfig). The depth is the mean of
-    a block's on-face pixels, or of all of them where none is on face. The
-    pooled grid's centred coordinates sit (s-1)/(2s) from the scaled scene,
-    so the light shifts by that much: minus in x, plus in the flipped y.
+    a block's on-face pixels, or of all of them where none is on face; each
+    block's sums run in `_block_sum`'s order, then divide as written here.
+    The pooled grid's centred coordinates sit (s-1)/(2s) from the scaled
+    scene, so the light shifts by that much: minus in x, plus in the flipped
+    y. (On CUDA tensors PyTorch divides by a Python number as a product with
+    its reciprocal; for the draft scales, powers of two, that is the same
+    float as the division the kernel and the CPU make.)
     """
     s = cfg.shadow_resolution_scale
     b, h, w = depth.shape
     blocks = depth.reshape(b, h // s, s, w // s, s)
     on = (mask != 0).to(depth.dtype).reshape(b, h // s, s, w // s, s)
-    on_count = on.sum(dim=(2, 4))
-    face_mean = (blocks * on).sum(dim=(2, 4)) / torch.clamp(on_count, min=1.0)
-    depth_h = torch.where(on_count > 0, face_mean, blocks.mean(dim=(2, 4))) / s
+    on_count = _block_sum(on)
+    face_mean = _block_sum(blocks * on) / torch.clamp(on_count, min=1.0)
+    depth_h = torch.where(on_count > 0, face_mean, _block_sum(blocks) / (s * s)) / s
     mask_h = (on_count >= (s * s) / 2.0).to(depth.dtype)
     off = (s - 1.0) / (2.0 * s)
     light_h = torch.stack(
         [light_point[:, 0] / s - off, light_point[:, 1] / s + off, light_point[:, 2] / s], dim=-1
     )
     return depth_h, mask_h, light_h, scaled_render_cfg(cfg)
+
+
+class Staged(NamedTuple):
+    """A march's staged inputs (csrc/march.cu stage_kernel writes them on the card).
+
+    quad: (B, H/s + 1, W/s + 1, 2) float32, the march's depth and 0/1 mask
+    (pooled at s > 1) interleaved and padded with a replicated first row and
+    column; flags: uint8 (B, H/s/8, W/s/C) cull units of the march's grid
+    holding face, or None; at s > 1 also full: the same padding at full
+    resolution (the refine's input), full_flags: its cull units
+    (B, H/8, W/C_full) or None, light: the scaled light (B, 3). s is
+    cfg.shadow_resolution_scale; C and C_full the cull chunks of the scaled
+    and the full config.
+    """
+
+    quad: torch.Tensor
+    flags: Optional[torch.Tensor]
+    full: Optional[torch.Tensor] = None
+    full_flags: Optional[torch.Tensor] = None
+    light: Optional[torch.Tensor] = None
+
+
+def pad_quad(depth: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) depth and mask -> (B, H + 1, W + 1, 2): padded (y, x) holds
+    (depth, mask != 0) at (max(y - 1, 0), max(x - 1, 0))."""
+    both = torch.stack((depth.float(), (mask != 0).float()), dim=1)
+    return F.pad(both, (1, 0, 1, 0), mode="replicate").permute(0, 2, 3, 1).contiguous()
+
+
+def unpad_quad(quad: torch.Tensor) -> tuple:
+    """pad_quad's inverse: (B, H + 1, W + 1, 2) -> (depth, mask), each (B, H, W)
+    and contiguous, in one copy."""
+    depth, mask = quad[:, 1:, 1:].permute(3, 0, 1, 2).contiguous()
+    return depth, mask
+
+
+def _cull_flags(mask: torch.Tensor, cfg: RenderConfig) -> Optional[torch.Tensor]:
+    if not cfg.shadow_mask_cull:
+        return None
+    return cull_live_blocks(mask, effective_col_chunk(cfg)).to(torch.uint8)
+
+
+def stage_inputs(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tensor, cfg: RenderConfig) -> Staged:
+    """The plain version of the kernels' staging: what one march (at s > 1,
+    the draft tier's whole march: K2 and K3) reads. Flags where the config
+    culls."""
+    if cfg.shadow_resolution_scale == 1:
+        return Staged(pad_quad(depth, mask), _cull_flags(mask, cfg))
+    m_depth, m_mask, m_light, m_cfg = scale_march_inputs(depth, mask, light_point, cfg)
+    return Staged(pad_quad(m_depth, m_mask), _cull_flags(m_mask, m_cfg), pad_quad(depth, mask),
+                  _cull_flags(mask, cfg), m_light)
 
 
 def upscale_min_distance(min_h: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:

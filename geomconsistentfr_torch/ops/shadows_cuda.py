@@ -6,14 +6,21 @@ The wrappers, one per kernel:
   * `refine_min_distance_cuda` launches K3 ('refine') around a full-
     resolution t_map, `refine_around_argmin_cuda` K3 around K2's winning
     indices (no t_map in memory);
-  * `draft_march` is the draft tier's march with the refine on: the pooling,
-    K2 at low resolution, then K3 around K2's winners;
-  * `march_grad_cuda` launches the backward of K4 ('march_grad').
+  * `draft_march` is the draft tier's march with the refine on: three
+    launches, one staging pass (the pooled and the full-resolution inputs,
+    both resolutions' cull flags, the scaled light), K2 at low resolution,
+    then K3 around K2's winners;
+  * `pool_march_inputs` is the draft pooling alone, on the same staging
+    kernel, for the draft paths whose pooled inputs go to another march;
+  * `march_grad_cuda` launches the backward of K4 ('march_grad') on the
+    forward's staged input.
 For a CUDA tensor a wrapper launches its kernel (or raises); for a CPU tensor
 it runs the plain version of ops/shadows.py. There is no other fallback.
 K1-K3 read depth and mask interleaved and padded, (B, H + 1, W + 1, 2),
-which the launch stages first (csrc/march.cu stage_kernel, in scratch the
-wrapper allocates), and cull inside the kernel; the
+which a staging launch writes first (csrc/march.cu stage_kernel, counted as
+'stage', into tensors the wrapper allocates; `shadows.stage_inputs` is its
+plain version). K2 and the draft path's K3 cull from the flags the staging
+writes, K1 and K3 around a t_map from the mask inside the kernel. The
 sample offsets t they march must lie in [0, 1] (checked on the host; see
 csrc/march.cu), H and W at most 2048.
 
@@ -68,14 +75,15 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
+LAUNCHES = {"stage": 0, "march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
 
 # The kernel's `form` argument (csrc/march.cu, enum Form).
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_c_int] + [_c_void_p] * 10 + [_c_int] * 10 + [_c_float] * 7 + [_c_void_p]
-_GRAD_ARGTYPES = [_c_void_p] * 9 + [_c_int] * 6 + [_c_void_p]
+_STAGE_ARGTYPES = [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p]
+_GRAD_ARGTYPES = [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]
 
 
 def _nvcc() -> str:
@@ -114,12 +122,10 @@ def build() -> tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    lib.gcfr_march_launch.argtypes = _ARGTYPES
-    lib.gcfr_march_launch.restype = _c_int
-    lib.gcfr_march_grad_launch.argtypes = _GRAD_ARGTYPES
-    lib.gcfr_march_grad_launch.restype = _c_int
+    lib = ctypes.CDLL(str(build()[0]))
+    for fn, argtypes in ((lib.gcfr_stage_launch, _STAGE_ARGTYPES), (lib.gcfr_march_launch, _ARGTYPES),
+                         (lib.gcfr_march_grad_launch, _GRAD_ARGTYPES)):
+        fn.argtypes, fn.restype = argtypes, _c_int
     return lib
 
 
@@ -173,51 +179,101 @@ def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> Non
     _check("light_point", light_point, (b, 3), depth.device)
 
 
-def _cull_flags(mask, cfg: RenderConfig):
-    """march_grad's cull: (uint8 live flags or None, cull blocks per 8-row group or 0, block width)."""
-    chunk = shadows.effective_col_chunk(cfg)
-    if not cfg.shadow_mask_cull:
-        return None, 0, chunk
-    live = shadows.cull_live_blocks(mask, chunk).to(torch.uint8).contiguous()
-    return live, mask.shape[2] // chunk, chunk
-
-
 def _ptr(x) -> int:
     return 0 if x is None else x.data_ptr()
 
 
-def _launch(kernel: str, depth, mask, light_point, ts, cfg: RenderConfig, t_map=None, centre=None, idx=None,
-            count_as=None):
-    """Launch one form of the march kernel on the current stream; (B, H, W) distances.
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
-    K3's centre is `t_map`, or `centre` = (K2's int32 index (B, H/s, W/s),
-    the float32 table it indexes). The launch counts under `count_as`, by
-    default the form's own name.
+
+def _stage(depth, mask, light_point, cfg: RenderConfig, draft: bool = False, flags: bool = False,
+           full_res: bool = True) -> shadows.Staged:
+    """stage_kernel, one launch: shadows.stage_inputs on the card.
+
+    Without `draft` it stages at full resolution (s = 1) whatever the
+    config's scale; with it, at the draft scale s, also the scaled light and,
+    with `full_res`, the full-resolution quad. With `flags` and the config's
+    cull, the cull flags of each quad written.
     """
     b, h, w = depth.shape
     dev = depth.device
+    s = cfg.shadow_resolution_scale if draft else 1
+    if h % s or w % s or (h // s) % 8:
+        raise ValueError(f"the staging needs H and W divisible by the scale {s} and H/{s} % 8 == 0; got {h}x{w}")
+    m_cfg = shadows.scaled_render_cfg(cfg) if s > 1 else cfg
+    cull = flags and cfg.shadow_mask_cull
+    chunk, full_chunk = shadows.effective_col_chunk(m_cfg), shadows.effective_col_chunk(cfg)
+    if cull and ((w // s) % chunk or w % full_chunk):
+        raise ValueError(f"cull blocks need the width divisible by the chunk; got W={w}, C={full_chunk}, s={s}")
+    if depth.data_ptr() % 16 or mask.data_ptr() % 16:
+        raise ValueError("the staging reads depth and mask in 16-byte vectors: they must be 16-byte aligned")
+    quad = torch.empty((b, h // s + 1, w // s + 1, 2), dtype=torch.float32, device=dev)
+    live = torch.empty((b, h // s // 8, w // s // chunk), dtype=torch.uint8, device=dev) if cull else None
+    full_res = full_res and s > 1
+    full = torch.empty((b, h + 1, w + 1, 2), dtype=torch.float32, device=dev) if full_res else None
+    full_live = torch.empty((b, h // 8, w // full_chunk), dtype=torch.uint8, device=dev) if cull and full_res else None
+    light = torch.empty((b, 3), dtype=torch.float32, device=dev) if s > 1 else None
+    with torch.cuda.device(dev):
+        err = _library().gcfr_stage_launch(
+            depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(), quad.data_ptr(), _ptr(full), _ptr(live),
+            _ptr(full_live), _ptr(light), b, h, w, s, chunk, full_chunk, _stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"stage kernel launch failed: CUDA error {err}")
+    LAUNCHES["stage"] += 1
+    return shadows.Staged(quad, live, full, full_live, light)
+
+
+def pool_march_inputs(depth, mask, light_point, cfg: RenderConfig):
+    """shadows.scale_march_inputs, the draft tier's pooling, where the pooled
+    inputs go on to another march (sample and grid parallelism, and
+    shadow_refine_halfwidth 0): on CUDA tensors the draft staging's pooling
+    (one stage_kernel launch, no full-resolution quad) and one copy out of
+    its quad (shadows.unpad_quad), the same floats; on CPU tensors the plain
+    version.
+    """
+    if depth.device.type == "cpu":
+        return shadows.scale_march_inputs(depth, mask, light_point, cfg)
+    _check_inputs(depth, mask, light_point, cfg, "draft pooling")
+    staged = _stage(depth, mask, light_point, cfg, draft=True, full_res=False)
+    return (*shadows.unpad_quad(staged.quad), staged.light, shadows.scaled_render_cfg(cfg))
+
+
+def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: RenderConfig, t_map=None, centre=None,
+            idx=None, count_as=None):
+    """Launch one form of the march kernel on a staged quad, on the current stream; (B, H, W) distances.
+
+    staged: the quad and flags of the march's grid (staged.quad, .flags);
+    without flags the kernel culls from `mask`, which may be None where the
+    config does not cull. K3's centre is `t_map`, or `centre` = (K2's int32
+    index (B, H/s, W/s), the float32 table it indexes). The launch counts
+    under `count_as`, by default the form's own name.
+    """
+    quad, flags = staged.quad, staged.flags
+    b, h, w = quad.shape[0], quad.shape[1] - 1, quad.shape[2] - 1
+    dev = quad.device
     bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
     chunk = shadows.effective_col_chunk(cfg)
     if cfg.shadow_mask_cull and w % chunk:
         raise ValueError(f"cull blocks need W % C == 0; got W={w}, C={chunk}")
+    if cfg.shadow_mask_cull and flags is None and mask is None:
+        raise ValueError("the cull needs the staging's flags or the mask")
     bounds = shadows.gate_bounds(cfg)
     gate_on = bounds is not None
     lo_x, hi_x, lo_y, hi_y = bounds if gate_on else (0.0, 0.0, 0.0, 0.0)
     t_lo, t_hi = shadows.refine_t_range(cfg) if kernel == "refine" else (0.0, 0.0)
     centre_idx, centre_ts = centre if centre is not None else (None, None)
 
-    staged = torch.empty((b, h + 1, w + 1, 2), dtype=torch.float32, device=dev)  # the kernel's padded input
-    out = torch.empty_like(depth)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.gcfr_march_launch(
-            _FORMS[kernel], depth.data_ptr(), mask.data_ptr(), staged.data_ptr(), light_point.data_ptr(),
+        err = _library().gcfr_march_launch(
+            _FORMS[kernel], quad.data_ptr(), _ptr(mask), _ptr(flags), light_point.data_ptr(),
             ts.data_ptr(), _ptr(t_map),
             _ptr(centre_idx), _ptr(centre_ts), out.data_ptr(), _ptr(idx),
             b, h, w, ts.numel(), int(bilinear), int(cfg.shadow_mask_cull), chunk, int(gate_on),
             cfg.shadow_resolution_scale, 0 if centre_ts is None else centre_ts.numel(),
-            lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, stream,
+            lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
@@ -254,8 +310,8 @@ def ray_march_min_distance_cuda(
     _check_inputs(depth, mask, light_point, cfg, "march")
     ts = _ts_for(depth.device, cfg, ts)
     if not return_argmin_t:
-        return _launch("march", depth, mask, light_point, ts, cfg)
-    out, idx = _launch_argmin(depth, mask, light_point, ts, cfg)
+        return _launch("march", _stage(depth, mask, light_point, cfg), mask, light_point, ts, cfg)
+    out, idx, _ = _launch_argmin(depth, mask, light_point, ts, cfg)
     # The index addresses the same float32 table the kernel read (shadows_pallas.py:1152-1154).
     return out, ts[idx.long()]
 
@@ -272,25 +328,31 @@ def _ts_for(dev: torch.device, cfg: RenderConfig, ts=None) -> torch.Tensor:
 
 
 def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
-    """K2: (min distances, int32 index of each pixel's first winning sample in ts)."""
+    """K2 after its staging (with the cull's flags): (min distances, int32 index of each pixel's
+    first winning sample in ts, the shadows.Staged input it read)."""
+    staged = _stage(depth, mask, light_point, cfg, flags=True)
     idx = torch.empty(depth.shape, dtype=torch.int32, device=depth.device)
-    return _launch("march_argmin", depth, mask, light_point, ts, cfg, idx=idx, count_as=count_as), idx
+    return _launch("march_argmin", staged, None, light_point, ts, cfg, idx=idx, count_as=count_as), idx, staged
 
 
-def _argmin_march(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
-    """(min distances, int32 first-winner index into ts): K2 on CUDA tensors, its plain version on the CPU."""
+def _argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
+    """(min distances, int32 first-winner index into ts, the staged input or None): K2 on CUDA
+    tensors, its plain version on the CPU (which stages nothing)."""
     if depth.device.type == "cpu":
-        return shadows.ray_march_argmin_batch(depth, mask, light_point, cfg, ts)
+        return (*shadows.ray_march_argmin_batch(depth, mask, light_point, cfg, ts), None)
     _check_inputs(depth, mask, light_point, cfg, "march")
     return _launch_argmin(depth, mask, light_point, ts, cfg, count_as)
 
 
-def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig):
+def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig, staged=None):
     """(d_depth (B, H, W), d_light (B, 3)): K4's backward at K2's winners.
 
     Same function as shadows.march_vjp at t* = ts[idx]: idx is K2's int32
     winning index (B, H, W) into the float32 table ts it read, grad the
-    (B, H, W) cotangent of the march's output.
+    (B, H, W) cotangent of the march's output. On CUDA tensors the kernel
+    reads the forward's input, `staged` (the shadows.Staged that K2 read:
+    its quad, and its cull flags where the config culls), not depth and
+    mask; one zero fill makes both gradients (two views of one buffer).
     """
     if depth.device.type == "cpu":
         return shadows.march_vjp(depth, mask, light_point, ts[idx.long()], grad, cfg)
@@ -302,29 +364,59 @@ def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig):
     _check("ts", ts, (ts.numel(),), dev)
     grad = grad.contiguous()
     _check("grad", grad, (b, h, w), dev)
-    live, live_cols, chunk = _cull_flags(mask, cfg)
-    d_depth = torch.zeros_like(depth)
-    d_light = torch.zeros((b, 3), dtype=torch.float32, device=dev)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    if staged is None:
+        raise ValueError("march_grad reads the forward's staged input: pass the shadows.Staged K2 read")
+    _check("the staged quad", staged.quad, (b, h + 1, w + 1, 2), dev)
+    chunk = shadows.effective_col_chunk(cfg)
+    if cfg.shadow_mask_cull and (staged.flags is None or staged.flags.dtype != torch.uint8
+                                 or tuple(staged.flags.shape) != (b, h // 8, w // chunk) or staged.flags.device != dev):
+        raise ValueError(f"the cull needs the staging's uint8 flags of shape {(b, h // 8, w // chunk)}")
+    return _march_grad(light_point, idx, ts, grad, staged, cfg)
+
+
+def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderConfig):
+    """The march_grad launch on tensors already checked: the forward's own (the
+    autograd backward's), or march_grad_cuda's; grad contiguous."""
+    b, h, w = idx.shape
+    dev = idx.device
+    grads = torch.zeros(b * h * w + 3 * b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.gcfr_march_grad_launch(
-            depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(), ts.data_ptr(), idx.data_ptr(),
-            _ptr(live), grad.data_ptr(), d_depth.data_ptr(), d_light.data_ptr(),
-            b, h, w, int(shadows.resolve_mask_gather(cfg) == "bilinear"), live_cols, chunk, stream,
+        err = _library().gcfr_march_grad_launch(
+            staged.quad.data_ptr(), _ptr(staged.flags if cfg.shadow_mask_cull else None), light_point.data_ptr(),
+            ts.data_ptr(), idx.data_ptr(), grad.data_ptr(), grads.data_ptr(), grads.data_ptr() + 4 * b * h * w,
+            b, h, w, int(shadows.resolve_mask_gather(cfg) == "bilinear"), shadows.effective_col_chunk(cfg),
+            _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"march_grad kernel launch failed: CUDA error {err}")
     LAUNCHES["march_grad"] += 1
-    return d_depth, d_light
+    return grads.as_strided((b, h, w), (h * w, w, 1)), grads.as_strided((b, 3), (3, 1), b * h * w)
+
+
+def _save_forward(ctx, depth, mask, light_point, idx, staged) -> None:
+    """Keep what march_grad_cuda reads: on the card the staged quad and flags (not copies: K2's input)."""
+    quad, flags = (staged.quad, staged.flags) if staged is not None else (None, None)
+    ctx.save_for_backward(depth, mask, light_point, idx, quad, flags)
+
+
+def _backward(ctx, grad, ts):
+    """march_grad at the forward's winners (its plain version on CPU tensors), from what
+    _save_forward kept; the forward checked its inputs and made the index and the staged quad."""
+    depth, mask, light_point, idx, quad, flags = ctx.saved_tensors
+    if quad is None:
+        return shadows.march_vjp(depth, mask, light_point, ts[idx.long()], grad, ctx.cfg)
+    if grad.dtype != torch.float32 or grad.shape != idx.shape:
+        raise ValueError(f"march_grad needs a float32 {tuple(idx.shape)} cotangent, got {grad.dtype} {tuple(grad.shape)}")
+    return _march_grad(light_point, idx, ts, grad.contiguous(), shadows.Staged(quad, flags), ctx.cfg)
 
 
 class RayMarchMinDistance(torch.autograd.Function):
     """The differentiable full-grid march (B, H, W) -> (B, H, W), kernel K4.
 
     Forward: the argmin march, which records each pixel's winning sample
-    (K2 on the card). Backward: the VJP at that sample (march_grad on the
-    card), into depth and the light point; the mask gets none. On CPU
+    (K2 on the card, after its staging). Backward: the VJP at that sample
+    (march_grad on the card, reading the quad and flags K2 read), into depth
+    and the light point; the mask gets none. On CPU
     tensors the same structure runs the plain argmin march and
     shadows.march_vjp. The draft tier has no gradient: its march is
     serving-only, as in the JAX package (render.py:189-193).
@@ -335,14 +427,13 @@ class RayMarchMinDistance(torch.autograd.Function):
         if cfg.shadow_resolution_scale != 1:
             raise NotImplementedError("the draft tier's march has no gradient: it serves only")
         ctx.cfg, ctx.ts = cfg, _ts_for(depth.device, cfg)
-        out, idx = _argmin_march(depth, mask, light_point, ctx.ts, cfg)
-        ctx.save_for_backward(depth, mask, light_point, idx)
+        out, idx, staged = _argmin(depth, mask, light_point, ctx.ts, cfg)
+        _save_forward(ctx, depth, mask, light_point, idx, staged)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        depth, mask, light_point, idx = ctx.saved_tensors
-        d_depth, d_light = march_grad_cuda(depth, mask, light_point, idx, ctx.ts, grad, ctx.cfg)
+        d_depth, d_light = _backward(ctx, grad, ctx.ts)
         return d_depth, None, d_light, None
 
 
@@ -382,7 +473,7 @@ def sharded_march(depth, mask, light_point, cfg: RenderConfig, ts_local, group, 
     ts_local = _ts_for(depth.device, cfg, ts_local)
     if not return_argmin_t:
         return all_min(ray_march_min_distance_cuda(depth, mask, light_point, cfg, ts_local), group)
-    local_min, local_idx = _argmin_march(depth, mask, light_point, ts_local, cfg)
+    local_min, local_idx, _ = _argmin(depth, mask, light_point, ts_local, cfg)
     out, idx, table = _first_winner(local_min, local_idx, ts_local, group)
     return out, table[idx.long()]
 
@@ -394,7 +485,8 @@ class RayMarchMinDistanceSP(torch.autograd.Function):
     same on every rank of `group` (None: one shard, ts_local is the grid).
     Forward: K2 on this rank's slice (counted as 'march_sp'), the MIN combine
     and the first-winner combine of the indices. Backward: march_grad at the
-    global winner, from the same residuals on every rank, so with no
+    global winner, on the quad this rank's K2 read (every rank stages the same
+    inputs), from the same residuals on every rank, so with no
     collective; its atomics may order the sums differently on two ranks,
     which is why the train step averages gradients over every rank. On CPU
     tensors: the plain argmin march on the slice and shadows.march_vjp.
@@ -406,15 +498,14 @@ class RayMarchMinDistanceSP(torch.autograd.Function):
             raise NotImplementedError("the draft tier's march has no gradient: it serves only")
         ctx.cfg = cfg
         ts_local = _ts_for(depth.device, cfg, ts_local)
-        local_min, local_idx = _argmin_march(depth, mask, light_point, ts_local, cfg, count_as="march_sp")
+        local_min, local_idx, staged = _argmin(depth, mask, light_point, ts_local, cfg, count_as="march_sp")
         out, idx, ctx.table = _first_winner(local_min, local_idx, ts_local, group)
-        ctx.save_for_backward(depth, mask, light_point, idx)
+        _save_forward(ctx, depth, mask, light_point, idx, staged)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        depth, mask, light_point, idx = ctx.saved_tensors
-        d_depth, d_light = march_grad_cuda(depth, mask, light_point, idx, ctx.table, grad, ctx.cfg)
+        d_depth, d_light = _backward(ctx, grad, ctx.table)
         return d_depth, None, d_light, None, None, None
 
 
@@ -438,7 +529,8 @@ def refine_min_distance_cuda(
         return shadows.refine_min_distance_batch(depth, mask, light_point, t_map, cfg, offsets)
     _check_inputs(depth, mask, light_point, cfg, "refine")
     _check("t_map", t_map, tuple(depth.shape), depth.device)
-    return _launch("refine", depth, mask, light_point, _refine_offsets(depth.device, cfg, offsets), cfg, t_map=t_map)
+    return _launch("refine", _stage(depth, mask, light_point, cfg), mask, light_point,
+                   _refine_offsets(depth.device, cfg, offsets), cfg, t_map=t_map)
 
 
 def _refine_offsets(dev: torch.device, cfg: RenderConfig, offsets=None) -> torch.Tensor:
@@ -480,15 +572,18 @@ def refine_around_argmin_cuda(
             or idx.device != dev:
         raise ValueError(f"idx must be a contiguous int32 {(b, h // s, w // s)} tensor on the depth's device")
     _check("ts", ts, (ts.numel(),), dev)
-    return _launch("refine", depth, mask, light_point, _refine_offsets(dev, cfg, offsets), cfg, centre=(idx, ts))
+    return _launch("refine", _stage(depth, mask, light_point, cfg), mask, light_point,
+                   _refine_offsets(dev, cfg, offsets), cfg, centre=(idx, ts))
 
 
 def draft_march(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """The draft tier's march with its refine: (B, H, W) depth and mask, (B, 3) light points -> (B, H, W).
 
-    Pools the inputs (shadows.scale_march_inputs), marches them with K2 for
-    each low-resolution pixel's winning index, then refines at full
-    resolution with K3 around those winners. Same function as
+    Three launches: one staging pass (the pooled inputs of
+    shadows.scale_march_inputs and the full-resolution ones, padded and
+    interleaved, both resolutions' cull flags and the scaled light), K2 on
+    the pooled inputs for each low-resolution pixel's winning index, then K3
+    at full resolution around those winners. Same function as
     refine_min_distance_batch(depth, mask, light_point, upsample_tstar_nn(t*),
     cfg), t* the argmin march of the pooled inputs; on CPU tensors it runs
     those plain versions. Serves only, as the refine.
@@ -497,7 +592,19 @@ def draft_march(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tens
         raise ValueError("draft_march needs shadow_resolution_scale > 1 and shadow_refine_halfwidth > 0")
     if needs_grad(depth, light_point):
         raise NotImplementedError("the draft tier's march has no gradient: it serves only")
-    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light_point, cfg)
+    m_cfg = shadows.scaled_render_cfg(cfg)
     ts = _ts_for(depth.device, m_cfg)
-    _, idx = _argmin_march(m_depth, m_mask, m_light, ts, m_cfg)
-    return refine_around_argmin_cuda(depth, mask, light_point, idx, ts, cfg)
+    if depth.device.type == "cpu":
+        m_depth, m_mask, m_light, _ = shadows.scale_march_inputs(depth, mask, light_point, cfg)
+        _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, ts)
+        return refine_around_argmin_cuda(depth, mask, light_point, idx, ts, cfg)
+    _check_inputs(depth, mask, light_point, cfg, "draft march")
+    b, h, w = depth.shape
+    s = cfg.shadow_resolution_scale
+    if h % s or w % s or (h // s) % 8 or (w // s) % 32:
+        raise ValueError(f"the draft march needs H/{s} % 8 == 0 and W/{s} % 32 == 0; got {h}x{w}")
+    staged = _stage(depth, mask, light_point, cfg, draft=True, flags=True)
+    idx = torch.empty((b, h // s, w // s), dtype=torch.int32, device=depth.device)
+    _launch("march_argmin", staged, None, staged.light, ts, m_cfg, idx=idx)
+    full = shadows.Staged(staged.full, staged.full_flags)
+    return _launch("refine", full, None, light_point, _refine_offsets(depth.device, cfg), cfg, centre=(idx, ts))

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import device_activities  # torch.profiler as the card's machine needs it
 from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops import shadows, shadows_cuda
 from geomconsistentfr_torch.ops.geometry import l2_normalize
@@ -66,6 +67,11 @@ def launches_since(before):
     return {k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()}
 
 
+def counts(**n):
+    """Launch counts by kernel name, 0 where not given ('stage' is each march's input staging)."""
+    return {k: n.get(k, 0) for k in shadows_cuda.LAUNCHES}
+
+
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
 @pytest.mark.parametrize("cull", **CULLS)
 @pytest.mark.parametrize("veto", ["onehot", "bilinear"])
@@ -76,7 +82,7 @@ def test_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march=1)
     assert_march_close(got, shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
 
 
@@ -90,7 +96,7 @@ def test_argmin_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march_argmin=1)
     want_d, want_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
     assert_march_close(got_d, want_d)
     assert (got_t == want_t).float().mean().item() >= 0.9999
@@ -123,7 +129,7 @@ def test_refine_kernel_matches_plain(dev, veto, cull, gate):
     before = dict(shadows_cuda.LAUNCHES)
     got = shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 1, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, refine=1)
     assert_march_close(got, shadows.refine_min_distance_batch(depth, mask, light, t_map, cfg))
     offsets = shadows.refine_offsets(cfg)[1:6]
     assert_march_close(shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets),
@@ -144,12 +150,12 @@ def test_render_on_the_card_always_launches_the_kernel(dev):
     args = (torch.rand((4, 64, 64, 3), device=dev), depth, torch.zeros((4, 4), device=dev), mask)
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march=1)
     want = shadows.ray_march_min_distance_batch(depth, mask, cfg.light_distance * l2_normalize(light, dim=-1), cfg)
     assert_march_close(out.min_distance, want)
     with pytest.raises(ValueError):
         render(*args, dataclasses.replace(cfg, use_pallas_shadows=False), target_light=light)
-    assert launches_since(before) == {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march=1)
 
 
 @pytest.mark.parametrize("halfwidth", [4, 0], ids=["refine", "upscale"])
@@ -161,8 +167,8 @@ def test_draft_render_launches_the_draft_kernels(dev, halfwidth):
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     torch.cuda.synchronize()
-    want_launches = ({"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0} if halfwidth
-                     else {"march": 1, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0})
+    want_launches = (counts(stage=1, march_argmin=1, refine=1) if halfwidth
+                     else counts(stage=2, march=1))  # the pooling's staging, then K1's
     assert launches_since(before) == want_launches
     lp = cfg.light_distance * l2_normalize(light, dim=-1)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, lp, cfg)
@@ -173,6 +179,24 @@ def test_draft_render_launches_the_draft_kernels(dev, halfwidth):
         want = shadows.upscale_min_distance(shadows.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg), cfg)
     assert_march_close(out.min_distance, want)
     assert torch.isfinite(out.rendered).all()
+
+
+@pytest.mark.parametrize("scale", [2, 4])
+def test_pool_march_inputs_is_the_plain_pooling(dev, scale):
+    """The draft pooling where another march takes the pooled inputs (sample
+    and grid parallelism, the refine off): one staging launch and one copy,
+    scale_march_inputs' floats bit for bit, each contiguous."""
+    depth, mask, light = scene(dev, seed=21)
+    cfg = RenderConfig(**dict(DRAFT, shadow_resolution_scale=scale), shadow_mask_cull=True, shadow_col_chunk=64)
+    before = dict(shadows_cuda.LAUNCHES)
+    got = shadows_cuda.pool_march_inputs(depth, mask, light, cfg)
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(stage=1)
+    want = shadows.scale_march_inputs(depth, mask, light, cfg)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.is_contiguous()
+        assert_bits_equal(g, w)
+    assert got[3] == want[3]
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -245,10 +269,10 @@ def test_march_grad_matches_plain_vjp(dev, veto, cull, gate):
     d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
     before = dict(shadows_cuda.LAUNCHES)
     out = shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg)
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march_argmin=1)
     (out * g).sum().backward()
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march_argmin=1, march_grad=1)
     assert_march_close(out.detach(), shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
     # The plain VJP at the kernel's own winners: this holds march_grad alone.
     _, t_star = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
@@ -274,7 +298,7 @@ def test_render_with_a_gradient_launches_k2_and_march_grad(dev):
     before = dict(shadows_cuda.LAUNCHES)
     got_d, got_l = grads(dev)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 0, "march_grad": 1, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march_argmin=1, march_grad=1)
     want_d, want_l = grads("cpu")
     # The renderer's eager ops round differently on the two devices, which
     # may move a knife-edge winner: agreement on >= 0.999 of the entries.
@@ -354,7 +378,7 @@ def test_k5_on_two_ranks_is_the_full_grid_k2(dev, tmp_path):
     ranks = load_ranks(tmp_path, "k5")
     full, t_full = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
     for r in ranks:
-        assert r["launches"] == {"march": 0, "march_argmin": 0, "refine": 0, "march_grad": 1, "march_sp": 1}
+        assert r["launches"] == counts(stage=1, march_grad=1, march_sp=1)
         assert torch.equal(r["out"], full.cpu()) and torch.equal(r["served"], full.cpu())
         assert torch.equal(r["served_min"], full.cpu()) and torch.equal(r["idx"], ranks[0]["idx"])
         t_star = r["table"][r["idx"].long()]
@@ -388,8 +412,7 @@ def test_grid_step_on_two_ranks_keeps_replicas_bit_identical(dev, tmp_path):
     distributed.spawn(child.train_steps, 2, "cuda", str(tmp_path / "rdzv"),
                       args=(str(tmp_path), "grid", [(1, 2)], cfg, start, batches, (False,) * 4))
     ranks = [r["results"][(1, 2)] for r in load_ranks(tmp_path, "grid")]
-    assert ranks[0]["launches"] == ranks[1]["launches"] == {
-        "march": 0, "march_argmin": 0, "refine": 0, "march_grad": 2, "march_sp": 2}
+    assert ranks[0]["launches"] == ranks[1]["launches"] == counts(stage=2, march_grad=2, march_sp=2)
     assert ranks[0]["losses"] == ranks[1]["losses"]
     for i in range(2):
         for key, values in ranks[0]["states"][i].items():
@@ -466,14 +489,14 @@ def test_refine_index_form_is_the_t_map_form(dev):
     cfg = RenderConfig(**DRAFT, shadow_mask_gather="bilinear", shadow_mask_cull=True, shadow_col_chunk=64)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
     table = shadows_cuda._ts_for(dev, m_cfg)
-    _, idx = shadows_cuda._argmin_march(m_depth, m_mask, m_light, table, m_cfg)
+    _, idx, _ = shadows_cuda._argmin(m_depth, m_mask, m_light, table, m_cfg)
     t_map = shadows.upsample_tstar_nn(table[idx.long()], cfg)
     before = dict(shadows_cuda.LAUNCHES)
     for offsets in (None, shadows.refine_offsets(cfg)[1:6]):
         assert_bits_equal(shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg, offsets),
                           shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets))
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 0, "refine": 4, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=4, refine=4)
     with pytest.raises(ValueError):
         shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx.long(), table, cfg)
     with pytest.raises(ValueError):
@@ -500,7 +523,7 @@ def test_draft_render_reads_k2s_index_directly(dev, monkeypatch):
     before = dict(shadows_cuda.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     torch.cuda.synchronize()
-    assert launches_since(before) == {"march": 0, "march_argmin": 1, "refine": 1, "march_grad": 0, "march_sp": 0}
+    assert launches_since(before) == counts(stage=1, march_argmin=1, refine=1)
     monkeypatch.undo()
     lp = cfg.light_distance * l2_normalize(light, dim=-1)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, lp, cfg)
@@ -508,3 +531,202 @@ def test_draft_render_reads_k2s_index_directly(dev, monkeypatch):
     assert_bits_equal(out.min_distance,
                       shadows.refine_min_distance_batch(depth, mask, lp, shadows.upsample_tstar_nn(t_star, cfg), cfg))
     assert_bits_equal(shadows_cuda.draft_march(depth, mask, lp, cfg), out.min_distance)
+
+
+# ---------------------------------------------------------------------------
+# The staging pass (stage_kernel), K2 on its output, K3 reading its flags, and
+# march_grad on the forward's staged quad.
+# ---------------------------------------------------------------------------
+
+
+STAGINGS = dict(argvalues=[(1, 0), (1, 16), (1, 64), (2, 0), (2, 16), (2, 64), (4, 32)],
+                ids=["s1", "s1_col16", "s1_row", "s2", "s2_col16", "s2_row", "s4_col32"])
+
+
+@pytest.mark.parametrize("scale, cull", **STAGINGS)
+def test_staging_is_bit_equal_to_its_plain_version(dev, scale, cull):
+    """stage_kernel against shadows.stage_inputs: the padded quads (pooled at
+    s > 1), both resolutions' cull flags and the scaled light, bit for bit,
+    on the edge scenes (an image with no face, faces on the first row and
+    column, integer depths) and on all-on, single-pixel and half-on blocks."""
+    depth, mask, light = edge_scene(dev)
+    mask[0] = 1.0                        # every block on face
+    mask[1] = 0.0
+    mask[1, 13, 29] = 3.0                # one face pixel, nonzero but not 1
+    mask[2, ::2] = 0.0                   # half of each 2x2 block: the majority's edge
+    cfg = RenderConfig(**dict(DRAFT, shadow_resolution_scale=scale, shadow_lowres_t_stride=min(scale, 2)),
+                       shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
+    before = dict(shadows_cuda.LAUNCHES)
+    got = shadows_cuda._stage(depth, mask, light, cfg, draft=scale > 1, flags=True)
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(stage=1)
+    want = shadows.stage_inputs(depth, mask, light, cfg)
+    for field in shadows.Staged._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None) == (w is None), field
+        if g is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape, field
+            assert torch.equal(g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8)), field
+    if scale > 1:
+        m_depth, m_mask, m_light, _ = shadows.scale_march_inputs(depth, mask, light, cfg)
+        assert torch.equal(got.quad, shadows.pad_quad(m_depth, m_mask)) and torch.equal(got.light, m_light)
+
+
+@pytest.mark.parametrize("cull", [False, True], ids=["cull_off", "cull_on"])
+@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("shape", ["draft", "training"])
+def test_k2_on_the_staged_input_is_bit_equal(dev, shape, veto, cull):
+    """K2 as the main paths run it: at draft (64 images of 256^2 pooled 4x4,
+    80 samples, on the staging pass's pooled quad, flags and light) and at
+    training (3 of 256^2, 160 samples, on its own staging). Distances bit for
+    bit and the index on every pixel, against the plain argmin march of the
+    plain pooled inputs."""
+    from geomconsistentfr_torch.config import apply_precision_tier, preset_single_image, preset_target_lighting_train
+
+    b = 64 if shape == "draft" else 3
+    rng = np.random.default_rng(14)
+    yy, xx = np.mgrid[:256, :256]
+    depth = (rng.normal(size=(b, 256, 256)) * 20 + 40 * np.cos(xx / 40.0) * np.sin(yy / 30.0)).astype(np.float32)
+    face = ((xx - 120) / 80.0) ** 2 + ((yy - 136) / 100.0) ** 2 <= 1.0
+    mask = (face & (rng.uniform(size=(b, 256, 256)) > 0.05)).astype(np.float32)
+    dirs = rng.normal(size=(b, 3))
+    dirs[:, 2] = np.abs(dirs[:, 2]) + 0.5
+    light = (4013.0 * dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    depth, mask, light = (torch.from_numpy(a).to(dev) for a in (depth, mask, light))
+    base = (apply_precision_tier(preset_single_image(), "draft") if shape == "draft"
+            else preset_target_lighting_train()).render
+    cfg = dataclasses.replace(base, shadow_mask_gather=veto, shadow_mask_cull=cull, shadow_step_pack=1)
+    if shape == "draft":
+        m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
+        ts = shadows_cuda._ts_for(dev, m_cfg)
+        staged = shadows_cuda._stage(depth, mask, light, cfg, draft=True, flags=True)
+        idx = torch.empty(m_depth.shape, dtype=torch.int32, device=dev)
+        got = shadows_cuda._launch("march_argmin", staged, None, staged.light, ts, m_cfg, idx=idx)
+    else:
+        m_depth, m_mask, m_light, m_cfg = depth, mask, light, cfg
+        ts = shadows_cuda._ts_for(dev, cfg)
+        got, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+    want, want_idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, ts)
+    assert_bits_equal(got, want)
+    assert torch.equal(idx, want_idx)
+
+
+@pytest.mark.parametrize("cull", [16, 32, 64], ids=["cull_col16", "cull_col32", "cull_row"])
+@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+def test_refine_reading_flags_equals_refine_scanning_the_mask(dev, veto, cull):
+    """K3 on the staging pass's full-resolution quad and flags (the draft
+    path) equals K3 that scans the mask itself (refine_around_argmin_cuda),
+    bit for bit, on the edge scenes with their all-culled image."""
+    depth, mask, light = edge_scene(dev, seed=15)
+    cfg = RenderConfig(**DRAFT, shadow_mask_gather=veto, shadow_mask_cull=True, shadow_col_chunk=cull)
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
+    table = shadows_cuda._ts_for(dev, m_cfg)
+    _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
+    staged = shadows_cuda._stage(depth, mask, light, cfg, draft=True, flags=True)
+    full = shadows.Staged(staged.full, staged.full_flags)
+    before = dict(shadows_cuda.LAUNCHES)
+    got = shadows_cuda._launch("refine", full, None, light, shadows_cuda._refine_offsets(dev, cfg), cfg,
+                               centre=(idx, table))
+    assert launches_since(before) == counts(refine=1)
+    assert_bits_equal(got, shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg))
+    assert bool((got[5] == 1e6).all())
+
+
+def test_draft_march_runs_three_kernels(dev):
+    """One draft march is three device launches, the staging pass, K2 and
+    K3, and nothing else (no pooling ops, no scaled light, no t* map), bit-
+    equal to the plain draft path; a draft render launches the same three."""
+    depth, mask, light = scene(dev, seed=16)
+    cfg = RenderConfig(**DRAFT, shadow_mask_gather="bilinear", shadow_mask_cull=True, shadow_col_chunk=64)
+    names = device_activities(lambda: shadows_cuda.draft_march(depth, mask, light, cfg), 3)
+    assert len(names) == 3 * 5, names
+    assert [any(k in n for n in names) for k in ("stage_kernel", "march_kernel<1", "march_kernel<2")] == [True] * 3
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
+    _, t_star = shadows.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    assert_bits_equal(shadows_cuda.draft_march(depth, mask, light, cfg),
+                      shadows.refine_min_distance_batch(depth, mask, light, shadows.upsample_tstar_nn(t_star, cfg), cfg))
+    from geomconsistentfr_torch.render import shadow_min_distance
+
+    march = device_activities(lambda: shadow_min_distance(depth, mask, light, cfg), 3)
+    assert len(march) == 3 * 5, march
+
+
+@pytest.mark.parametrize("cull", [0, 64, 16], ids=["cull_off", "cull_row", "cull_col16"])
+@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+def test_march_grad_on_edge_scenes(dev, veto, cull):
+    """march_grad on the forward's quad at the plain VJP's bars, on the edge
+    scenes: lights on the image border and at integer points inside it (the
+    samples' integer coordinates, where the ceil tap is the floor tap),
+    faces on the first row and column, an image with no face (culled, or
+    vetoed everywhere), and an image whose cotangent is zero. The wrapper
+    runs one zero fill and the kernel: no cull-flag pass."""
+    depth, mask, light = edge_scene(dev, seed=17)
+    g = torch.from_numpy(np.random.default_rng(18).normal(size=depth.shape).astype(np.float32)).to(dev)
+    g[3] = 0.0
+    cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
+    d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    out = shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg)
+    (out * g).sum().backward()
+    _, t_star = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
+    want_d, want_l = shadows.march_vjp(depth, mask, light, t_star, g, cfg)
+    assert_grads_close(d.grad, lp.grad, want_d, want_l)
+    for i in (3, 5):
+        assert not d.grad[i].any() and not lp.grad[i].any()
+    ts = shadows_cuda._ts_for(dev, cfg)
+    _, idx, staged = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+    names = device_activities(lambda: shadows_cuda.march_grad_cuda(depth, mask, light, idx, ts, g, cfg, staged), 2)
+    assert len(names) == 2 * 5 and sum("march_grad_kernel" in n for n in names) == 5, names
+    with pytest.raises(ValueError):
+        shadows_cuda.march_grad_cuda(depth, mask, light, idx, ts, g, cfg)
+
+
+def light_grad_terms(depth, mask, light, t_star, g, cfg):
+    """(B, 3) float64: the sum over pixels of |each pixel's term of d_light|
+    (the plain VJP with the cotangent kept at one pixel at a time). A float32
+    sum of those terms, in any order and with any rounding of the terms,
+    is within a few 1e-7 of this of its exact value."""
+    b, h, w = depth.shape
+    out = torch.zeros((b, 3), dtype=torch.float64, device=depth.device)
+    for i in range(b):
+        for start in range(0, h * w, 1024):
+            pix = torch.arange(start, min(start + 1024, h * w), device=depth.device)
+            k = pix.numel()
+            cot = torch.zeros((k, h * w), device=depth.device)
+            cot[torch.arange(k, device=depth.device), pix] = g[i].reshape(-1)[pix]
+            rep = [x[i:i + 1].expand(k, *x.shape[1:]).contiguous() for x in (depth, mask, light, t_star)]
+            _, dl = shadows.march_vjp(*rep, cot.view(k, h, w), cfg)
+            out[i] += dl.abs().double().sum(dim=0)
+    return out
+
+
+def test_k5_backward_in_one_process(dev):
+    """K5 with no group (one shard, the whole table): its forward stages and
+    launches K2 once (as 'march_sp'), its backward march_grad once on the
+    forward's quad. Its gradients are K4's (the same kernels: only the
+    atomics' order differs) at the march_grad bars, and the plain VJP's:
+    d_depth at its bar, d_light within 1e-5 of the sum of its pixels' |terms|.
+    On this scene image 1's light gradient is ill-conditioned: its y term
+    sums to -0.197 from terms whose magnitudes sum to 35.9, and the kernel's
+    chain rule and autograd's round the terms differently, so it parts from
+    the plain VJP by 1.1e-4 of the image's max (in the kernel before the
+    redesign as in this one), over the 1e-4 bar relative to that max."""
+    depth, mask, _ = scene(dev, seed=19)
+    light = torch.from_numpy(GRAD_LIGHTS).to(dev)
+    g = torch.from_numpy(np.random.default_rng(20).normal(size=depth.shape).astype(np.float32)).to(dev)
+    cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
+    ts = shadows.sample_ts(cfg).astype(np.float32)
+    d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    before = dict(shadows_cuda.LAUNCHES)
+    out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts, None)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(stage=1, march_sp=1, march_grad=1)
+    want_out, t_star = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
+    assert_bits_equal(out.detach(), want_out)
+    d4, lp4 = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    (shadows_cuda.ray_march_min_distance_cuda(d4, mask, lp4, cfg) * g).sum().backward()
+    assert_grads_close(d.grad, lp.grad, d4.grad, lp4.grad)
+    want_d, want_l = shadows.march_vjp(depth, mask, light, t_star, g, cfg)
+    assert (d.grad - want_d).abs().max().item() <= 1e-4 * want_d.abs().max().item()
+    terms = light_grad_terms(depth, mask, light, t_star, g, cfg)
+    assert bool(((lp.grad - want_l).abs().double() <= 1e-5 * terms).all()), (lp.grad - want_l, terms)

@@ -134,6 +134,106 @@ def test_scale_march_inputs_matches_jax(scale):
     assert dataclasses.asdict(got[3]) == dataclasses.asdict(want[3])
 
 
+def sequential_block_sums(x: np.ndarray, s: int) -> np.ndarray:
+    """Each s x s block of (B, H, W) float32 summed row by row, left to right, from its first element."""
+    b, h, w = x.shape
+    blocks = x.reshape(b, h // s, s, w // s, s)
+    acc = blocks[:, :, 0, :, 0].copy()
+    for i in range(s):
+        for j in range(s):
+            if i or j:
+                acc = (acc + blocks[:, :, i, :, j]).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("scale", [2, 4])
+def test_pooling_sums_each_block_in_the_stated_order(scale):
+    """The plain pooling (which the CUDA staging follows bit for bit) adds each
+    block row by row, left to right: equal to numpy's float32 adds in that
+    order, bit for bit; on all-off, all-on and single-pixel blocks, and on
+    blocks at the majority's edge (exactly half on face)."""
+    depth, mask, lights = scene(seed=13)
+    mask[0, :8] = 0.0                                 # all-off blocks: the plain mean
+    mask[1, :8] = 1.0                                 # all-on blocks
+    mask[2, :8] = 0.0
+    mask[2, 1:8:scale, 1:64:scale] = 2.0              # one face pixel a block, nonzero but not 1
+    mask[3, :8] = 0.0
+    mask[3, :8:2] = 1.0                               # half of each block's rows: on_count = s^2 / 2
+    cfg = TC.RenderConfig(**dict(DRAFT, shadow_resolution_scale=scale))
+    got_d, got_m, _, _ = TS.scale_march_inputs(*T(depth, mask, lights), cfg)
+    on = (mask != 0).astype(np.float32)
+    count = sequential_block_sums(on, scale)
+    face = sequential_block_sums((depth * on).astype(np.float32), scale) / np.maximum(count, np.float32(1))
+    plain = sequential_block_sums(depth, scale) / np.float32(scale * scale)
+    want_d = (np.where(count > 0, face, plain) / np.float32(scale)).astype(np.float32)
+    np.testing.assert_array_equal(got_d.numpy().view(np.int32), want_d.view(np.int32))
+    np.testing.assert_array_equal(got_m.numpy(), (count >= scale * scale / 2.0).astype(np.float32))
+    r = 8 // scale
+    assert (got_m.numpy()[1, :r] == 1).all() and (got_m.numpy()[[0, 2], :r] == 0).all()
+    assert (got_m.numpy()[3, :r] == 1).all()          # half on face is the majority
+    single = depth[2, 1:8:scale, 1:64:scale] / np.float32(scale)
+    np.testing.assert_array_equal(got_d.numpy()[2, :r], single.astype(np.float32))
+
+
+@pytest.mark.parametrize("cull", [0, 64], ids=["cull_row", "cull_col64"])
+@pytest.mark.parametrize("scale", [2, 4])
+def test_stage_inputs_are_the_draft_march_inputs(scale, cull):
+    """stage_inputs, the plain version of the draft march's one staging pass:
+    its pooled values match JAX's scale_march_inputs (at that test's bar,
+    the mask and light exactly), its quads are the padding of the plain
+    pooled and full-resolution arrays, and its flags are cull_live_blocks
+    of each resolution's mask (row cull, or 8 x 64 at full resolution)."""
+    depth, mask, lights = scene(seed=14, size=128)
+    mask[0, :32] = 0.0                                # whole units off face at both resolutions
+    mask[1, :, 64:] = 0.0
+    mask[1, 40, 100] = 1.0                            # a unit with one face pixel
+    kw = dict(DRAFT, img_height=128, img_width=128, shadow_resolution_scale=scale,
+              shadow_mask_cull=True, shadow_col_chunk=cull)
+    jcfg, tcfg = cfgs(**kw)
+    want = JS.scale_march_inputs(jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights), jcfg)
+    st = TS.stage_inputs(*T(depth, mask, lights), tcfg)
+    m_depth, m_mask, m_light, m_cfg = TS.scale_march_inputs(*T(depth, mask, lights), tcfg)
+    assert np.abs(st.quad[:, 1:, 1:, 0].numpy() - np.asarray(want[0])).max() <= 1e-6 * np.abs(depth).max()
+    np.testing.assert_array_equal(st.quad[:, 1:, 1:, 1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(st.light.numpy(), np.asarray(want[2]))
+    assert torch.equal(st.quad, TS.pad_quad(m_depth, m_mask)) and torch.equal(st.light, m_light)
+    assert torch.equal(st.full, TS.pad_quad(*T(depth, mask)))
+    assert st.quad.shape == (4, 128 // scale + 1, 128 // scale + 1, 2) and st.full.shape == (4, 129, 129, 2)
+    low = TS.cull_live_blocks(m_mask, TS.effective_col_chunk(m_cfg))
+    full = TS.cull_live_blocks(torch.from_numpy(mask), TS.effective_col_chunk(tcfg))
+    assert st.flags.dtype == st.full_flags.dtype == torch.uint8
+    assert torch.equal(st.flags.bool(), low) and torch.equal(st.full_flags.bool(), full)
+    assert not full[0, :4].any()
+    if cull:  # the right half's units are off face, but for the one holding a single face pixel
+        assert bool(full[1, 5, 1]) and not full[1, 4, 1]
+    # Without the cull there are no flags.
+    uncut = TS.stage_inputs(*T(depth, mask, lights), dataclasses.replace(tcfg, shadow_mask_cull=False))
+    assert uncut.flags is None and uncut.full_flags is None and torch.equal(uncut.quad, st.quad)
+
+
+@pytest.mark.parametrize("scale", [2, 4])
+def test_pool_march_inputs_reads_the_staged_quad(scale):
+    """pool_march_inputs, the draft pooling where another march takes the
+    pooled inputs: on the card it copies them out of the staging's quad with
+    unpad_quad, which on the plain staging gives scale_march_inputs' arrays
+    bit for bit, each contiguous (and inverts pad_quad); on CPU tensors it is
+    the plain pooling, at scale_march_inputs' bar against JAX's."""
+    depth, mask, lights = scene(seed=15, size=64)
+    jcfg, tcfg = cfgs(**dict(DRAFT, shadow_resolution_scale=scale))
+    want = TS.scale_march_inputs(*T(depth, mask, lights), tcfg)
+    got = TS.unpad_quad(TS.stage_inputs(*T(depth, mask, lights), tcfg).quad)
+    for g, w in zip(got, want[:2]):
+        assert g.is_contiguous() and g.shape == (4, 64 // scale, 64 // scale)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    back = TS.unpad_quad(TS.pad_quad(*T(depth, mask)))
+    assert torch.equal(back[0], torch.from_numpy(depth)) and torch.equal(back[1], torch.from_numpy(mask))
+    pooled = shadows_cuda.pool_march_inputs(*T(depth, mask, lights), tcfg)
+    assert all(torch.equal(a, b) for a, b in zip(pooled[:3], want[:3])) and pooled[3] == want[3]
+    j = JS.scale_march_inputs(jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights), jcfg)
+    assert np.abs(pooled[0].numpy() - np.asarray(j[0])).max() <= 1e-6 * np.abs(depth).max()
+    np.testing.assert_array_equal(pooled[1].numpy(), np.asarray(j[1]))
+
+
 @pytest.mark.parametrize("scale", [2, 4])
 def test_upscale_min_distance_matches_jax(scale):
     rng = np.random.default_rng(2)

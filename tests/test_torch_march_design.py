@@ -25,6 +25,13 @@ be checked here, on a numpy / PyTorch transcription of the kernel's steps:
     refine_min_distance_batch on the upsampled t* bit for bit, and, fed the
     JAX package's low-resolution winners, holds to its draft refine at the
     small draft shape of tests/test_torch_draft.py (its bars);
+  * march_grad's taps (the forward's quad and veto, the ceil tap taken as
+    the floor tap where xt or yt is an integer, the atomics' addresses from
+    the rounding adds' bits) are the plain march_vjp's taps, indices, veto
+    and position term, on hypothesis-drawn rays and at integer coordinates;
+  * K2's lanes: interleaved samples of the table, each lane's strict-< first
+    winner, combined on (norm^2, index), give the table's first winner,
+    ties included;
   * the in-kernel cull (each 8 x 32 block flags the cull units it meets from
     their mask) equals cull_live_blocks at column chunks 16, 32, 64 and the
     row.
@@ -127,10 +134,10 @@ def test_rounding_adds_are_floor_ceil_and_rint(name):
 
 
 def stage(depth: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The kernels' input staging: (B, H + 1, W + 1, 2), padded (y, x) holding
-    (depth, mask) at (max(y - 1, 0), max(x - 1, 0))."""
-    both = torch.stack((depth.float(), mask.float()), dim=1)
-    return F.pad(both, (1, 0, 1, 0), mode="replicate").permute(0, 2, 3, 1).contiguous()
+    """The kernels' input staging at full resolution, its plain version:
+    (B, H + 1, W + 1, 2), padded (y, x) holding (depth, mask != 0) at
+    (max(y - 1, 0), max(x - 1, 0))."""
+    return TS.pad_quad(depth, mask)
 
 
 U32 = 0xFFFFFFFF
@@ -141,14 +148,16 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32).long() & U32
 
 
-def kernel_sample_n2(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor):
-    """sample_n2 as csrc/march.cu evaluates it: (norm^2 or 1e30, one-hot taps off the quad, quad indices in range).
+def kernel_taps(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor) -> dict:
+    """sample_taps as csrc/march.cu evaluates it, for the march and march_grad alike.
 
     t is (1, C, 1, 1) or (B, C, H, W) in [0, 1]. Depth and mask are read
     from the staged array, four corners a sample: padded rows floor(yt) + 1
     and floor(yt) + 2, columns likewise, the first corner's index
     by * wp + bx + quad_bias modulo 2^32 (bx, by the bits of the rounding
-    adds, wp = W + 1).
+    adds, wp = W + 1). Returns the coordinates, the rounding adds, the
+    quad's (depth, mask) corners, the veto, the count of one-hot taps off the
+    quad and whether the quad's indices stay in range.
     """
     cfg, h, w = scene.cfg, scene.h, scene.w
     b = scene.depth_flat.shape[0]
@@ -159,8 +168,8 @@ def kernel_sample_n2(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor):
     yt = (half_h - sy) - TS.EPS
 
     bx0, by0 = round_add(xt, "down"), round_add(yt, "down")
-    x0, y0 = bx0 - ROUND, by0 - ROUND
-    x1, y1 = round_add(xt, "up") - ROUND, round_add(yt, "up") - ROUND
+    bx1, by1 = round_add(xt, "up"), round_add(yt, "up")
+    x0, y0, x1, y1 = bx0 - ROUND, by0 - ROUND, bx1 - ROUND, by1 - ROUND
     wp = w + 1
     quad_bias = ((1 - ROUND_BITS) * (wp + 1)) & U32
     i00 = (bits(by0) * wp + bits(bx0) + quad_bias) & U32
@@ -197,19 +206,26 @@ def kernel_sample_n2(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor):
         vtop = torch.where(m00 != 0, ux0, zero) + torch.where(m01 != 0, ux1, zero)
         vbot = torch.where(m10 != 0, ux0, zero) + torch.where(m11 != 0, ux1, zero)
         face = (vtop * uy0 + vbot * uy1) > 0.5
+    return dict(xt=xt, yt=yt, x0=x0, y0=y0, x1=x1, y1=y1, bx0=bx0, by0=by0, bx1=bx1, by1=by1,
+                d00=d00, d01=d01, d10=d10, d11=d11, face=face, off_quad=off_quad, in_range=in_range)
 
-    wx0, wx1 = x1 - xt, xt - x0
-    iu = d00 * wx0 + d01 * wx1
-    il = d10 * wx0 + d11 * wx1
-    d_interp = iu * (y1 - yt) + il * (yt - y0)
-    ba_x = (xt - half_w) - scene.xx
-    ba_y = (half_h - yt) - scene.yy
+
+def kernel_sample_n2(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor):
+    """sample_n2 as csrc/march.cu evaluates it: (norm^2 or 1e30, one-hot taps off the quad, quad indices in range)."""
+    k = kernel_taps(scene, mask, t)
+    xt, yt = k["xt"], k["yt"]
+    wx0, wx1 = k["x1"] - xt, xt - k["x0"]
+    iu = k["d00"] * wx0 + k["d01"] * wx1
+    il = k["d10"] * wx0 + k["d11"] * wx1
+    d_interp = iu * (k["y1"] - yt) + il * (yt - k["y0"])
+    ba_x = (xt - scene.cfg.half_w) - scene.xx
+    ba_y = (scene.cfg.half_h - yt) - scene.yy
     ba_z = d_interp - scene.depth_px
     cx = ba_y * scene.bc_z - ba_z * scene.bc_y
     cy = ba_z * scene.bc_x - ba_x * scene.bc_z
     cz = ba_x * scene.bc_y - ba_y * scene.bc_x
     n2 = cx * cx + cy * cy + cz * cz
-    return torch.where(face, n2, TS.OFF_FACE_N2), off_quad, in_range
+    return torch.where(k["face"], n2, TS.OFF_FACE_N2), k["off_quad"], k["in_range"]
 
 
 def draw_scene(seed: int, size: int, b: int = 3):
@@ -285,6 +301,195 @@ def test_quad_covers_the_first_column_and_row():
             got, off_quad, in_range = kernel_sample_n2(scene, mask, t)
             assert in_range and off_quad == 0
             assert torch.equal(got.view(torch.int32), scene.sample_n2(t).view(torch.int32))
+
+
+# --------------------------------------------------------------------------- march_grad's taps
+
+
+def kernel_grad_taps(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor) -> dict:
+    """march_grad_kernel's taps (csrc/march.cu pixel_grad): the forward's quad
+    and veto, with the ceil tap taken as the floor tap on an integer axis;
+    the taps' (H, W) addresses from the rounding adds' bits; the position
+    term's factors d(d_interp)/dxt and d(d_interp)/dyt as the kernel forms
+    them, and the x factor as the quad's columns alone would give it."""
+    k = kernel_taps(scene, mask, t)
+    w = scene.w
+    xint, yint = k["x1"] == k["x0"], k["y1"] == k["y0"]
+    d_ul = k["d00"]
+    d_ur = torch.where(xint, k["d00"], k["d01"])
+    d_ll = torch.where(yint, k["d00"], k["d10"])
+    d_lr = torch.where(xint, d_ll, torch.where(yint, k["d01"], k["d11"]))
+    ix0, ix1 = grid_int(k["bx0"]).clamp(min=0), grid_int(k["bx1"])
+    iy0, iy1 = grid_int(k["by0"]).clamp(min=0), grid_int(k["by1"])
+    wx0, wx1 = k["x1"] - k["xt"], k["xt"] - k["x0"]
+    wy0, wy1 = k["y1"] - k["yt"], k["yt"] - k["y0"]
+    iu, il = d_ul * wx0 + d_ur * wx1, d_ll * wx0 + d_lr * wx1
+    return dict(taps=(d_ul, d_ur, d_ll, d_lr), index=(iy0 * w + ix0, iy0 * w + ix1, iy1 * w + ix0, iy1 * w + ix1),
+                dx=(d_ur - d_ul) * wy0 + (d_lr - d_ll) * wy1, dy=il - iu, face=k["face"],
+                quad_dx=(k["d01"] - k["d00"]) * wy0 + (k["d11"] - k["d10"]) * wy1, xint=xint, integer=xint | yint)
+
+
+def plain_grad_taps(scene: TS._Scene, t: torch.Tensor) -> dict:
+    """What march_vjp (autograd of _Scene.sample_n2) differentiates: the
+    reference's clamped floor/ceil taps, their flat indices, the veto, and
+    autograd's d(d_interp)/dxt and d(d_interp)/dyt (floor and ceil pass none)."""
+    cfg, h, w = scene.cfg, scene.h, scene.w
+    xt = TS._fma(t, scene.diff_x, scene.xx) + cfg.half_w - TS.EPS
+    yt = (cfg.half_h - TS._fma(t, scene.diff_y, scene.yy)) - TS.EPS
+    x0, x1, y0, y1 = torch.floor(xt), torch.ceil(xt), torch.floor(yt), torch.ceil(yt)
+    dep = scene.depth_flat
+    taps = tuple(TS._gather(dep, iy, ix, h, w) for iy, ix in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)))
+    index = tuple((torch.clamp(iy, 0, h - 1).long() * w + torch.clamp(ix, 0, w - 1).long())
+                  for iy, ix in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)))
+    with torch.enable_grad():
+        xg, yg = xt.clone().requires_grad_(), yt.clone().requires_grad_()
+        iu = taps[0] * (x1 - xg) + taps[1] * (xg - x0)
+        il = taps[2] * (x1 - xg) + taps[3] * (xg - x0)
+        d_interp = iu * (y1 - yg) + il * (yg - y0)
+        dx, dy = torch.autograd.grad(d_interp.sum(), (xg, yg))
+    return dict(taps=taps, index=index, dx=dx, dy=dy, face=scene.sample_n2(t) < TS.OFF_FACE_N2)
+
+
+def assert_grad_taps_match(scene, mask, t):
+    got, want = kernel_grad_taps(scene, mask, t), plain_grad_taps(scene, t)
+    for g, w in zip(got["taps"], want["taps"]):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    for g, w in zip(got["index"], want["index"]):
+        assert torch.equal(g, w)
+    assert torch.equal(got["face"], want["face"])
+    # d/dyt is (il - iu) in both, bit for bit; d/dxt sums the same two
+    # products in another rounding, and is exactly 0 on both sides wherever
+    # xt is an integer.
+    assert torch.equal(got["dy"].view(torch.int32), want["dy"].view(torch.int32))
+    scale = want["taps"][0].abs().max().item()
+    torch.testing.assert_close(got["dx"], want["dx"], rtol=0.0, atol=4e-7 * scale)
+    return got, want
+
+
+@settings(max_examples=30, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 16), size=st.sampled_from([32, 64]),
+       kind=st.sampled_from(["border", "inside_integer", "far"]), veto=st.sampled_from(["onehot", "bilinear"]),
+       first=st.integers(0, 177), per_pixel=st.booleans())
+def test_march_grad_taps_are_the_plain_vjps(seed, size, kind, veto, first, per_pixel):
+    """march_grad's tap selection on hypothesis-drawn rays (lights on the
+    border, at integer points inside and far outside; integer spans stepped
+    by 0.005, and per-pixel t with its ends): the reference's taps, their
+    addresses, the veto and the position term of the plain march_vjp."""
+    rng = np.random.default_rng(seed)
+    depth, mask = draw_scene(seed, size)
+    light = torch.from_numpy(light_points(kind, size, rng))
+    scene = TS._Scene(depth, mask, light, TC.RenderConfig(img_height=size, img_width=size, shadow_mask_gather=veto))
+    if per_pixel:
+        t = torch.from_numpy(rng.uniform(0.0, 1.0, (3, 4, size, size)).astype(np.float32))
+        t[:, 0, ::7] = 0.0
+        t[:, 1, ::5] = 1.0
+    else:
+        t = torch.from_numpy((0.005 * np.arange(first, first + 24)).astype(np.float32)).view(1, -1, 1, 1)
+    assert_grad_taps_match(scene, mask, t)
+
+
+def integer_offsets(scene: TS._Scene, axis: str) -> torch.Tensor:
+    """A per-pixel t in [0, 1] (B, 1, H, W) that puts xt (or yt) on an integer
+    where one lies within 64 ulps of the solution for the integer nearest the
+    sample at t = 0.5; t = 0.5 elsewhere. The march meets such samples rarely
+    (one winner in ~16k pixels), so the test makes them."""
+    cfg = scene.cfg
+    diff, base, half = ((scene.diff_x, scene.xx, cfg.half_w) if axis == "x" else (scene.diff_y, scene.yy, cfg.half_h))
+    sign = 1.0 if axis == "x" else -1.0
+    mid = sign * TS._fma(torch.full_like(diff, 0.5), diff, base) + half - TS.EPS
+    target = (torch.round(mid).double() - half + TS.EPS) * sign  # the s coordinate that lands on it
+    t0 = ((target - base.double()) / diff.double()).clamp(0.0, 1.0).float()
+    best = torch.full_like(t0, 0.5)
+    cand = t0
+    for _ in range(64):
+        for c in (cand, t0 - (cand - t0)):
+            c = c.clamp(0.0, 1.0)
+            v = sign * TS._fma(c, diff, base) + half - TS.EPS
+            best = torch.where((v == torch.floor(v)) & (best == 0.5), c, best)
+        cand = torch.nextafter(cand, torch.tensor(2.0))
+    return best
+
+
+def test_march_grad_takes_the_floor_tap_at_integer_coordinates():
+    """The trap at integer coordinates, and the first row and column: where
+    xt or yt is an integer the quad's second column (row) is another pixel,
+    and the position term read from it would differ from the reference's,
+    whose ceil tap is its floor tap. The kernel's selection equals the
+    reference there, in both vetoes; rays along the left and top border
+    (xt or yt in [-1e-4, 0)) read the pad."""
+    depth, mask = draw_scene(4, 32)
+    lights = {"inside_integer": [[3.0, -4.0, 20.0], [-7.0, 9.0, 30.0], [0.0, 0.0, 25.0]],
+              "far": [[2500.0, 1400.0, 3000.0], [-3000.0, -700.0, 2000.0], [400.0, -3800.0, 1500.0]],
+              "border": [[-16.0, 5.0, 30.0], [3.0, 16.0, 30.0], [-16.0, 16.0, 40.0]]}
+    for kind, pts in lights.items():
+        for veto in ("onehot", "bilinear"):
+            cfg = TC.RenderConfig(img_height=32, img_width=32, shadow_mask_gather=veto)
+            scene = TS._Scene(depth, mask, torch.tensor(pts, dtype=torch.float32), cfg)
+            if kind == "border":
+                t = torch.from_numpy(TS.sample_ts(cfg).astype(np.float32)).view(1, -1, 1, 1)
+                assert_grad_taps_match(scene, mask, t)
+                xt = TS._fma(t, scene.diff_x, scene.xx) + cfg.half_w - TS.EPS
+                yt = (cfg.half_h - TS._fma(t, scene.diff_y, scene.yy)) - TS.EPS
+                assert bool(((xt < 0) | (yt < 0)).any())
+                continue
+            for axis in ("x", "y"):
+                t = integer_offsets(scene, axis)
+                got, _ = assert_grad_taps_match(scene, mask, t)
+                on = got["integer"] & got["face"]
+                assert int(on.sum()) >= 100, int(on.sum())
+                on = got["xint"] & got["face"]
+                if axis == "x":
+                    assert bool((got["dx"][on] == 0).all())
+                    assert bool((got["quad_dx"][on] != 0).any())  # the quad alone would move the light gradient
+
+
+# --------------------------------------------------------------------------- K2's lanes
+
+
+def lane_first_winner(n2: np.ndarray, lanes: int):
+    """K2's sample split (csrc/march.cu march_kernel<kArgmin>): lane l of
+    `lanes` takes samples l, l + lanes, ... and their strict-< first winner
+    from inf (index: l), then the xor butterfly keeps the smaller norm^2, on
+    a tie the smaller index. (P, n) float32 -> per lane (best, index) after
+    the combine, (lanes, P) each."""
+    p, n = n2.shape
+    best = np.full((lanes, p), np.inf, np.float32)
+    idx = np.zeros((lanes, p), np.int64)
+    for lane in range(lanes):
+        idx[lane] = lane
+        for s in range(lane, n, lanes):
+            better = n2[:, s] < best[lane]
+            best[lane] = np.where(better, n2[:, s], best[lane])
+            idx[lane] = np.where(better, s, idx[lane])
+    off = lanes // 2
+    while off:
+        ob, oi = best[np.arange(lanes) ^ off], idx[np.arange(lanes) ^ off]
+        take = (ob < best) | ((ob == best) & (oi < idx))
+        best, idx = np.where(take, ob, best), np.where(take, oi, idx)
+        off //= 2
+    return best, idx
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(n=st.integers(1, 170), lanes=st.sampled_from([1, 2, 4, 8]), seed=st.integers(0, 2 ** 16),
+       pool=st.sampled_from([(1.0, 2.0), (0.5, 1.0, 1e30), (1e30,), (3.0, 3.0000002, 7.0)]))
+def test_lane_combine_is_the_first_winner(n, lanes, seed, pool):
+    """The lane combine, ties included (values drawn from a few floats, all
+    vetoed, tables shorter than the lanes): every lane ends on the
+    table's min and its first index, the plain march's strict-< winner."""
+    rng = np.random.default_rng(seed)
+    n2 = rng.choice(np.asarray(pool, np.float32), size=(16, n))
+    best, idx = lane_first_winner(n2, lanes)
+    assert (best == n2.min(axis=1)).all() and (idx == n2.argmin(axis=1)).all()
+    # The plain version's own first winner over the same values, in chunks as it marches.
+    want, s = torch.full((16,), float("inf")), torch.zeros(16, dtype=torch.long)
+    for start in range(0, n, 7):
+        chunk = torch.from_numpy(n2[:, start:start + 7])
+        cmin = chunk.amin(dim=1)
+        first = torch.where(chunk == cmin[:, None], torch.arange(start, start + chunk.shape[1]), n).amin(dim=1)
+        s = torch.where(cmin < want, first, s)
+        want = torch.minimum(want, cmin)
+    assert (idx == s.numpy()).all()
 
 
 # --------------------------------------------------------------------------- K3 around K2's winners

@@ -49,7 +49,7 @@ def k5(device, out_dir, tag, cfg, depth, mask, lights, cot):
     out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, m.world_group)
     (out * cot).sum().backward()
     launches = {k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()}
-    local_min, local_idx = shadows_cuda._argmin_march(depth, mask, lights, ts_local, cfg)
+    local_min, local_idx, _ = shadows_cuda._argmin(depth, mask, lights, ts_local, cfg)
     _, idx, table = shadows_cuda._first_winner(local_min, local_idx, ts_local, m.world_group)
     served, served_t = shadows_cuda.sharded_march(depth, mask, lights, cfg, ts_local, m.world_group,
                                                   return_argmin_t=True)
