@@ -38,6 +38,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
               draft pass: pooled and full quads, both flags, the light) bit
               for bit, and the draft march (staging, K2, K3) bit-equal to
               the plain draft path;
+              at the surface's other batch sizes, 1 and the sweep's 21
+              lights on one face: the staging, K1 and the draft march under
+              the single_image, lighting_transfer and multipie_eval presets
+              at every serving tier;
               march_grad at 256x256 under preset_target_lighting_train (160
               samples) and on the transfer grid (159 from 0.03), a seeded
               random cotangent, both vetoes, cull off/col-32, all three
@@ -55,20 +59,50 @@ Phases (each prints one JSON line; any failure exits non-zero):
               the march's device launches by torch.profiler), and the
               forward's min distances (bit for bit) and rendered image
               against the plain path on the same batch.
-  6. timing   each kernel's time per launch beside its bound and its plain
+  6. cudnn    the CNN under cuDNN's default algorithms and under the
+              deterministic ones that Relighter runs, strict and fast, at
+              batch 1, 8 and 64: ms (alternating windows), and the bytes of
+              a batch-1 visual pack that move from call to call under each.
+  7. cli      `python -m geomconsistentfr_torch.cli` in processes of its own
+              (every process of phases 7-10 runs the module as -m does, under
+              a wrapper that reports its kernel launches and clock at exit),
+              on seeded random weights saved as a .pth and the goldens
+              written as PNGs by the port's own writer: relight at strict
+              and draft (its six PNGs byte-equal to Relighter.forward_visuals
+              at batch 1 in this process), sweep (every tile equal to
+              relight_sweep_rendered_u8), transfer (the estimated light
+              equal to estimate_lighting's, the render byte-equal), config
+              and fix-border; seconds per command, start-up apart.
+  8. bench    `python -m geomconsistentfr_torch.bench` at strict, fast and
+              draft: its JSON lines, each value within 15% of e2e's img/s.
+  9. serve    `python -m geomconsistentfr_torch.serve --port 0 --warmup`: a
+              lone /relight per tier byte-equal to forward_visuals at batch
+              1, eight concurrent strict requests coalesced (within one
+              level), /estimate, /transfer, JPEG (or its 400), a bad tier;
+              then 16 client threads x 128 PNG requests at the default tier
+              (req/s, p50 and p99, /statz, the host's decode and encode ms
+              a request, the cores the server and the clients kept busy)
+              and SIGTERM during a burst: every admitted request answered.
+ 10. eval     `cli eval-multipie` on a synthetic Multi-PIE directory of 862
+              triples (the protocol's count) tiled from the goldens and their
+              mirror images: the dump byte-equal to
+              forward_visuals of the same batches, the printed metrics equal
+              to evaluate_output_dir's, images a second and the device's
+              share.
+ 11. timing   each kernel's time per launch beside its bound and its plain
               version's time, at the main paths' shapes, after holding the
               two outputs against each other; the draft staging alone; the
               whole draft march (staging, K2, K3: three device launches) as
               a row of its own; march_grad at batch 3 and 64 (one fill and
               the kernel); a one-element fill, the launch floor.
-  7. train    Trainer.run_epoch at full width (preset_target_lighting_train,
+  12. train   Trainer.run_epoch at full width (preset_target_lighting_train,
               batch 3, 256x256, SyntheticFaceData, seeded random G and D),
               six steps crossing a D update at steps 0 and 5: finite losses,
               G moving every step and D only on its update steps, one K2 and
               one march_grad launch per step and no K1; the first step against
               the same step on the CPU (plain path); step ms, img/s, how the
               step splits, and the card's idle share of a step.
-  8. parallel two ranks of torch.distributed (parallel/distributed.spawn,
+  13. parallel two ranks of torch.distributed (parallel/distributed.spawn,
               a file:// rendezvous): on one card they share it over gloo,
               with a card each they run NCCL. Each rank runs
               Relighter(parallel='samples') at batch 64, strict (K1 on its
@@ -447,6 +481,7 @@ def phase_march(goldens, dev):
     import torch
 
     from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.lighting_presets import LIGHT_PRESETS
     from geomconsistentfr_torch.ops import shadows as S
     from geomconsistentfr_torch.ops import shadows_cuda as K
 
@@ -521,6 +556,42 @@ def phase_march(goldens, dev):
                         runs["stage"] += 1
                         check_equal(K.draft_march(depth, mask, light, cfg), want, "march", f"draft march {tag}")
 
+    # The shapes the user-facing surface gives the kernels: batch 1 (a CLI
+    # relight or transfer, a lone server request) and the sweep's batch of
+    # every light preset on one face, under each preset the surface runs at
+    # each serving tier's own march settings: the staging, K1, and the draft
+    # march (staging, K2, K3) against their plain versions.
+    fx = dict(goldens)["ref_transfer_00104.npz"]
+    preset_units = np.asarray(list(LIGHT_PRESETS.values()), np.float32)
+    surface_runs = {}
+    for units in (unit[2:3], preset_units):
+        b = len(units)
+        d = torch.from_numpy(np.repeat(fx["depth"][0, 0][None], b, 0)).to(dev)
+        m = torch.from_numpy(np.repeat(fx["mask"][None], b, 0)).to(dev)
+        for preset in ("single_image", "lighting_transfer", "multipie_eval"):
+            for tier in ("strict", "high", "fast", "draft"):
+                cfg = C.apply_precision_tier(C.PRESETS[preset](), tier).render
+                lp = torch.from_numpy(units / np.linalg.norm(units, axis=1, keepdims=True)
+                                      * np.float32(cfg.light_distance)).to(dev)
+                tag = f"batch {b} {preset}/{tier}"
+                if tier == "draft":
+                    m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(d, m, lp, cfg)
+                    _, want_t = S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+                    want = S.refine_min_distance_batch(d, m, lp, S.upsample_tstar_nn(want_t, cfg), cfg)
+                    check(staged_equal(K._stage(d, m, lp, cfg, draft=True, flags=True), S.stage_inputs(d, m, lp, cfg)),
+                          "march", f"draft stage {tag}")
+                    worst["refine"] = max(worst["refine"], check_equal(K.draft_march(d, m, lp, cfg), want, "march",
+                                                                       f"draft march {tag}"))
+                else:
+                    check(staged_equal(K._stage(d, m, lp, cfg, flags=True), S.stage_inputs(d, m, lp, cfg)),
+                          "march", f"stage {tag}")
+                    got = K.ray_march_min_distance_cuda(d, m, lp, cfg)
+                    want = S.ray_march_min_distance_batch(d, m, lp, cfg)
+                    worst["march"] = max(worst["march"], check_equal(got, want, "march", f"K1 {tag}"))
+                torch.cuda.synchronize()
+                key = f"batch_{b}_{'draft_march' if tier == 'draft' else 'march'}"
+                surface_runs[key] = surface_runs.get(key, 0) + 1
+
     # march_grad: K2 forward and march_grad backward through the autograd
     # Function under the training presets, against the plain VJP at the
     # kernel's own winners. The lights inside the image sit off the pixel
@@ -556,7 +627,8 @@ def phase_march(goldens, dev):
                         grad_err[key] = max(grad_err[key], v)
                     runs["march_grad"] += 1
     worst["march_grad"] = grad_err["d_depth"]
-    emit("march", ok=True, configs=runs, batch=8, bit_equal=["march", "march_argmin", "refine", "stage"],
+    emit("march", ok=True, configs=runs, batch=8, surface_configs=surface_runs,
+         bit_equal=["march", "march_argmin", "refine", "stage"],
          size={"march": 256, "march_argmin": 64, "refine": 256, "march_grad": 256},
          samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8, "march_grad": [160, 159]},
          tstar_agreement=tstar_agree, max_abs_err=worst, march_grad_err=grad_err, march_grad_bars=GRAD_BARS)
@@ -763,6 +835,642 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
         del rl, out, depth
         torch.cuda.empty_cache()
     return launches, results, worst
+
+
+# The batch sizes the surface runs the CNN at: 1 (the CLI, a lone request),
+# 8 (the server's full batches, the evaluation) and 64 (the bench, e2e).
+CUDNN_BATCHES = (1, 8, 64)
+
+
+def phase_cudnn(goldens, dev, seed=0, rounds=6):
+    """What running the CNN under cuDNN's deterministic algorithms (as
+    Relighter._net does) costs and buys, at strict and fast: the CNN's ms at
+    each of CUDNN_BATCHES under cuDNN's defaults and under deterministic_convs
+    (CUDA events, windows alternating between the two), and how many bytes of
+    a batch-1 visual pack differ from the first call over four more calls
+    (a batch of 8 run between the second and the third) under each."""
+    import contextlib
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.layers import deterministic_convs
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark, "cudnn",
+          "cuDNN's global settings are not its defaults")
+    fx = dict(goldens)["ref_transfer_00104.npz"]
+    row = (fx["image"][None], fx["mask"][None], np.array([[0.6893, 0.3991, 0.6047]], np.float32),
+           np.array([0.5], np.float32))
+    settings = {"default": contextlib.nullcontext, "deterministic": deterministic_convs}
+    for tier in ("strict", "fast"):
+        started = time.perf_counter()
+        cfg = C.apply_precision_tier(C.preset_single_image(), tier)
+        rl = Relighter(cfg, RelightNet(cfg.model, generator=torch.Generator().manual_seed(seed)).state_dict())
+        cnn_ms = {}
+        for b in CUDNN_BATCHES:
+            x = torch.from_numpy(np.repeat(fx["image"][None], b, 0)).to(dev)
+            windows = {name: [] for name in settings}
+            with torch.no_grad():
+                for r in range(rounds):
+                    for name in list(settings)[:: 1 if r % 2 == 0 else -1]:
+                        with settings[name]():
+                            windows[name].append(cuda_time_ms(lambda: rl.model(x, rl.use_skips), 64 // b + 3))
+            cnn_ms[b] = {name: statistics.median(v) for name, v in windows.items()}
+            cnn_ms[b]["deterministic_over_default"] = statistics.median(
+                d / a for d, a in zip(windows["deterministic"], windows["default"]))
+        net, moved = rl._net, {}
+        for name in settings:
+            # Relighter._net with the setting's context in place of deterministic_convs.
+            rl._net = lambda images, _ctx=settings[name]: _run_in(_ctx, rl.model, images, rl.use_skips)
+            packs = []
+            for k in range(5):
+                if k == 2:
+                    rl.forward_visuals(*(np.repeat(a, 8, 0) for a in row))
+                packs.append(rl.forward_visuals(*row).cpu().numpy())
+            moved[name] = [int(np.count_nonzero(p != packs[0])) for p in packs[1:]]
+        rl._net = net
+        check(not any(moved["deterministic"]), "cudnn",
+              f"{tier}: under deterministic_convs a batch-1 pack moved by {moved['deterministic']} bytes")
+        emit("cudnn", ok=True, tier=tier, cnn_ms=cnn_ms, pack_bytes_moved=moved,
+             seconds=time.perf_counter() - started)
+        del rl
+        torch.cuda.empty_cache()
+
+
+def _run_in(ctx, fn, *args):
+    with ctx():
+        return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# The user-facing surface: the CLI, the bench, the server and the Multi-PIE
+# evaluation, each driven in processes of its own on seeded random weights.
+# ---------------------------------------------------------------------------
+
+# Runs `python -m MODULE ARGS` the way -m does (runpy.run_module, alter_sys)
+# and at exit writes the process's kernel launches (shadows_cuda.LAUNCHES,
+# zero at its start) and its clock to a JSON file: when the wrapper started,
+# when torch, the package and the CUDA context were up, and the exit.
+RUN_MODULE = r"""
+import atexit, json, runpy, sys, time
+t_start = time.time()
+report_path, module = sys.argv[1], sys.argv[2]
+import torch
+from geomconsistentfr_torch.ops import shadows_cuda
+torch.zeros(1, device="cuda")
+t_ready = time.time()
+
+def report():
+    with open(report_path, "w") as f:
+        json.dump({"launches": dict(shadows_cuda.LAUNCHES), "t_start": t_start, "t_ready": t_ready,
+                   "t_end": time.time()}, f)
+
+atexit.register(report)
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+BENCH_REL_BAR = 0.15  # the bench's img/s within 15% of the e2e phase's, tier by tier
+SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 128  # 2048 requests: 10 s or more of load
+SERVE_BODIES = 64  # distinct request bodies (lights), reused round robin
+EVAL_IMAGES, EVAL_BATCH = 862, 8  # the whole protocol's count of images
+SERVE_WARMUP_FORWARDS = 4 * 2  # every tier at the two batch sizes (1 and --max-batch 8)
+
+
+def module_cmd(report: Path, module: str, *args) -> list:
+    return [sys.executable, "-c", RUN_MODULE, str(report), module, *map(str, args)]
+
+
+def module_env(**extra) -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT), **extra)
+
+
+def run_module(tmp: Path, phase: str, tag: str, module: str, *args, env=None, timeout=300) -> dict:
+    """One `python -m module args` on the card: its stdout, launches, and seconds (wall, start-up, run)."""
+    report = tmp / f"{tag}.run.json"
+    t0 = time.time()
+    proc = subprocess.run(module_cmd(report, module, *args), cwd=ROOT, env=env or module_env(),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.time() - t0
+    check(proc.returncode == 0, phase, f"{tag}: {module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    rep = json.loads(report.read_text())
+    return dict(stdout=proc.stdout, stderr=proc.stderr, launches=rep["launches"], wall_s=wall,
+                startup_s=rep["t_ready"] - t0, run_s=rep["t_end"] - rep["t_ready"])
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def to_u8(x):
+    """floor(clip(x * 255)) as uint8, the port's write_image quantisation."""
+    import numpy as np
+
+    return np.clip(np.asarray(x, np.float32) * 255.0, 0, 255).astype(np.uint8)
+
+
+def write_png(path: Path, pixels) -> str:
+    """PNG bytes by the port's own writer (utils/png.py), whatever codecs the machine has."""
+    from geomconsistentfr_torch.utils.png import encode_png
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(encode_png(pixels))
+    return str(path)
+
+
+def surface_files(goldens, tmp: Path, seed: int = 0) -> dict:
+    """Seeded random transfer-variant weights as a .pth (the reference checkpoint's
+    variant), and every golden image and face mask as a PNG."""
+    import torch
+
+    from geomconsistentfr_torch.config import preset_lighting_transfer
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+
+    pth = tmp / "weights.pth"
+    model = RelightNet(preset_lighting_transfer().model, generator=torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), pth)
+    files = {"pth": str(pth)}
+    for name, fx in goldens:
+        stem = name[len("ref_"):-len(".npz")]
+        files[stem] = write_png(tmp / "golden" / f"{stem}.png", to_u8(fx["image"]))
+        files[stem + "_mask"] = write_png(tmp / "golden" / f"{stem}_mask.png", to_u8(fx["mask"]))
+    return files
+
+
+def surface_relighter(pth: str, preset: str, tier: str):
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.infer import load_relighter
+
+    return load_relighter(pth, cfg=C.apply_precision_tier(C.PRESETS[preset](), tier))
+
+
+def pack_files_equal(paths: dict, pack, phase: str, tag: str) -> None:
+    """The six PNGs of a visual pack decode to its bytes."""
+    import numpy as np
+
+    from geomconsistentfr_torch.infer import VISUAL_PACK_LAYOUT
+    from geomconsistentfr_torch.utils.io import imread
+
+    c = 0
+    for kind, width in VISUAL_PACK_LAYOUT:
+        want = pack[..., c : c + width] if width > 1 else pack[..., c]
+        got = imread(paths[kind])
+        diff = int(np.count_nonzero(got != want)) if got.shape == want.shape else -1
+        check(diff == 0, phase, f"{tag}: {kind} differs from forward_visuals in {diff} bytes")
+        c += width
+
+
+def add_launches(total: dict, n: dict) -> None:
+    for k, v in n.items():
+        total[k] += v
+
+
+def phase_cli(files, tmp: Path) -> dict:
+    """`python -m geomconsistentfr_torch.cli` relight (strict, draft), sweep, transfer, config and
+    fix-border, each in a process of its own, against the same calls in this process."""
+    import numpy as np
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.lighting_presets import DEFAULT_AMBIENT, LIGHT_PRESETS
+    from geomconsistentfr_torch.postprocess import fix_border_artifacts
+    from geomconsistentfr_torch.utils.io import imread, read_image, read_mask
+
+    started = time.perf_counter()
+    pth, image, mask, ref = files["pth"], files["transfer_00104"], files["transfer_00104_mask"], files["target_00295"]
+    img, msk = read_image(image), read_mask(mask)
+    launches = counts()
+    rows = {}
+
+    def cli(tag, *args):
+        r = run_module(tmp, "cli", tag, "geomconsistentfr_torch.cli", *args)
+        add_launches(launches, r["launches"])
+        rows[tag] = dict(wall_s=r["wall_s"], startup_s=r["startup_s"], run_s=r["run_s"], launches=r["launches"])
+        return r
+
+    light = np.asarray([LIGHT_PRESETS["multipie_14"]], np.float32)
+    ambient = np.asarray([DEFAULT_AMBIENT], np.float32)
+    for tier in ("strict", "draft"):
+        out = tmp / f"cli_relight_{tier}"
+        r = cli(f"relight_{tier}", "relight", "--checkpoint", pth, "--precision", tier, "--image", image,
+                "--mask", mask, "--light-preset", "multipie_14", "--out", out)
+        check(r["launches"] == TIER_LAUNCHES[tier], "cli", f"relight {tier} launched {r['launches']}")
+        report = last_json(r["stdout"])
+        pack = surface_relighter(pth, "single_image", tier).forward_visuals(img[None], msk[None], light,
+                                                                           ambient)[0].cpu().numpy()
+        pack_files_equal(report["outputs"], pack, "cli", f"relight {tier}")
+    composited = str(tmp / "cli_relight_strict" / report["composited"])
+
+    out = tmp / "cli_sweep"
+    r = cli("sweep", "sweep", "--checkpoint", pth, "--image", image, "--mask", mask, "--out", out)
+    check(r["launches"] == counts(stage=1, march=1), "cli", f"sweep launched {r['launches']}")
+    names = list(LIGHT_PRESETS)
+    lights = np.asarray([LIGHT_PRESETS[n] for n in names], np.float32)
+    tiles = surface_relighter(pth, "single_image", "high").relight_sweep_rendered_u8(
+        img, msk, lights, np.full((len(names),), DEFAULT_AMBIENT, np.float32)).cpu().numpy()
+    for i, name in enumerate(names):
+        check(np.array_equal(imread(str(out / f"transfer_00104_{name}.png")), tiles[i]), "cli",
+              f"sweep tile {name} differs from relight_sweep_rendered_u8")
+
+    out = tmp / "cli_transfer"
+    r = cli("transfer", "transfer", "--checkpoint", pth, "--out", out, image, ref, mask)
+    check(r["launches"] == counts(stage=1, march=1), "cli", f"transfer launched {r['launches']}")
+    report = last_json(r["stdout"])
+    rl = surface_relighter(pth, "lighting_transfer", "high")
+    unit, amb = rl.estimate_lighting(read_image(ref)[None])
+    check(report["estimated_direction"] == [float(v) for v in unit[0].cpu()]
+          and report["estimated_ambient"] == float(amb[0]), "cli",
+          f"transfer estimated {report['estimated_direction']}, {report['estimated_ambient']}; "
+          f"estimate_lighting gives {unit[0].tolist()}, {float(amb[0])}")
+    pack_files_equal(report["outputs"], rl.forward_visuals(img[None], msk[None], unit, amb)[0].cpu().numpy(),
+                     "cli", "transfer")
+
+    r = cli("config", "config", "--preset", "lighting_transfer")
+    want = json.loads(json.dumps(C.to_dict(C.PRESETS["lighting_transfer"]()), default=str))
+    check(json.loads(r["stdout"]) == want, "cli", "config printed another config than to_dict")
+
+    fixed = tmp / "cli_fixed.png"
+    r = cli("fix_border", "fix-border", "--image", composited, "--mask", mask, "--out-image", fixed)
+    want = fix_border_artifacts(imread(composited), read_mask(mask)).astype(np.uint8)
+    check(np.array_equal(imread(str(fixed)), want), "cli", "fix-border wrote other pixels than fix_border_artifacts")
+    check(not any(r["launches"].values()), "cli", f"fix-border launched {r['launches']}")
+    emit("cli", ok=True, launches=launches, seconds=time.perf_counter() - started, commands=rows)
+    return launches
+
+
+def phase_bench(tmp: Path, e2e: dict) -> dict:
+    """`python -m geomconsistentfr_torch.bench` at strict, fast and draft, each within
+    BENCH_REL_BAR of the e2e phase's img/s for the tier (both time Relighter.forward at batch 64)."""
+    launches = counts()
+    for tier in ("strict", "fast", "draft"):
+        started = time.perf_counter()
+        r = run_module(tmp, "bench", f"bench_{tier}", "geomconsistentfr_torch.bench",
+                       env=module_env(BENCH_PRECISION=tier))
+        line = last_json(r["stdout"])
+        print(json.dumps(line), flush=True)
+        check(line["metric"] == "relight_throughput" and line["tier"] == tier, "bench", f"bench printed {line}")
+        forwards = 1 + 5  # the warm-up and BENCH_ITERS
+        check(r["launches"] == {k: forwards * v for k, v in TIER_LAUNCHES[tier].items()}, "bench",
+              f"{tier}: launched {r['launches']} in {forwards} forwards")
+        add_launches(launches, r["launches"])
+        rel = line["value"] / e2e[tier]["img_per_s"] - 1.0
+        check(abs(rel) <= BENCH_REL_BAR, "bench",
+              f"{tier}: the bench's {line['value']} img/s is {rel:+.1%} from e2e's {e2e[tier]['img_per_s']}")
+        emit("bench", ok=True, tier=tier, img_per_s=line["value"], vs_baseline=line["vs_baseline"],
+             e2e_img_per_s=e2e[tier]["img_per_s"], rel_to_e2e=rel, launches=r["launches"],
+             seconds=time.perf_counter() - started, startup_s=r["startup_s"])
+    return launches
+
+
+class ServerProcess:
+    """`python -m geomconsistentfr_torch.serve` in a process of its own, on a free port."""
+
+    def __init__(self, tmp: Path, *args):
+        import threading
+
+        self.report = tmp / "serve.run.json"
+        self.stderr = open(tmp / "serve.stderr", "w+")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(module_cmd(self.report, "geomconsistentfr_torch.serve", *args), cwd=ROOT,
+                                     env=module_env(), stdout=subprocess.PIPE, stderr=self.stderr, text=True)
+        self.lines = []
+        watchdog = threading.Timer(300.0, self.proc.kill)  # a server that never serves is killed
+        watchdog.start()
+        while True:  # the warm-up line, then the serving line
+            line = self.proc.stdout.readline()
+            if not line:
+                watchdog.cancel()
+                self.fail("exited before it served")
+            self.lines.append(json.loads(line))
+            if "serving" in self.lines[-1]:
+                break
+        watchdog.cancel()
+        self.port = int(self.lines[-1]["serving"].rsplit(":", 1)[1])
+        self.ready_s = time.time() - self.t0
+
+    def fail(self, what: str):
+        self.stderr.seek(0)
+        raise PhaseError(f"serve: the server {what}: {self.stderr.read()[-3000:]}")
+
+    def request(self, method: str, path: str, body=None, timeout: float = 120.0):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=timeout)
+        try:
+            conn.request(method, path, body if body is None or isinstance(body, str) else json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.stderr.close()
+
+
+def cpu_seconds(pid: int) -> dict:
+    """The CPU seconds (user and system) of process `pid` and of this process."""
+    import os
+
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    t = os.times()
+    return dict(server=(int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK"), clients=t.user + t.system)
+
+
+def b64_file(path: str) -> str:
+    import base64
+
+    return base64.b64encode(Path(path).read_bytes()).decode()
+
+
+def phase_serve(files, tmp: Path, seed: int = 0) -> dict:
+    """The server on the card: lone requests per tier byte-equal to forward_visuals at
+    batch 1, a coalesced batch within one level, /estimate, /transfer, JPEG, a bad
+    tier; then the closed-loop load and a drain on SIGTERM."""
+    import base64
+    import signal
+    import threading
+
+    import numpy as np
+
+    from geomconsistentfr_torch import serve as SV
+    from geomconsistentfr_torch.utils.io import decode_image, imread
+
+    pth = files["pth"]
+    img, msk = imread(files["transfer_00104"]), imread(files["transfer_00104_mask"])
+    base = {"image": b64_file(files["transfer_00104"]), "mask": b64_file(files["transfer_00104_mask"])}
+    rng = np.random.default_rng(seed)
+    lights = rng.normal(size=(64, 3)).astype(np.float32)
+    lights[:, 2] = np.abs(lights[:, 2]) + 0.5
+
+    def unb64(s):
+        return decode_image(base64.b64decode(s))
+
+    def expected(rl, light, ambient=0.5):
+        pack = rl.forward_visuals(img[None], msk[None], np.asarray(light, np.float32)[None],
+                                  np.asarray([ambient], np.float32))[0].cpu().numpy()
+        return pack[..., 0:3], pack[..., 3]
+
+    started = time.perf_counter()
+    server = ServerProcess(tmp, "--checkpoint", pth, "--port", "0", "--warmup")
+    try:
+        check(server.lines[-1]["tier"] == "high" and server.lines[-1]["device"] == "cuda", "serve",
+              f"serving line {server.lines[-1]}")
+        relighters = {t: surface_relighter(pth, "single_image", t) for t in ("strict", "high", "fast", "draft")}
+        lone = {}
+        for k, tier in enumerate(relighters):
+            status, payload = server.request("POST", "/relight", {**base, "light": lights[k].tolist(),
+                                                                  "precision": tier})
+            check(status == 200, "serve", f"lone {tier} relight: {status} {payload}")
+            rendered, weights = expected(relighters[tier], lights[k])
+            for key, want in (("rendered", rendered), ("shadow_mask", weights)):
+                got = unb64(payload[key])
+                diff = int(np.count_nonzero(got != want)) if got.shape == want.shape else -1
+                check(diff == 0, "serve", f"lone {tier} request: {key} differs from forward_visuals in {diff} bytes")
+            lone[tier] = "byte-equal"
+
+        _, before = server.request("GET", "/statz")
+        barrier, got = threading.Barrier(8), {}
+
+        def strict_request(k):
+            barrier.wait()
+            got[k] = server.request("POST", "/relight", {**base, "light": lights[8 + k].tolist(),
+                                                         "precision": "strict"})
+
+        threads = [threading.Thread(target=strict_request, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        _, after = server.request("GET", "/statz")
+        batches = after["batches"] - before["batches"]
+        check(batches < 8 and after["batched_rows"] - before["batched_rows"] == 8, "serve",
+              f"8 concurrent strict requests ran in {batches} batches")
+        worst = 0
+        for k in range(8):
+            status, payload = got[k]
+            check(status == 200, "serve", f"coalesced strict request {k}: {status} {payload}")
+            rendered, weights = expected(relighters["strict"], lights[8 + k])
+            worst = max(worst, int(np.abs(unb64(payload["rendered"]).astype(np.int16) - rendered).max()),
+                        int(np.abs(unb64(payload["shadow_mask"]).astype(np.int16) - weights).max()))
+        check(worst <= 1, "serve", f"a coalesced strict row is {worst} levels from forward_visuals at batch 1")
+
+        status, est = server.request("POST", "/estimate", {"image": base["image"]})
+        unit, amb = relighters["high"].estimate_lighting(img[None])
+        check(status == 200 and est["direction"] == [float(v) for v in unit[0].cpu()]
+              and est["ambient"] == float(amb[0]), "serve", f"/estimate {status} {est}")
+        ref = imread(files["target_00295"])
+        status, tr = server.request("POST", "/transfer", {**base, "reference": b64_file(files["target_00295"])})
+        unit, amb = relighters["high"].estimate_lighting(ref[None])
+        check(status == 200 and tr["direction"] == [float(v) for v in unit[0].cpu()], "serve",
+              f"/transfer {status}: {tr.get('direction')} against {unit[0].tolist()}")
+        rendered, _ = expected(relighters["high"], unit[0].cpu().numpy(), float(amb[0]))
+        check(np.array_equal(unb64(tr["rendered"]), rendered), "serve", "/transfer's render differs")
+        status, jpeg = server.request("POST", "/relight", {**base, "light": lights[0].tolist(), "format": "jpeg"})
+        if status == 200:
+            check(base64.b64decode(jpeg["rendered"])[:2] == b"\xff\xd8", "serve", "the JPEG reply is not a JPEG")
+            jpeg_result = "jpeg"
+        else:
+            check(status == 400 and "no JPEG encoder" in jpeg.get("error", ""), "serve", f"JPEG: {status} {jpeg}")
+            jpeg_result = f"400: {jpeg['error']}"
+        status, bad = server.request("POST", "/relight", {**base, "light": [0, 0, 1], "precision": "best"})
+        check(status == 400 and "unknown precision" in bad["error"], "serve", f"bad tier: {status} {bad}")
+
+        # Closed-loop load at the default tier: bodies built beforehand.
+        bodies = [json.dumps({**base, "light": lights[k].tolist()}) for k in range(SERVE_BODIES)]
+        latencies, statuses, lock = [], [], threading.Lock()
+
+        def client(c):
+            mine = []
+            for j in range(SERVE_PER_CLIENT):
+                t = time.perf_counter()
+                status, _ = server.request("POST", "/relight", bodies[(c * SERVE_PER_CLIENT + j) % SERVE_BODIES])
+                mine.append((status, time.perf_counter() - t))
+            with lock:
+                statuses.extend(s for s, _ in mine)
+                latencies.extend(dt for _, dt in mine)
+
+        _, s0 = server.request("GET", "/statz")
+        cpu0 = cpu_seconds(server.proc.pid)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        cpu1 = cpu_seconds(server.proc.pid)
+        # The cores the server and this process (the clients) kept busy.
+        cores = {k: (cpu1[k] - cpu0[k]) / wall for k in cpu0}
+        _, s1 = server.request("GET", "/statz")
+        n = SERVE_CLIENTS * SERVE_PER_CLIENT
+        check(statuses == [200] * n, "serve", f"load: statuses {sorted(set(statuses))}, {len(statuses)} of {n}")
+        delta = {k: s1[k] - s0[k] for k in ("batches", "batched_rows", "padded_rows", "device_seconds",
+                                            "pipelined_batches", "errors")}
+        check(delta["batched_rows"] == n and delta["errors"] == 0, "serve", f"load: statz moved by {delta}")
+
+        # The host's codec per request, in this process: what a handler does.
+        rendered, weights = expected(relighters["high"], lights[0])
+        reps = 10
+        t = time.perf_counter()
+        for _ in range(reps):
+            SV._decode_image(base["image"], 256)
+            SV._decode_image(base["mask"], 256)
+        decode_ms = (time.perf_counter() - t) / reps * 1e3
+        t = time.perf_counter()
+        for _ in range(reps):
+            SV._encode_image(rendered)
+            SV._encode_image(weights)
+        encode_ms = (time.perf_counter() - t) / reps * 1e3
+        # What holds the worker: one batch of 8 at the default tier, back to
+        # back from one thread (CUDA events), against the kernels' own time.
+        b8 = (np.repeat(img[None], 8, 0), np.repeat(msk[None], 8, 0), lights[:8], np.full((8,), 0.5, np.float32))
+        b8_ms = cuda_time_ms(lambda: relighters["high"].forward_visuals(*b8), 8, windows=3)
+        b8_busy_ms = device_busy_ms(lambda: relighters["high"].forward_visuals(*b8), 8)
+        lat = np.asarray(latencies) * 1e3
+        load = dict(clients=SERVE_CLIENTS, requests=n, wall_s=wall, req_per_s=n / wall,
+                    p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+                    mean_ms=float(lat.mean()), statz=delta, mean_batch_rows=delta["batched_rows"] / delta["batches"],
+                    decode_ms_per_request=decode_ms, encode_ms_per_request=encode_ms,
+                    batch8_span_ms=delta["device_seconds"] / delta["batches"] * 1e3, batch8_back_to_back_ms=b8_ms,
+                    batch8_device_busy_ms=b8_busy_ms, cores_busy=cores,
+                    share_of_wall={"decode": n * decode_ms / 1e3 / wall, "device": delta["device_seconds"] / wall,
+                                   "encode": n * encode_ms / 1e3 / wall})
+
+        # The drain: a burst in flight, then SIGTERM. Every request the worker
+        # admitted is answered; the rest were refused at the socket.
+        _, s2 = server.request("GET", "/statz")
+        results, lock, first = [], threading.Lock(), threading.Event()
+
+        def burst(k):
+            try:
+                status, _ = server.request("POST", "/relight", bodies[k])
+            except OSError as e:  # refused or reset after the listener closed
+                status = type(e).__name__
+            with lock:
+                results.append((status, time.perf_counter()))
+            first.set()
+
+        threads = [threading.Thread(target=burst, args=(k,)) for k in range(24)]
+        for t in threads:
+            t.start()
+        first.wait(timeout=120)  # the server is answering the burst: signal it now
+        t_sig = time.perf_counter()
+        server.proc.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(timeout=120)
+        out, _ = server.proc.communicate(timeout=120)
+        final = last_json(out)
+        answered = sum(1 for s, _ in results if s == 200)
+        admitted = final["stats"]["relight_requests"] - s2["relight_requests"]
+        in_flight = sum(1 for s, t in results if s == 200 and t > t_sig)
+        check(server.proc.returncode == 0 and final["drained"], "serve",
+              f"drain: exit {server.proc.returncode}, {final}")
+        check(answered == admitted and in_flight > 0, "serve",
+              f"drain: {answered} answered, {admitted} admitted, {in_flight} answered after SIGTERM")
+        launches = json.loads(server.report.read_text())["launches"]
+    finally:
+        server.close()
+    forwards = SERVE_WARMUP_FORWARDS + final["stats"]["batches"]
+    check(launches["stage"] == forwards and launches["march"] + launches["march_argmin"] == forwards
+          and launches["refine"] == launches["march_argmin"] == 2 + 1, "serve",
+          f"launched {launches} in {forwards} forwards (3 of them draft)")
+    emit("serve", ok=True, launches=launches, seconds=time.perf_counter() - started, ready_s=server.ready_s,
+         warmup_s=server.lines[0]["warmup_seconds"],
+         lone=lone, coalesced=dict(batches=batches, max_level_diff=worst), jpeg=jpeg_result, load=load,
+         drain=dict(burst=len(results), answered=answered, admitted=admitted, answered_after_sigterm=in_flight,
+                    refused=len(results) - answered))
+    return launches
+
+
+def phase_eval(goldens, files, tmp: Path) -> dict:
+    """`cli eval-multipie` over a synthetic Multi-PIE directory of EVAL_IMAGES triples made from the goldens."""
+    import numpy as np
+    import scipy.io
+
+    from geomconsistentfr_torch.lighting_presets import LIGHT_PRESETS, MULTIPIE_FLASH_ORDER
+    from geomconsistentfr_torch.metrics.eval_multipie import evaluate_output_dir
+    from geomconsistentfr_torch.utils.io import read_image_u8, read_mask_u8
+    from geomconsistentfr_torch.utils.png import encode_png
+
+    started = time.perf_counter()
+    root = tmp / "multipie"
+    dirs = [root / d for d in ("input_images_MP_18_lightings", "groundtruth_images_MP_18_lightings",
+                               "MP_depth_masks_fill_nose")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    scipy.io.savemat(root / "MP_lighting_directions.mat",
+                     {"lighting_directions": np.asarray([LIGHT_PRESETS[n] for n in MULTIPIE_FLASH_ORDER])})
+    # The goldens tiled, each also mirrored: twenty distinct triples, encoded
+    # once by the port's own writer; image i takes triple i % 20 and Multi-PIE
+    # light i % 18 + 1.
+    variants = []
+    for flip in (False, True):
+        for _, fx in goldens:
+            f = (lambda a: a[:, ::-1]) if flip else (lambda a: a)
+            variants.append([encode_png(to_u8(f(a))) for a in
+                             (fx["image"], fx["rendered"][0].transpose(1, 2, 0), fx["mask"])])
+    for i in range(EVAL_IMAGES):
+        image, gt, mask = variants[i % len(variants)]
+        (dirs[0] / f"{i:03d}.png").write_bytes(image)
+        (dirs[1] / f"{i:03d}_{i % 18 + 1}.png").write_bytes(gt)
+        (dirs[2] / f"{i:03d}.png").write_bytes(mask)
+    out = tmp / "eval_dump"
+    r = run_module(tmp, "eval", "eval", "geomconsistentfr_torch.cli", "eval-multipie", "--checkpoint", files["pth"],
+                   "--data-root", root, "--batch-size", EVAL_BATCH, "--out", out, timeout=900)
+    metrics = last_json(r["stdout"])
+    check(metrics.pop("num_inferred") == EVAL_IMAGES, "eval", f"eval-multipie printed {metrics}")
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    check(r["launches"] == counts(stage=batches, march=batches), "eval",
+          f"launched {r['launches']} in {batches} batches")
+    t = time.perf_counter()
+    recomputed = evaluate_output_dir(str(out), str(dirs[1]), str(dirs[2]))
+    score_s = time.perf_counter() - t
+    check(metrics == recomputed, "eval", f"printed {metrics}, recomputed {recomputed}")
+
+    # The dump against forward_visuals of the same batches (the tail padded
+    # with its last image, as run_inference pads it).
+    rl = surface_relighter(files["pth"], "multipie_eval", "high")
+    directions = scipy.io.loadmat(root / "MP_lighting_directions.mat")["lighting_directions"]
+    for start in range(0, EVAL_IMAGES, EVAL_BATCH):
+        idx = [min(i, EVAL_IMAGES - 1) for i in range(start, start + EVAL_BATCH)]
+        imgs = np.stack([read_image_u8(str(dirs[0] / f"{i:03d}.png")) for i in idx])
+        msks = np.stack([read_mask_u8(str(dirs[2] / f"{i:03d}.png")) for i in idx])
+        lights = np.asarray([directions[i % 18] for i in idx], np.float32)
+        pack = rl.forward_visuals(imgs, msks, target_light=lights).cpu().numpy()
+        for k, i in enumerate(range(start, min(start + EVAL_BATCH, EVAL_IMAGES))):
+            pack_files_equal({kind: str(out / f"{i:03d}_{kind}.png") for kind in
+                              ("rendered_image", "shadow_mask", "albedo", "depth", "shading", "surface_normals")},
+                             pack[k], "eval", f"image {i}")
+    # The card's busy time for one batch (torch.profiler), times the batches.
+    device_s = device_busy_ms(lambda: rl.forward_visuals(imgs, msks, target_light=lights), 4) / 1e3 * batches
+    emit("eval", ok=True, images=EVAL_IMAGES, batch=EVAL_BATCH, metrics=metrics, launches=r["launches"],
+         seconds=time.perf_counter() - started,
+         wall_s=r["wall_s"], startup_s=r["startup_s"], run_s=r["run_s"], img_per_s=EVAL_IMAGES / r["run_s"],
+         scoring_s=score_s, device_s=device_s, device_share=device_s / r["run_s"])
+    return r["launches"]
+
+
+def phase_surface(goldens, e2e: dict) -> dict:
+    """The cli, bench, serve and eval phases, in a temporary directory; their launches summed."""
+    import tempfile
+
+    launches = counts()
+    with tempfile.TemporaryDirectory(prefix="gcfr_surface_") as d:
+        tmp = Path(d)
+        files = surface_files(goldens, tmp)
+        add_launches(launches, phase_cli(files, tmp))
+        add_launches(launches, phase_bench(tmp, e2e))
+        add_launches(launches, phase_serve(files, tmp))
+        add_launches(launches, phase_eval(goldens, files, tmp))
+    return launches
 
 
 # The card's first training step against the same step on the CPU (the plain
@@ -1687,6 +2395,8 @@ def main() -> int:
         march_err = phase_march(goldens, dev)
         phase_golden(goldens, dev)
         launches, e2e, e2e_err = phase_e2e(goldens, dev)
+        phase_cudnn(goldens, dev)
+        surface_launches = phase_surface(goldens, e2e)
         timing = phase_timing(goldens, dev)
         train_launches, train = phase_train(dev)
         parallel_launches, k5 = phase_parallel(dev)
@@ -1702,7 +2412,8 @@ def main() -> int:
     # strict tier, K2 and K3 at the draft tier (K2 at the training shape in
     # the train_* keys), march_grad at training, K5 at the training shape on
     # two ranks. `launches` sums the main paths' runs: one forward per tier,
-    # the six training steps, and the parallel phase's forwards and steps
+    # the user-facing surface's processes (cli, bench, serve, eval), the six
+    # training steps, and the parallel phase's forwards and steps
     # over both ranks.
     rows = {"march": (timing["strict"], [timing["fast"]], "geomconsistentfr_tpu/ops/shadows_pallas.py:64"),
             "march_argmin": (timing["draft_argmin"], [timing["train_argmin"]],
@@ -1714,7 +2425,8 @@ def main() -> int:
         max_err = max(march_err[name], e2e_err[name], t["max_abs_err"], *(o["max_abs_err"] for o in others))
         row = dict(
             name=name, route="cuda", source="geomconsistentfr_torch/csrc/march.cu", replaces=replaces,
-            launches=launches[name] + train_launches[name] + parallel_launches[name], max_abs_err=max_err,
+            launches=launches[name] + surface_launches[name] + train_launches[name] + parallel_launches[name],
+            max_abs_err=max_err,
             ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
             kernel_ms=t["kernel_device_ms"],
@@ -1724,7 +2436,8 @@ def main() -> int:
             row.update(train_ms=k2["ms"], train_kernel_ms=k2["kernel_device_ms"], train_plain_ms=k2["plain_ms"],
                        train_bound_ms=k2["bound_ms"],
                        # the staging pass that feeds the draft march (K2 and K3), and every march
-                       stage_launches=launches["stage"] + train_launches["stage"] + parallel_launches["stage"],
+                       stage_launches=launches["stage"] + surface_launches["stage"] + train_launches["stage"]
+                       + parallel_launches["stage"],
                        draft_stage_ms=st["ms"], draft_stage_kernel_ms=st["kernel_device_ms"],
                        draft_stage_plain_ms=st["plain_ms"], draft_stage_bound_ms=st["bound_ms"],
                        draft_stage_bound_by=st["bound_by"],

@@ -34,7 +34,8 @@ Reference provenance (paths relative to the reference repo):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Renderer
@@ -422,3 +423,43 @@ def apply_precision_tier(cfg: "PipelineConfig", tier: str) -> "PipelineConfig":
             shadow_col_chunk=64 if tier == "draft" else 32,
         ),
     )
+
+
+# ---------------------------------------------------------------------------
+# Serialisation (the CLI's --config files; JAX config.py:615-651)
+# ---------------------------------------------------------------------------
+
+
+def to_dict(cfg: PipelineConfig) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def from_dict(data: dict, base: Optional[PipelineConfig] = None) -> PipelineConfig:
+    """Build a PipelineConfig from (possibly partial) nested dicts on top of `base`.
+
+    Unknown keys raise; lists become tuples for tuple-typed fields.
+    """
+
+    def merge(dc, overrides: dict):
+        fields = {f.name for f in dataclasses.fields(dc)}
+        kwargs = {}
+        for key, value in overrides.items():
+            if key not in fields:
+                raise KeyError(f"unknown config field: {type(dc).__name__}.{key}")
+            current = getattr(dc, key)
+            if dataclasses.is_dataclass(current) and isinstance(value, dict):
+                kwargs[key] = merge(current, value)
+            elif isinstance(current, tuple) and isinstance(value, (list, tuple)):
+                kwargs[key] = tuple(value)
+            else:
+                kwargs[key] = value
+        return dataclasses.replace(dc, **kwargs)
+
+    return merge(base or PipelineConfig(), data)
+
+
+def load_config(path: str, preset: Optional[str] = None) -> PipelineConfig:
+    """A JSON config file: full or partial overrides on top of a preset."""
+    with open(path) as f:
+        data = json.load(f)
+    return from_dict(data, PRESETS[preset]() if preset else PipelineConfig())

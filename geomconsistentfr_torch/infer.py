@@ -32,11 +32,12 @@ what the ranks split:
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
+import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from geomconsistentfr_torch.config import PipelineConfig, preset_lighting_transfer
@@ -94,6 +95,48 @@ def pack_visuals(outputs: RenderOutputs, masks: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return _to_unit(packed)
+
+
+class AsyncFetch:
+    """A device result's copy to the host, started at once and waited for later.
+
+    The counterpart of JAX's `copy_to_host_async` for the pipelined server and
+    the evaluation's dump. Create it before dispatching the work (on CUDA it
+    records an event there), pass the result to `copy`, and call `wait()`
+    when the host needs it. On CUDA, `copy` puts the tensor into pinned host
+    memory with `non_blocking=True` on the current stream and records a
+    second event, so the host returns at once and can assemble the next
+    batch while the card computes; `wait()` synchronises on that event and
+    gives the array and the device's seconds from the first event to the
+    copy's end. On the CPU the work has finished when `copy` is called, and
+    the seconds are the host's clock around it.
+    """
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._t0 = time.monotonic()
+
+    def copy(self, x: torch.Tensor) -> "AsyncFetch":
+        if self._cuda:
+            self._host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self._host.copy_(x, non_blocking=True)
+            self._done = torch.cuda.Event(enable_timing=True)
+            self._done.record()
+        else:
+            self._host = x
+            self._seconds = time.monotonic() - self._t0
+        return self
+
+    def wait(self) -> Tuple[np.ndarray, float]:
+        """(the result as a numpy array, the device's seconds)."""
+        if self._cuda:
+            self._done.synchronize()
+            return self._host.numpy(), self._start.elapsed_time(self._done) / 1e3
+        return self._host.numpy(), self._seconds
 
 
 class Relighter:
@@ -200,10 +243,13 @@ class Relighter:
         return out, masks
 
     def _net(self, images):
-        """RelightNet's forward; where ranks replicate it around a sharded
-        march, with cuDNN's deterministic algorithms, so that every rank
-        marches the same depth bits."""
-        with deterministic_convs() if self._march_fn is not None else contextlib.nullcontext():
+        """RelightNet's forward, with cuDNN's deterministic algorithms: in
+        float32 cuDNN's default choice adds in an order that changes from call
+        to call (on an H100 at batch 1, a few bytes of the uint8 visual pack
+        moved by one level between calls and between processes), and ranks
+        that replicate the CNN around a sharded march must march the same
+        depth bits."""
+        with deterministic_convs():
             return self.model(images, self.use_skips)
 
     @torch.no_grad()

@@ -730,3 +730,28 @@ def test_k5_backward_in_one_process(dev):
     assert (d.grad - want_d).abs().max().item() <= 1e-4 * want_d.abs().max().item()
     terms = light_grad_terms(depth, mask, light, t_star, g, cfg)
     assert bool(((lp.grad - want_l).abs().double() <= 1e-5 * terms).all()), (lp.grad - want_l, terms)
+
+
+@pytest.mark.parametrize("tier", ["strict", "fast"])
+def test_relighter_gives_the_same_bytes_from_call_to_call(dev, tier):
+    """Relighter runs its CNN under cuDNN's deterministic algorithms. Under
+    cuDNN's defaults the float32 CNN added in an order that changed from call
+    to call on an H100, and a few bytes of a batch-1 visual pack moved by one
+    level. Full width (RelightNet's channels at 256x256, where that showed),
+    seeded random weights; a batch of 8 runs between the calls, since cuDNN
+    picks its algorithm per shape."""
+    from pathlib import Path
+
+    from geomconsistentfr_torch.config import apply_precision_tier, preset_single_image
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+
+    fx = np.load(Path(__file__).parent / "golden" / "ref_transfer_00104.npz")
+    cfg = apply_precision_tier(preset_single_image(), tier)
+    rl = Relighter(cfg, RelightNet(cfg.model, generator=torch.Generator().manual_seed(0)).state_dict())
+    row = (fx["image"][None], fx["mask"][None], np.array([[0.6893, 0.3991, 0.6047]], np.float32),
+           np.array([0.5], np.float32))
+    first = rl.forward_visuals(*row).cpu().numpy()
+    for _ in range(3):
+        rl.forward_visuals(*(np.repeat(a, 8, 0) for a in row))
+        assert np.array_equal(rl.forward_visuals(*row).cpu().numpy(), first)

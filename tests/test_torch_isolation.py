@@ -1,4 +1,8 @@
-"""The port imports neither JAX nor the JAX package, and never falls back to the CPU."""
+"""The port imports neither JAX nor the JAX package, and never falls back to the CPU.
+
+The child process also blocks OpenCV, imageio and Pillow: without them the
+port's image files go through its own PNG codec.
+"""
 
 import ast
 import os
@@ -13,8 +17,9 @@ PORT_FILES = sorted((ROOT / "geomconsistentfr_torch").rglob("*.py")) + [ROOT / "
 FORBIDDEN = ("jax", "jaxlib", "flax", "geomconsistentfr_tpu")
 
 _CHILD = r"""
-import importlib, importlib.util, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "geomconsistentfr_tpu"):
+import importlib, importlib.util, pkgutil, sys, tempfile
+# Nor does the port need an image codec package: OpenCV, imageio, Pillow.
+for name in ("jax", "jaxlib", "flax", "geomconsistentfr_tpu", "cv2", "imageio", "PIL"):
     sys.modules[name] = None  # any import of them now raises ImportError
 import geomconsistentfr_torch
 for info in pkgutil.walk_packages(geomconsistentfr_torch.__path__, "geomconsistentfr_torch."):
@@ -48,6 +53,31 @@ except RuntimeError as e:
 else:
     raise AssertionError("Trainer without a device ran with no CUDA device")
 Trainer(preset_target_lighting_train(), device="cpu")
+
+# Image files through the port's own PNG codec.
+import os
+import numpy as np
+from geomconsistentfr_torch.utils import io as image_io
+
+tmp = tempfile.mkdtemp()
+pixels = np.random.default_rng(0).integers(0, 256, (32, 32, 3)).astype(np.uint8)
+image_io.write_image_u8(os.path.join(tmp, "x.png"), pixels)
+assert np.array_equal(image_io.read_image_u8(os.path.join(tmp, "x.png"), 32), pixels)
+assert image_io.read_mask_u8(os.path.join(tmp, "x.png"), 16).shape == (16, 16)
+
+# The CLI and the server refuse to fall back to the CPU.
+torch.save(state, os.path.join(tmp, "w.pth"))
+from geomconsistentfr_torch import cli, serve
+
+for main, argv in ((cli.main, ["relight", "--checkpoint", os.path.join(tmp, "w.pth"), "--image", "x.png",
+                                "--mask", "x.png", "--light-preset", "A00E45"]),
+                   (serve.main, ["--checkpoint", os.path.join(tmp, "w.pth"), "--port", "0"])):
+    try:
+        main(argv)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError(f"{main.__module__}.main without --device ran with no CUDA device")
 print("ISOLATED")
 """
 

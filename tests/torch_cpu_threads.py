@@ -11,10 +11,32 @@ afterwards, for two reasons:
     tests/torch_thread_warmup_repro.py shows this with plain torch.exp and
     torch.sqrt and none of the port's code. One warm-up pass makes that
     first call before a test compares anything.
+
+After each module it also sets glibc's mmap threshold back to its default
+of 128 KiB. glibc raises the threshold (up to 32 MiB) whenever it frees a
+mapped chunk, so after a module has freed large CPU tensors, buffers of
+that size come from per-thread arenas instead of mappings of their own.
+A later module in the same worker that serves from many threads then
+keeps the arenas' high water: tests/test_serve.py's soak, which bounds its
+RSS growth at 150 MB, grew by 153-213 MB after tests/test_torch_io.py or
+tests/test_torch_cli.py, by 25 MB with the threshold reset, by 16-93 MB
+alone. (Once set, the threshold stays fixed for the process.)
 """
+
+import ctypes
 
 import pytest
 import torch
+
+M_MMAP_THRESHOLD = -3  # glibc's mallopt parameter
+GLIBC_DEFAULT_MMAP_THRESHOLD = 128 * 1024
+
+
+def reset_mmap_threshold() -> None:
+    try:
+        ctypes.CDLL(None).mallopt(M_MMAP_THRESHOLD, GLIBC_DEFAULT_MMAP_THRESHOLD)
+    except (OSError, AttributeError):  # not glibc
+        pass
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -26,3 +48,4 @@ def one_warm_intra_op_thread():
     torch.sqrt(x)
     yield
     torch.set_num_threads(before)
+    reset_mmap_threshold()
