@@ -85,10 +85,40 @@ Phases (each prints one JSON line; any failure exits non-zero):
               and SIGTERM during a burst: every admitted request answered.
  10. eval     `cli eval-multipie` on a synthetic Multi-PIE directory of 862
               triples (the protocol's count) tiled from the goldens and their
-              mirror images: the dump byte-equal to
-              forward_visuals of the same batches, the printed metrics equal
-              to evaluate_output_dir's, images a second and the device's
-              share.
+              mirror images, scored with LPIPS (alex: a seeded trunk in
+              torchvision's layout and seeded heads in the LPIPS library's):
+              the dump byte-equal to forward_visuals of the same batches, the
+              printed metrics equal to evaluate_output_dir's, the LPIPS mean
+              of its first 16 triples (`--eval-only` in another process)
+              within 1e-6 of an LPIPSMetric's on the card here; images a
+              second and the scoring's, LPIPS's and the device's shares.
+     train_cli  `cli build-cache` of an MP_data tree of 512 SyntheticFaceData
+              samples at 256x256 (JPEGs by the port's encode_jpeg, .mat
+              files, PNG depth masks): its .npy files byte-equal to
+              build_cache here, its decoder named (and whether libjpeg is
+              on the machine); then `cli train` on that cache at full width
+              (preset_target_lighting_train, batch 3) with the set resident
+              on the card, two epochs of four batches, --profile and
+              --visualize-every 1: its launches (stage, K2 and march_grad a
+              step, K1 for each epoch's visuals), the Chrome traces naming
+              stage_kernel, march_kernel and march_grad_kernel, the visuals;
+              here, the resident batches bit-equal to the streamed ones; a
+              one-step epoch of another `cli train` within 1e-4 of the same
+              epoch here (the four-step epoch's means are reported: the
+              backward's atomics part them by more a few steps on); a
+              step's ms with the set resident against streamed.
+     lpips    LPIPSMetric (alex, vgg, squeeze) at 256x256, batch 1 and 8, on
+              the card against the CPU (1e-4 of the map's largest value), ms
+              a pair; `cli lpips-train` (a few steps) and `cli lpips-score`
+              (2afc and jnd) on synthetic BAPPS trees of 64 triplets at
+              64x64, the scores equal to this process's.
+     crop     a seeded S3FD (its face biases shifted so that a few boxes
+              pass) saved in face_alignment's keys; `cli crop --s3fd-weights`
+              on a 1024x1024 frame holding a golden face: the crop byte-equal
+              to crop_largest_face here; the heads on the card against the
+              CPU (1e-4 relative); S3FD ms a frame, the command's seconds.
+     visualize_lighting  `cli visualize-lighting`: the 21 presets' spheres
+              equal to lighting_sphere here.
  11. timing   each kernel's time per launch beside its bound and its plain
               version's time, at the main paths' shapes, after holding the
               two outputs against each other; the draft staging alone; the
@@ -1390,8 +1420,9 @@ def phase_serve(files, tmp: Path, seed: int = 0) -> dict:
     return launches
 
 
-def phase_eval(goldens, files, tmp: Path) -> dict:
-    """`cli eval-multipie` over a synthetic Multi-PIE directory of EVAL_IMAGES triples made from the goldens."""
+def phase_eval(goldens, files, tmp: Path, lpips_files: tuple) -> dict:
+    """`cli eval-multipie` over a synthetic Multi-PIE directory of EVAL_IMAGES triples made from the goldens,
+    scored with LPIPS (alex; a seeded trunk and heads in torchvision's and the library's layouts)."""
     import numpy as np
     import scipy.io
 
@@ -1423,10 +1454,14 @@ def phase_eval(goldens, files, tmp: Path) -> dict:
         (dirs[1] / f"{i:03d}_{i % 18 + 1}.png").write_bytes(gt)
         (dirs[2] / f"{i:03d}.png").write_bytes(mask)
     out = tmp / "eval_dump"
+    trunk, lin = lpips_files
     r = run_module(tmp, "eval", "eval", "geomconsistentfr_torch.cli", "eval-multipie", "--checkpoint", files["pth"],
-                   "--data-root", root, "--batch-size", EVAL_BATCH, "--out", out, timeout=900)
+                   "--data-root", root, "--batch-size", EVAL_BATCH, "--out", out, "--lpips-trunk", trunk,
+                   "--lpips-lin", lin, timeout=900)
     metrics = last_json(r["stdout"])
     check(metrics.pop("num_inferred") == EVAL_IMAGES, "eval", f"eval-multipie printed {metrics}")
+    lpips = {k: metrics.pop(k) for k in ("masked_lpips_mean", "masked_lpips_std")}
+    check(all(v == v and v >= 0 for v in lpips.values()), "eval", f"eval-multipie printed LPIPS {lpips}")
     batches = -(-EVAL_IMAGES // EVAL_BATCH)
     check(r["launches"] == counts(stage=batches, march=batches), "eval",
           f"launched {r['launches']} in {batches} batches")
@@ -1451,15 +1486,421 @@ def phase_eval(goldens, files, tmp: Path) -> dict:
                              pack[k], "eval", f"image {i}")
     # The card's busy time for one batch (torch.profiler), times the batches.
     device_s = device_busy_ms(lambda: rl.forward_visuals(imgs, msks, target_light=lights), 4) / 1e3 * batches
-    emit("eval", ok=True, images=EVAL_IMAGES, batch=EVAL_BATCH, metrics=metrics, launches=r["launches"],
+    sub = eval_lpips_subset(root, out, tmp, trunk, lin)
+    lpips_s = sub["lpips_ms_an_image"] / 1e3 * EVAL_IMAGES
+    emit("eval", ok=True, images=EVAL_IMAGES, batch=EVAL_BATCH, metrics=metrics, lpips=lpips, launches=r["launches"],
          seconds=time.perf_counter() - started,
          wall_s=r["wall_s"], startup_s=r["startup_s"], run_s=r["run_s"], img_per_s=EVAL_IMAGES / r["run_s"],
-         scoring_s=score_s, device_s=device_s, device_share=device_s / r["run_s"])
+         scoring_s=score_s, scoring_share=score_s / r["run_s"], lpips_s=lpips_s, lpips_share=lpips_s / r["run_s"],
+         device_s=device_s, device_share=device_s / r["run_s"], lpips_subset=sub)
     return r["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Training from the CLI and the secondary models: build-cache and train,
+# LPIPS (in the evaluation, alone, its 2AFC trainer and scorer), S3FD's crop
+# and the lighting spheres, each command in a process of its own.
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_SAMPLES = 512  # the MP_data tree build-cache packs, 256x256
+TRAIN_CLI_BATCHES = 4  # batches an epoch of `cli train`, two epochs
+TRAIN_CLI_TIMED_STEPS = 8  # steps a window when timing 'device' against 'stream'
+LPIPS_BAR = 1e-4  # LPIPS on the card vs the CPU, of the map's largest value
+LPIPS_EVAL_REL = 1e-6  # the CLI's LPIPS mean vs an in-process LPIPSMetric, relative
+LPIPS_EVAL_SUBSET = 16  # triples of that comparison
+BAPPS_TRIPLETS, BAPPS_SIZE = 64, 64  # the synthetic 2AFC / JND trees (BAPPS's load size)
+S3FD_BAR = 1e-4  # S3FD's heads on the card vs the CPU, of each head's largest value
+CROP_FRAME = 1024  # CelebA-HQ's original size
+
+
+def lpips_weight_files(tmp: Path, seed: int = 0) -> tuple:
+    """A seeded AlexNet trunk in torchvision's layout (features.N.*) and seeded non-negative
+    linear heads in the LPIPS library's layout (lin{i}.model.1.weight), as .pth files."""
+    import torch
+
+    from geomconsistentfr_torch.models.lpips import LPIPS
+
+    model = LPIPS("alex", generator=torch.Generator().manual_seed(seed))
+    trunk, lin = tmp / "alexnet_features.pth", tmp / "alex_lin.pth"
+    torch.save(model.trunk.state_dict(), trunk)
+    torch.save({k: v.abs() for k, v in model.state_dict().items() if k.startswith("lin")}, lin)
+    return str(trunk), str(lin)
+
+
+def write_mp_data(root: Path, n: int) -> dict:
+    """An MP_data tree (the reference's six directories) of n SyntheticFaceData samples at
+    256x256: face, albedo and face-mask JPEGs by the port's encode_jpeg, depth and light .mat
+    files by scipy.io.savemat, depth-mask PNGs by the port's writer."""
+    import numpy as np
+    import scipy.io
+
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+    from geomconsistentfr_torch.utils.io import encode_jpeg
+
+    dirs = {k: root / d for k, d in (("image", "CelebA-HQ_DFNRMVS_cropped"),
+                                    ("light", "lighting_directions_CelebAHQ_DFNRMVS"),
+                                    ("depth", "depth_maps_CelebA-HQ"), ("depth_mask", "depth_masks_CelebA-HQ_DFNRMVS"),
+                                    ("albedo", "CelebA-HQ_albedo_grayscale"), ("face", "CelebAHQ_face_masks"))}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    data = SyntheticFaceData(num_samples=n, size=256, seed=0)
+    t0 = time.perf_counter()
+    for i in range(n):
+        s = data.get_batch([i])
+        stem = f"{i:05d}"
+        (dirs["image"] / f"{stem}.jpg").write_bytes(encode_jpeg(to_u8(s["image"][0]), 95))
+        (dirs["albedo"] / f"{stem}.jpg").write_bytes(encode_jpeg(to_u8(s["albedo_gt"][0]), 95))
+        (dirs["face"] / f"{stem}.jpg").write_bytes(encode_jpeg(to_u8(s["face_mask"][0]), 95))
+        write_png(dirs["depth_mask"] / f"{stem}_depth.png", to_u8(s["depth_mask"][0]))
+        scipy.io.savemat(dirs["depth"] / f"{stem}_depth.mat", {"depth_img": s["depth_gt"][0]})
+        scipy.io.savemat(dirs["light"] / f"{stem}.jpg.mat", {"lighting_direction": s["light_gt"][0][None]})
+    return {"seconds": time.perf_counter() - t0}
+
+
+def libjpeg_here() -> dict:
+    """Whether this machine has libjpeg's header and library, and what the native loader built."""
+    import os
+
+    from geomconsistentfr_torch.data import native_loader
+
+    proc = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True)
+    return dict(jpeglib_h=os.path.exists("/usr/include/jpeglib.h"),
+                ldconfig_jpeg=[ln.strip() for ln in proc.stdout.splitlines() if "jpeg" in ln],
+                has_native_jpeg=native_loader.has_native_jpeg())
+
+
+def phase_train_cli(tmp: Path) -> dict:
+    """`cli build-cache` of a 512-sample MP_data tree, then `cli train` at full width with the
+    set resident on the card, traced and with visuals, against the same work in this process."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.data.celebahq import CelebAHQRelightingData, build_cache, jpeg_reader
+    from geomconsistentfr_torch.train import DeviceResidentBatches, Trainer
+
+    started = time.perf_counter()
+    jpeg = libjpeg_here()
+    print(json.dumps({"phase": "train_cli", "libjpeg": jpeg}), flush=True)
+    tree = write_mp_data(tmp / "MP_data", TRAIN_CLI_SAMPLES)
+    cache = tmp / "train_cache"
+    r = run_module(tmp, "train_cli", "build_cache", "geomconsistentfr_torch.cli", "build-cache",
+                   "--src", tmp / "MP_data", "--out", cache)
+    built = last_json(r["stdout"])
+    print(json.dumps({"phase": "train_cli", "tree_s": tree["seconds"], "build_cache": built}), flush=True)
+    check(built["num_samples"] == TRAIN_CLI_SAMPLES and built["decoder"] == jpeg_reader()[0], "train_cli",
+          f"build-cache printed {built}")
+    check(not any(r["launches"].values()), "train_cli", f"build-cache launched {r['launches']}")
+    build_cache(str(tmp / "MP_data"), str(tmp / "train_cache_here"))
+    for name in sorted(p.name for p in cache.iterdir()):
+        check((cache / name).read_bytes() == (tmp / "train_cache_here" / name).read_bytes(), "train_cli",
+              f"build-cache's {name} differs from build_cache in this process")
+
+    cfg_path = tmp / "train_cli.json"
+    cfg_path.write_text(json.dumps({"train": {"data_residency": "device", "batches_per_epoch": TRAIN_CLI_BATCHES}}))
+    out = tmp / "train_run"
+    r_train = run_module(tmp, "train_cli", "train", "geomconsistentfr_torch.cli", "train", "--data", cache,
+                         "--config", cfg_path, "--epochs", 2, "--profile", "--visualize-every", 1, "--out", out,
+                         timeout=600)
+    lines = [json.loads(x) for x in r_train["stdout"].strip().splitlines()]
+    print(json.dumps({"phase": "train_cli", "train_wall_s": r_train["wall_s"], "epochs": lines}), flush=True)
+    check([m["epoch"] for m in lines] == [0, 1], "train_cli", f"train printed {lines}")
+    steps = 2 * TRAIN_CLI_BATCHES
+    # Each step stages, marches (K2) and steps back (march_grad); each epoch's visuals march once (K1).
+    want = counts(stage=steps + 2, march_argmin=steps, march_grad=steps, march=2)
+    check(r_train["launches"] == want, "train_cli", f"train launched {r_train['launches']}, expected {want}")
+    traces = sorted((out / "profile").glob("*.json"))
+    check(len(traces) == 2, "train_cli", f"expected a trace an epoch, found {[p.name for p in traces]}")
+    trace_text = traces[0].read_text()
+    for kernel in ("stage_kernel", "march_kernel", "march_grad_kernel"):
+        check(kernel in trace_text, "train_cli", f"the trace does not name {kernel}")
+    index = out / "visuals" / "index.html"
+    pngs = sorted(str(p.relative_to(out)) for p in (out / "visuals").glob("epoch_*/*.png"))
+    check(index.exists() and len(pngs) == 10 and all(p.split("/", 1)[1] in index.read_text() for p in pngs),
+          "train_cli", f"visuals: index {index.exists()}, PNGs {pngs}")
+
+    # The same cache in this process: resident batches against streamed ones, bit for bit;
+    # the first epoch's losses against the CLI's; a step's time under each residency.
+    cfg = C.load_config(str(cfg_path), preset="target_lighting_train")
+    data = CelebAHQRelightingData(str(cache))
+    trainers = {res: Trainer(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_residency=res)),
+                             data, workdir=str(tmp / f"train_here_{res}")) for res in ("device", "stream")}
+    check(isinstance(trainers["device"]._resident(), DeviceResidentBatches), "train_cli", "the set is not resident")
+    for epoch in (0, 1):
+        got = trainers["device"]._batches(np.random.default_rng([cfg.train.seed, epoch]), 0)
+        want_b = trainers["stream"]._batches(np.random.default_rng([cfg.train.seed, epoch]), 0)
+        for i, (g, w) in enumerate(zip(got, want_b)):
+            for k in w:
+                check(g[k].is_cuda and torch.equal(g[k], w[k]), "train_cli",
+                      f"epoch {epoch} batch {i}: resident {k} differs from the streamed one")
+
+    def rel_to(got: dict, want: dict) -> float:
+        return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want if k not in ("epoch", "seconds"))
+
+    # The four-step epoch's means are reported, not held: march_grad's atomics and cuDNN's
+    # backward add in no fixed order, and at lr 1e-4 the GAN's trajectory amplifies the last
+    # bits of one step into percents a few steps on (tests/test_torch_train.py's docstring).
+    # What is held is a one-step epoch (its losses precede any update) from another `cli train`.
+    _, here4 = trainers["stream"].run_epoch(trainers["stream"].init_or_resume(), 0)
+    one = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batches_per_epoch=1))
+    cfg_path.write_text(json.dumps({"train": {"data_residency": "device", "batches_per_epoch": 1}}))
+    r_one = run_module(tmp, "train_cli", "train_one_step", "geomconsistentfr_torch.cli", "train", "--data", cache,
+                       "--config", cfg_path, "--epochs", 1, "--out", tmp / "train_run_one")
+    check(r_one["launches"] == counts(stage=1, march_argmin=1, march_grad=1), "train_cli",
+          f"a one-step epoch launched {r_one['launches']}")
+    ref = Trainer(dataclasses.replace(one, train=dataclasses.replace(one.train, data_residency="stream")), data,
+                  workdir=str(tmp / "train_here_one"))
+    _, here1 = ref.run_epoch(ref.init_or_resume(), 0)
+    rel = rel_to(last_json(r_one["stdout"]), here1)
+    check(rel <= TRAIN_BARS["loss_rel"], "train_cli", f"the CLI's first-step losses are {rel:.3g} from this process's")
+
+    runs = {}  # residency -> (trainer, state, ms a step of each timed window)
+    for res in ("device", "stream"):
+        tcfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_residency=res,
+                                                                  batches_per_epoch=TRAIN_CLI_TIMED_STEPS))
+        trainer = Trainer(tcfg, data, workdir=str(tmp / f"train_timed_{res}"))
+        runs[res] = (trainer, trainer.init_or_resume(), [])
+    for rnd in range(5):  # alternating windows; the first of each is a warm-up
+        for res in (("device", "stream") if rnd % 2 == 0 else ("stream", "device")):
+            trainer, st, ms = runs[res]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run_epoch(st, 0)
+            torch.cuda.synchronize()
+            if rnd:
+                ms.append((time.perf_counter() - t0) / TRAIN_CLI_TIMED_STEPS * 1e3)
+    step_ms = {res: statistics.median(ms) for res, (_, _, ms) in runs.items()}
+    emit("train_cli", ok=True, samples=TRAIN_CLI_SAMPLES, tree_s=tree["seconds"], decoder=built["decoder"],
+         libjpeg=jpeg, build_cache_s=built["seconds"], build_cache_samples_per_s=built["samples_per_s"],
+         build_cache_wall_s=r["wall_s"], build_cache_startup_s=r["startup_s"],
+         train_wall_s=r_train["wall_s"], train_startup_s=r_train["startup_s"], train_run_s=r_train["run_s"],
+         epochs=lines, first_step_rel_to_here=rel, four_step_epoch_rel_to_here=rel_to(lines[0], here4),
+         launches=r_train["launches"], one_step_launches=r_one["launches"], traces=[p.name for p in traces],
+         trace_bytes=sum(p.stat().st_size for p in traces), visuals=pngs,
+         step_ms_device=step_ms["device"], step_ms_stream=step_ms["stream"],
+         step_device_over_stream=step_ms["device"] / step_ms["stream"], seconds=time.perf_counter() - started)
+    add_launches(r_train["launches"], r_one["launches"])
+    return r_train["launches"]
+
+
+def eval_lpips_subset(root: Path, out: Path, tmp: Path, trunk: str, lin: str) -> dict:
+    """`cli eval-multipie --eval-only` with LPIPS over the first LPIPS_EVAL_SUBSET triples of the
+    evaluation's dump, against evaluate_output_dir with an LPIPSMetric on the card in this process."""
+    import os
+
+    from geomconsistentfr_torch.metrics.eval_multipie import evaluate_output_dir
+    from geomconsistentfr_torch.models.lpips import LPIPSMetric, load_trunk_state
+
+    sub, dump = tmp / "multipie_subset", tmp / "eval_dump_subset"
+    for d in ("input_images_MP_18_lightings", "groundtruth_images_MP_18_lightings", "MP_depth_masks_fill_nose"):
+        (sub / d).mkdir(parents=True)
+        for name in sorted(os.listdir(root / d))[:LPIPS_EVAL_SUBSET]:
+            os.symlink(root / d / name, sub / d / name)
+    dump.mkdir()
+    for name in sorted(n for n in os.listdir(out) if n.endswith("_rendered_image.png"))[:LPIPS_EVAL_SUBSET]:
+        os.symlink(out / name, dump / name)
+    r = run_module(tmp, "eval", "eval_lpips_subset", "geomconsistentfr_torch.cli", "eval-multipie", "--checkpoint",
+                   "unused.pth", "--data-root", sub, "--out", dump, "--eval-only", "--lpips-trunk", trunk,
+                   "--lpips-lin", lin)
+    got = last_json(r["stdout"])
+    metric = LPIPSMetric(lin_weights_path=lin, trunk_state=load_trunk_state(trunk))
+    want = evaluate_output_dir(str(dump), str(sub / "groundtruth_images_MP_18_lightings"),
+                               str(sub / "MP_depth_masks_fill_nose"), lpips_fn=metric)
+    rel = abs(got["masked_lpips_mean"] - want["masked_lpips_mean"]) / abs(want["masked_lpips_mean"])
+    check(rel <= LPIPS_EVAL_REL, "eval", f"the CLI's LPIPS mean over {LPIPS_EVAL_SUBSET} triples is {rel:.3g} "
+          f"from this process's ({got['masked_lpips_mean']} vs {want['masked_lpips_mean']})")
+    # LPIPS's own cost an image, as evaluate_output_dir pays it (the host's float64 arrays in,
+    # the map back): the share of the evaluation it takes.
+    import numpy as np
+
+    a = np.random.default_rng(0).uniform(0, 1, (256, 256, 3))
+    metric(a, a)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        metric(a, a)
+    return dict(subset_rel=rel, subset_mean=got["masked_lpips_mean"], subset_wall_s=r["wall_s"],
+                lpips_ms_an_image=(time.perf_counter() - t0) / 20 * 1e3)
+
+
+def bapps_trees(tmp: Path) -> tuple:
+    """A 2AFC tree and a JND tree of BAPPS_TRIPLETS synthetic patches each (the goldens' faces
+    cut to 64x64, distorted twice), by the port's PNG writer."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    faces = [to_u8(np.load(p)["image"]) for p in sorted(GOLDEN.glob("ref_*.npz"))]
+    roots = (tmp / "bapps_2afc", tmp / "bapps_jnd")
+    for root, dirs, scalar in ((roots[0], ("ref", "p0", "p1"), "judge"), (roots[1], ("p0", "p1"), "same")):
+        (root / scalar).mkdir(parents=True)
+        for i in range(BAPPS_TRIPLETS):
+            y, x = rng.integers(0, 256 - BAPPS_SIZE, 2)
+            ref = faces[i % len(faces)][y:y + BAPPS_SIZE, x:x + BAPPS_SIZE].astype(np.int32)
+            for d in dirs:
+                noise = 0 if d == "ref" else rng.normal(scale=8 if d == "p0" else 20, size=ref.shape)
+                write_png(root / d / f"{i:06d}.png", np.clip(ref + noise, 0, 255).astype(np.uint8))
+            np.save(root / scalar / f"{i:06d}.npy", rng.uniform(0, 1, (1,)).astype(np.float32))
+    return roots
+
+
+def phase_lpips(tmp: Path, trunk: str, lin: str) -> dict:
+    """LPIPSMetric (alex, vgg, squeeze) at 256x256 on the card against the CPU, its ms a pair;
+    `cli lpips-train` and `cli lpips-score` (2afc, jnd) on synthetic BAPPS trees."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch.data.bapps import score_2afc_directory, score_jnd_directory
+    from geomconsistentfr_torch.models.lpips import LPIPSMetric, load_lin_weights, load_trunk_state
+
+    started = time.perf_counter()
+    rng = np.random.default_rng(1)
+    gt = torch.from_numpy(rng.uniform(0, 1, (8, 256, 256, 3)).astype(np.float32))
+    pred = torch.clamp(gt + torch.from_numpy(rng.normal(scale=0.1, size=gt.shape).astype(np.float32)), 0, 1)
+    nets = {}
+    for net in ("alex", "vgg", "squeeze"):
+        card, cpu = (LPIPSMetric(allow_random_trunk=True, net=net, device=d) for d in ("cuda", "cpu"))
+        want = cpu.batch(gt, pred)
+        row = {}
+        for b in (1, 8):
+            got = card.batch(gt[:b], pred[:b]).cpu()
+            err = (got - want[:b]).abs().max().item() / want[:b].abs().max().item()
+            check(err <= LPIPS_BAR, "lpips", f"{net} batch {b}: the card is {err:.3g} of the map's max from the CPU")
+            g, p = gt[:b].cuda(), pred[:b].cuda()
+            ms = cuda_time_ms(lambda: card.batch(g, p), iters=10, warmup=2, windows=3)
+            row[f"b{b}"] = dict(rel_err=err, ms=ms, ms_a_pair=ms / b)
+        nets[net] = row
+
+    roots = bapps_trees(tmp)
+    heads = tmp / "lpips_trained.npz"
+    r_train = run_module(tmp, "lpips", "lpips_train", "geomconsistentfr_torch.cli", "lpips-train", "--data-root",
+                         roots[0], "--out", heads, "--trunk", trunk, "--epochs", 1, "--epochs-decay", 1,
+                         "--batch-size", 16)
+    train_lines = [json.loads(x) for x in r_train["stdout"].strip().splitlines()]
+    check(len(train_lines) == 3 and all(np.isfinite(m["loss_total"]) for m in train_lines[:2])
+          and len(load_lin_weights(str(heads))) == 5, "lpips", f"lpips-train printed {train_lines}")
+    metric = LPIPSMetric(lin_weights_path=lin, trunk_state=load_trunk_state(trunk))
+
+    def distance(a, b):
+        return float(np.mean(metric(a, b)))
+
+    scores = {}
+    for mode, root in (("2afc", roots[0]), ("jnd", roots[1])):
+        r = run_module(tmp, "lpips", f"lpips_score_{mode}", "geomconsistentfr_torch.cli", "lpips-score", "--mode",
+                       mode, "--data-root", root, "--trunk", trunk, "--lin", lin)
+        got = last_json(r["stdout"])["score"]
+        want = round((score_2afc_directory if mode == "2afc" else score_jnd_directory)(str(root), distance), 6)
+        check(got == want, "lpips", f"lpips-score {mode} printed {got}, this process scores {want}")
+        scores[mode] = dict(score=got, wall_s=r["wall_s"], startup_s=r["startup_s"])
+    emit("lpips", ok=True, nets=nets, lpips_train=dict(lines=train_lines, wall_s=r_train["wall_s"],
+                                                       startup_s=r_train["startup_s"]),
+         lpips_score=scores, seconds=time.perf_counter() - started)
+
+
+def crop_frame(goldens) -> tuple:
+    """A CROP_FRAME^2 RGB frame: a golden face scaled to 512x512 on a textured background."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(3)
+    frame = rng.integers(40, 120, (CROP_FRAME, CROP_FRAME, 3)).astype(np.uint8)
+    face = torch.from_numpy(goldens[0][1]["image"]).permute(2, 0, 1)[None].float()
+    face = F.interpolate(face, size=(512, 512), mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+    frame[300:812, 260:772] = to_u8(face)
+    return frame
+
+
+def calibrated_s3fd(frame, seed: int = 0):
+    """A seeded S3FD whose face biases are shifted so that a few boxes pass: the four finer heads
+    (anchors of 16-128 px, below the crop's 200 px minimum) never fire, and on the two coarsest
+    (256 and 512 px) five anchors of this frame score above 0.5. Random weights would score
+    every anchor near 0.5, and every anchor would go to the NMS, quadratic in them."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch.models.s3fd import S3FD, SOURCES, heads
+    from geomconsistentfr_torch.preprocess import PAD
+
+    model = S3FD(generator=torch.Generator().manual_seed(seed)).cuda()
+    padded = np.pad(frame, ((PAD, PAD), (PAD, PAD), (0, 0)), mode="reflect")[..., ::-1]
+    outs = heads(model, np.ascontiguousarray(padded))
+    # Face-minus-background logits of every anchor of the two coarsest heads; the shift puts
+    # the fifth best at a score of 0.5.
+    margins = np.sort(np.concatenate([(outs[2 * i][..., 1] - outs[2 * i][..., 0]).ravel() for i in (4, 5)]))
+    shift = -0.5 * float(margins[-5] + margins[-6])
+    with torch.no_grad():
+        for i, (src, _) in enumerate(SOURCES):
+            bias = getattr(model, f"{src}_mbox_conf").bias
+            bias[3 if i == 0 else 1] += -100.0 if i < 4 else shift
+    return model
+
+
+def phase_crop(goldens, tmp: Path) -> dict:
+    """`cli crop --s3fd-weights` on a 1024x1024 frame against crop_largest_face in this process;
+    S3FD's heads on the card against the CPU; S3FD ms a frame."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch.models.s3fd import heads
+    from geomconsistentfr_torch.preprocess import PAD, crop_largest_face, detect_faces_s3fd
+    from geomconsistentfr_torch.utils.io import imread
+
+    started = time.perf_counter()
+    frame = crop_frame(goldens)
+    image = write_png(tmp / "crop_frame.png", frame)
+    model = calibrated_s3fd(frame)
+    weights = tmp / "s3fd.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, weights)
+    detections = detect_faces_s3fd(frame, model=model)
+    check(0 < len(detections) <= 5, "crop", f"S3FD kept {len(detections)} boxes")
+    want = crop_largest_face(frame, [tuple(float(v) for v in d[:4]) for d in detections])
+    check(want is not None, "crop", "the largest detected face is below the crop's 200 px minimum")
+    out = tmp / "crop.png"
+    r = run_module(tmp, "crop", "crop", "geomconsistentfr_torch.cli", "crop", "--image", image, "--s3fd-weights",
+                   weights, "--out-image", out)
+    report = last_json(r["stdout"])
+    check(report["detections"] == len(detections), "crop", f"crop printed {report}, {len(detections)} here")
+    diff = int(np.count_nonzero(imread(str(out)) != want))
+    check(diff == 0, "crop", f"the CLI's crop differs from crop_largest_face in {diff} bytes")
+
+    padded = np.ascontiguousarray(np.pad(frame, ((PAD, PAD), (PAD, PAD), (0, 0)), mode="reflect")[..., ::-1])
+    card = heads(model, padded)
+    cpu = heads(model.cpu(), padded)
+    errs = [float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(card, cpu)]
+    check(max(errs) <= S3FD_BAR, "crop", f"S3FD's heads on the card are {max(errs):.3g} from the CPU's")
+    model.cuda()
+    x = torch.from_numpy((padded.astype(np.float32) - np.float32([104.0, 117.0, 123.0]))[None]).cuda()
+    from geomconsistentfr_torch.models.layers import exact_convs
+
+    with torch.no_grad(), exact_convs():
+        frame_ms = cuda_time_ms(lambda: model(x), iters=5, warmup=2, windows=3)
+    emit("crop", ok=True, frame=CROP_FRAME, detections=len(detections), best_score=float(detections[0][4]),
+         heads_rel_err=max(errs), s3fd_ms_a_frame=frame_ms, wall_s=r["wall_s"], startup_s=r["startup_s"],
+         run_s=r["run_s"], seconds=time.perf_counter() - started)
+
+
+def phase_visualize_lighting(tmp: Path) -> None:
+    """`cli visualize-lighting` for the 21 presets, each PNG the bytes of lighting_sphere in this process."""
+    import numpy as np
+
+    from geomconsistentfr_torch.lighting_presets import LIGHT_PRESETS, lighting_sphere
+    from geomconsistentfr_torch.utils.io import imread
+
+    out = tmp / "spheres"
+    r = run_module(tmp, "visualize_lighting", "visualize_lighting", "geomconsistentfr_torch.cli",
+                   "visualize-lighting", "--out", out)
+    check(last_json(r["stdout"])["count"] == len(LIGHT_PRESETS) == 21, "visualize_lighting", r["stdout"])
+    for name, direction in LIGHT_PRESETS.items():
+        want = (lighting_sphere(direction) * 255.0 + 0.5).astype(np.uint8)
+        check(np.array_equal(imread(str(out / f"{name}.png")), want), "visualize_lighting",
+              f"{name}.png differs from lighting_sphere")
+    emit("visualize_lighting", ok=True, spheres=len(LIGHT_PRESETS), wall_s=r["wall_s"], startup_s=r["startup_s"])
+
+
 def phase_surface(goldens, e2e: dict) -> dict:
-    """The cli, bench, serve and eval phases, in a temporary directory; their launches summed."""
+    """The cli, bench, serve, eval, train_cli, lpips, crop and visualize_lighting phases, in a
+    temporary directory; their launches summed."""
     import tempfile
 
     launches = counts()
@@ -1469,7 +1910,12 @@ def phase_surface(goldens, e2e: dict) -> dict:
         add_launches(launches, phase_cli(files, tmp))
         add_launches(launches, phase_bench(tmp, e2e))
         add_launches(launches, phase_serve(files, tmp))
-        add_launches(launches, phase_eval(goldens, files, tmp))
+        lpips_files = lpips_weight_files(tmp)
+        add_launches(launches, phase_eval(goldens, files, tmp, lpips_files))
+        add_launches(launches, phase_train_cli(tmp))
+        phase_lpips(tmp, *lpips_files)
+        phase_crop(goldens, tmp)
+        phase_visualize_lighting(tmp)
     return launches
 
 

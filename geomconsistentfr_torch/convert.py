@@ -16,6 +16,12 @@ The port's state dict IS the reference checkpoint's layout, so a reference
     centre tap with zero bias -- an identical function.
   * `adam_moments_from_optax(mu, nu)`: an optax Adam state's moments in the
     port's parameter names, so tests can hold the optimizers together.
+  * the secondary models' weights carried across from the JAX package's
+    flax parameters (HWIO kernels -> OIHW): `lpips_state_dict_from_jax`
+    (the trunk in torchvision's `features.N` keys, the heads in the LPIPS
+    library's `lin{i}.model.1.weight`), `dist2logit_state_dict_from_jax`
+    (the 2AFC ranking net) and `s3fd_state_dict_from_jax` (face_alignment's
+    s3fd.pth keys).
 """
 
 from __future__ import annotations
@@ -103,3 +109,61 @@ def transfer_to_target_variant(state: Mapping[str, torch.Tensor]) -> Dict[str, t
         n_out = w.shape[1] if name.startswith("deconv") else w.shape[0]
         out[f"{name}.bias"] = torch.zeros((n_out,), dtype=w.dtype)
     return out
+
+
+def _oihw(kernel) -> torch.Tensor:
+    """A flax (kh, kw, I, O) kernel as torch's (O, I, kh, kw)."""
+    return torch.from_numpy(np.array(np.asarray(kernel, np.float32).transpose(3, 2, 0, 1), order="C", copy=True))
+
+
+def _f32(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, np.float32, copy=True))
+
+
+_FIRE_PARTS = {"squeeze": "squeeze", "expand1": "expand1x1", "expand3": "expand3x3"}
+
+
+def lpips_state_dict_from_jax(params: Mapping[str, Mapping], net: str = "alex") -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS params (models/lpips.py: {'trunk': ..., 'lin{i}': ...}) -> the
+    port's LPIPS state dict. The trunk's conv{i} is the i-th convolution of
+    torchvision's `features` (alex, vgg); squeeze's fire{N}_{part} is features.N.{part}."""
+    from geomconsistentfr_torch.models.lpips import _conv_prefixes
+
+    state: Dict[str, torch.Tensor] = {}
+    trunk = params["trunk"]
+    if net == "squeeze":
+        names = {"conv0": "0"}
+        names.update({f"fire{n}_{ours}": f"{n}.{theirs}" for n in (3, 4, 6, 7, 9, 10, 11, 12)
+                      for ours, theirs in _FIRE_PARTS.items()})
+    else:
+        names = {f"conv{i}": prefix for i, prefix in enumerate(_conv_prefixes(net))}
+    for ours, prefix in names.items():
+        state[f"trunk.features.{prefix}.weight"] = _oihw(trunk[ours]["kernel"])
+        state[f"trunk.features.{prefix}.bias"] = _f32(trunk[ours]["bias"])
+    i = 0
+    while f"lin{i}" in params:
+        state[f"lin{i}.model.1.weight"] = _oihw(params[f"lin{i}"]["kernel"])
+        i += 1
+    return state
+
+
+def dist2logit_state_dict_from_jax(params: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Dist2Logit params (fc0-fc2, 1x1 convs) -> the port's state dict."""
+    state = {}
+    for name, leaves in params.items():
+        state[f"{name}.weight"] = _oihw(leaves["kernel"])
+        state[f"{name}.bias"] = _f32(leaves["bias"])
+    return state
+
+
+def s3fd_state_dict_from_jax(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """The JAX package's S3FD variables ({'params': ...}) -> the port's state dict, which is
+    face_alignment's s3fd.pth layout (`conv1_1.weight`, `conv3_3_norm.weight`, ...)."""
+    state = {}
+    for name, leaves in variables["params"].items():
+        if "kernel" in leaves:
+            state[f"{name}.weight"] = _oihw(leaves["kernel"])
+            state[f"{name}.bias"] = _f32(leaves["bias"])
+        else:  # L2Norm's scale
+            state[f"{name}.weight"] = _f32(leaves["weight"])
+    return state

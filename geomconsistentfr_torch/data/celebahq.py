@@ -1,19 +1,22 @@
-"""Training data: the packed CelebA-HQ cache reader and a synthetic stand-in.
+"""Training data: the CelebA-HQ cache builder and reader, and a synthetic stand-in.
 
-A numpy-only copy of geomconsistentfr_tpu/data/celebahq.py:28-35, 120-231
-(the port imports nothing of the JAX package). The cache holds uint8
-images and masks, float32 depth and light, packed once by the JAX package's
-`build_cache` (its counterpart here, and the native JPEG loader, come in a
-later slice). `SyntheticFaceData` emits procedural faces (ellipsoid depth,
-smooth albedo, random lighting) with the same batch schema, equal to the JAX
-package's bit for bit for the same seed.
+A numpy-only copy of geomconsistentfr_tpu/data/celebahq.py (the port imports
+nothing of the JAX package). `build_cache` packs the reference's MP_data
+layout once into memmaps: uint8 images and masks, float32 depth and light
+(`FIELDS`), the preprocessing of train_raytracing_..._8x.py:527-558 done
+once: the "fill nose and mouth" face mask is max(face mask, depth mask)
+binarised at 128, the light is the per-image .mat's direction.
+`CelebAHQRelightingData` streams batches from the cache. `SyntheticFaceData`
+emits procedural faces (ellipsoid depth, smooth albedo, random lighting)
+with the same batch schema, equal to the JAX package's bit for bit for the
+same seed.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -25,6 +28,100 @@ FIELDS = {
     "face_mask": (np.uint8, (256, 256)),
     "light_gt": (np.float32, (3,)),
 }
+
+
+SIZE = 256
+
+
+def jpeg_reader() -> Tuple[str, Callable[[str, int], np.ndarray]]:
+    """(name, read(path, channels)) of the first JPEG decoder that works here.
+
+    The port's libjpeg loader (data/native_loader.py) where it built with
+    libjpeg, else OpenCV, else Pillow (the JAX package's order is native,
+    then imageio; the card's machine has no imageio). read() gives (256, 256,
+    3) RGB for 3 channels and (256, 256) grey for 1, and raises on any other
+    size. Raises where none of the three is available.
+    """
+    from geomconsistentfr_torch.data import native_loader
+
+    if native_loader.has_native_jpeg():
+        return "native-libjpeg", lambda path, channels: native_loader.decode_jpeg(path, SIZE, SIZE, channels)
+
+    def sized(img, path, channels):
+        want = (SIZE, SIZE, 3) if channels == 3 else (SIZE, SIZE)
+        if img is None or img.shape != want:
+            raise ValueError(f"JPEG {path} did not decode to {want}")
+        return np.ascontiguousarray(img)
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        def read_cv2(path, channels):
+            img = cv2.imread(path, cv2.IMREAD_COLOR if channels == 3 else cv2.IMREAD_GRAYSCALE)
+            return sized(None if img is None else (img[..., ::-1] if channels == 3 else img), path, channels)
+
+        return "opencv", read_cv2
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError("no JPEG decoder: the native loader has no libjpeg, and neither cv2 nor PIL "
+                           "imports") from None
+
+    def read_pil(path, channels):
+        with Image.open(path) as im:
+            return sized(np.asarray(im.convert("RGB" if channels == 3 else "L")), path, channels)
+
+    return "pillow", read_pil
+
+
+def build_cache(src_root: str, cache_dir: str, limit: Optional[int] = None) -> int:
+    """Pack the reference MP_data layout into memmaps under `cache_dir`; the sample count.
+
+    Expects the directories of train_raytracing_...py:535-539:
+      CelebA-HQ_DFNRMVS_cropped/   lighting_directions_CelebAHQ_DFNRMVS/
+      depth_maps_CelebA-HQ/        depth_masks_CelebA-HQ_DFNRMVS/
+      CelebA-HQ_albedo_grayscale/  CelebAHQ_face_masks/
+    Samples follow the sorted depth-map names (the first `limit`). JPEGs go
+    through `jpeg_reader()`, the .mat files through scipy.io, the PNG depth
+    masks through utils/io.
+    """
+    import scipy.io
+
+    from geomconsistentfr_torch.utils.io import imread
+
+    _, read_jpg = jpeg_reader()
+    depths = sorted(os.listdir(os.path.join(src_root, "depth_maps_CelebA-HQ")))
+    if limit:
+        depths = depths[:limit]
+    n = len(depths)
+    os.makedirs(cache_dir, exist_ok=True)
+    maps = {
+        k: np.lib.format.open_memmap(os.path.join(cache_dir, f"{k}.npy"), mode="w+", dtype=dt, shape=(n, *shape))
+        for k, (dt, shape) in FIELDS.items()
+    }
+    for i, depth_name in enumerate(depths):
+        stem = depth_name.split("_")[0]
+        mat = scipy.io.loadmat(os.path.join(src_root, "depth_maps_CelebA-HQ", depth_name))
+        maps["depth_gt"][i] = np.reshape(mat["depth_img"], (SIZE, SIZE)).astype(np.float32)
+        depth_mask = np.reshape(
+            imread(os.path.join(src_root, "depth_masks_CelebA-HQ_DFNRMVS", depth_name.replace(".mat", ".png"))),
+            (SIZE, SIZE),
+        )
+        maps["depth_mask"][i] = depth_mask
+        maps["image"][i] = read_jpg(os.path.join(src_root, "CelebA-HQ_DFNRMVS_cropped", stem + ".jpg"), 3)
+        maps["albedo_gt"][i] = read_jpg(os.path.join(src_root, "CelebA-HQ_albedo_grayscale", stem + ".jpg"), 1)
+        face = read_jpg(os.path.join(src_root, "CelebAHQ_face_masks", stem + ".jpg"), 1)
+        fill = np.maximum(face, depth_mask)
+        maps["face_mask"][i] = np.where(fill > 128, 255, 0).astype(np.uint8)
+        light = scipy.io.loadmat(os.path.join(src_root, "lighting_directions_CelebAHQ_DFNRMVS", stem + ".jpg.mat"))
+        maps["light_gt"][i] = light["lighting_direction"].reshape(3)
+    for m in maps.values():
+        m.flush()
+    with open(os.path.join(cache_dir, "meta.json"), "w") as f:
+        json.dump({"num_samples": n}, f)
+    return n
 
 
 class CelebAHQRelightingData:

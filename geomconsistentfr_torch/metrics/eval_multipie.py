@@ -1,15 +1,17 @@
 """The 862-image Multi-PIE-relit CelebA-HQ evaluation, end to end.
 
-Port of geomconsistentfr_tpu/metrics/eval_multipie.py, without LPIPS (not
-ported yet). It replaces the reference's pipeline (the inference dump of
+Port of geomconsistentfr_tpu/metrics/eval_multipie.py. It replaces the
+reference's pipeline (the inference dump of
 test_raytracing_relighting_CelebAHQ_DSSIM_8x.py:603-608, then MATLAB's
-DSSIM_MP_RGB.m and MSE_MP.m over the dumped PNGs):
+DSSIM_MP_RGB.m and MSE_MP.m and PerceptualSimilarity/test_network.py over
+the dumped PNGs):
 
   1. `run_inference` relights each input with its target Multi-PIE lighting
      (the index parsed from the GT filename, test_raytracing_...py:525-527)
      and writes six files per image in the reference's layout;
   2. `evaluate_output_dir` scores rendered against GT with masked MSE, masked
-     MATLAB-parity DSSIM and PSNR.
+     MATLAB-parity DSSIM and PSNR, and, given an LPIPS map function
+     (models/lpips.LPIPSMetric), the masked spatial LPIPS.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def _check_pairing(triples, what: str) -> None:
             raise ValueError(f"mispaired {what} triple (image ids differ): {ids}")
 
 
-def evaluate_output_dir(output_dir: str, gt_dir: str, mask_dir: str) -> Dict[str, float]:
+def evaluate_output_dir(output_dir: str, gt_dir: str, mask_dir: str, lpips_fn=None) -> Dict[str, float]:
     """Score a six-files-per-image inference dump against ground truth.
 
     The reference pairs `sorted()` listings by position (the rendered image is
@@ -48,6 +50,10 @@ def evaluate_output_dir(output_dir: str, gt_dir: str, mask_dir: str) -> Dict[str
     mispairs everything after it. Here rendered images are picked by their
     `_rendered_image` suffix, and each rendered / GT / mask triple must agree
     on its image id; every pairing is checked before any pixel is read.
+
+    `lpips_fn(gt01, pred01)` -> an (H, W) map adds masked_lpips_mean and _std:
+    per image sum(mask * map) over the count of its nonzero products
+    (test_network.py:46-48).
     """
     rendered = [f for f in sorted(os.listdir(output_dir)) if os.path.splitext(f)[0].endswith("_rendered_image")]
     gts = sorted(os.listdir(gt_dir))
@@ -56,7 +62,7 @@ def evaluate_output_dir(output_dir: str, gt_dir: str, mask_dir: str) -> Dict[str
         raise ValueError(f"count mismatch: {len(rendered)} rendered vs {len(gts)} GT vs {len(masks)} masks")
     _check_pairing(zip(rendered, gts, masks), "eval")
 
-    mses, dssims, psnrs = [], [], []
+    mses, dssims, psnrs, lpipss = [], [], [], []
     for pred_name, gt_name, mask_name in zip(rendered, gts, masks):
         pred = np.asarray(imread(os.path.join(output_dir, pred_name)), np.float64) / 255.0
         gt = np.asarray(imread(os.path.join(gt_dir, gt_name)), np.float64) / 255.0
@@ -69,12 +75,19 @@ def evaluate_output_dir(output_dir: str, gt_dir: str, mask_dir: str) -> Dict[str
         mses.append(masked_mse(pred, gt, mask))
         dssims.append(masked_dssim_matlab(pred, gt, mask))
         psnrs.append(psnr(pred * mask[..., None], gt * mask[..., None]))
-    return {
+        if lpips_fn is not None:
+            weighted = mask * lpips_fn(gt, pred)
+            lpipss.append(float(np.sum(weighted)) / max(float(np.sum(weighted > 0)), 1.0))
+    result = {
         "masked_mse_mean": float(np.mean(mses)),
         "masked_dssim_mean": float(np.mean(dssims)),
         "masked_psnr_mean": float(np.mean(psnrs)),
         "num_images": float(len(mses)),
     }
+    if lpipss:
+        result["masked_lpips_mean"] = float(np.mean(lpipss))
+        result["masked_lpips_std"] = float(np.std(lpipss))
+    return result
 
 
 def run_inference(

@@ -103,6 +103,15 @@ def deterministic_convs():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
+@contextlib.contextmanager
+def exact_convs():
+    """`no_tf32` and `deterministic_convs` together: float32 convolutions in full
+    float32 by cuDNN's deterministic algorithms, so that a metric's map or a
+    detector's box is the same bits in every process (LPIPS, S3FD)."""
+    with no_tf32(), deterministic_convs():
+        yield
+
+
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
 

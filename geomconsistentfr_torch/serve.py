@@ -18,8 +18,10 @@ Port of geomconsistentfr_tpu/serve.py. Endpoints:
                      batches, padded rows, device seconds, pipelined batches)
 
 Images are decoded and encoded through utils/io's codec (OpenCV, imageio, or
-the port's own PNG codec). A JPEG response needs OpenCV or Pillow; without
-them the request gets a 400 that says so, never a PNG in its place.
+the port's own PNG codec). A JPEG response goes through libjpeg in the port's
+native loader (data/native_loader.py, the JAX server's encoder), else OpenCV,
+else Pillow; where none works the request gets a 400 that says so, never a
+PNG in its place.
 
 Handler threads decode, validate and encode; all device work goes through
 one worker thread (`MicroBatcher`), which coalesces /relight requests into a

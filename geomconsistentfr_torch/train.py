@@ -47,6 +47,11 @@ path never does.
 PyTorch updates in place where JAX returns new values: `train_step` mutates
 the `TrainState` (its modules, optimizers and step counter). Entry points run
 on CUDA unless the caller passes device='cpu', and raise without a card.
+
+The `Trainer` (JAX :418-782) also keeps the training set on the device
+(`DeviceResidentBatches`, cfg.train.data_residency), traces its epochs
+(`profile`, utils/profiling.trace) and renders a fixed probe every so often
+(`visualize`).
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from geomconsistentfr_torch.ops.shadows_cuda import RayMarchMinDistanceSP
 from geomconsistentfr_torch.parallel.mesh import Mesh, average_gradients
 from geomconsistentfr_torch.render import render
 from geomconsistentfr_torch.utils import checkpoint as ckpt
+from geomconsistentfr_torch.utils import profiling
 
 
 def make_optimizer(params, lr: float) -> torch.optim.Adam:
@@ -141,6 +147,40 @@ def decode_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor
         t = torch.as_tensor(v).to(device)
         out[k] = t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
     return out
+
+
+class DeviceResidentBatches:
+    """The whole training set on the device; a batch is a gather there (JAX train.py:131-178).
+
+    The provider's stored bytes (uint8 where the cache stores uint8, float32
+    elsewhere) go to the device once. A step then moves only its int32
+    indices, and `index_select` and `decode_batch` run on the device: the
+    same division of the same bytes as streaming's decode_batch, so the
+    batches are bit-equal to the streamed ones.
+    """
+
+    def __init__(self, dataset: Dict[str, torch.Tensor]):
+        self.dataset = dataset
+        self.device = next(iter(dataset.values())).device
+
+    @staticmethod
+    def build(data, budget_mb: int, device) -> Optional["DeviceResidentBatches"]:
+        """Upload `data`'s whole store, or None when the provider has no whole-set
+        access (get_batch_raw or get_batch, and num_samples) or its bytes exceed
+        `budget_mb` MiB."""
+        get = getattr(data, "get_batch_raw", None) or getattr(data, "get_batch", None)
+        n = getattr(data, "num_samples", None)
+        if get is None or n is None:
+            return None
+        per_sample = sum(v.nbytes for v in get(np.arange(min(int(n), 1))).values())
+        if per_sample * int(n) > budget_mb * (1 << 20):
+            return None
+        host = get(np.arange(int(n)))
+        return DeviceResidentBatches({k: torch.as_tensor(np.ascontiguousarray(v)).to(device) for k, v in host.items()})
+
+    def get(self, indices: np.ndarray) -> Dict[str, torch.Tensor]:
+        idx = torch.as_tensor(np.ascontiguousarray(indices, np.int32)).to(self.device, non_blocking=True)
+        return decode_batch({k: v.index_select(0, idx) for k, v in self.dataset.items()}, self.device)
 
 
 def train_step(
@@ -257,6 +297,9 @@ def make_grid_parallel_step(cfg: PipelineConfig, mesh: Mesh):
 # the device and surfaces NaNs and errors near their step.
 _SYNC_EVERY = 8
 
+# "Not decided yet" for the Trainer's residency (None means: stream).
+_UNSET = object()
+
 
 class Trainer:
     """Epoch loop: batch order, GD alternation, metrics, checkpoints, resume.
@@ -265,9 +308,15 @@ class Trainer:
     rank runs the same loop on its device (mesh.device): it draws the same
     global batch, takes its slice over the mesh's data axis, and steps with
     the grid step on a 2-D mesh or the data-parallel step on a 1-D mesh of
-    several ranks; only rank 0 writes checkpoints and metrics. Not ported
-    yet (see ROADMAP): data_residency='device', profile traces and the
-    visualizer; data_residency 'auto' streams.
+    several ranks; only rank 0 writes checkpoints and metrics.
+
+    cfg.train.data_residency: 'stream' uploads each step's batch; 'device'
+    keeps the whole set on the device (DeviceResidentBatches) and raises
+    where it cannot: more than one rank (each rank would hold the whole set;
+    the JAX package streams there silently), a provider without whole-set
+    access, or a set above cfg.train.device_data_budget_mb; 'auto' is
+    'device' where it can be, else 'stream'. With `profile` every epoch
+    runs inside utils.profiling.trace into <workdir>/profile.
     """
 
     def __init__(
@@ -277,10 +326,17 @@ class Trainer:
         workdir: str = "runs/train",
         device=None,
         mesh: Optional[Mesh] = None,
+        profile: bool = False,
     ):
         self.cfg = cfg or preset_target_lighting_train()
-        if self.cfg.train.data_residency == "device":
-            raise NotImplementedError("data_residency='device' is not ported yet; use 'auto' or 'stream'")
+        residency = self.cfg.train.data_residency
+        if residency not in ("auto", "device", "stream"):
+            raise ValueError(f"data_residency must be 'auto', 'device' or 'stream', not {residency!r}")
+        if residency == "device" and mesh is not None and mesh.size > 1:
+            raise ValueError(f"data_residency='device' keeps the set on one device; this mesh has {mesh.size} "
+                             "ranks (use 'stream' or 'auto')")
+        self.profile = profile
+        self._resident_cache = _UNSET
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.data = data
@@ -318,10 +374,25 @@ class Trainer:
             ckpt.prune_step_dirs(self.checkpoint_root, self.cfg.train.keep_checkpoints)
         return path
 
+    def _resident(self) -> Optional[DeviceResidentBatches]:
+        """The device-resident batch source, built at first call, or None to stream
+        (the class docstring says when)."""
+        tcfg = self.cfg.train
+        if tcfg.data_residency == "stream" or (self.mesh is not None and self.mesh.size > 1):
+            return None
+        if self._resident_cache is _UNSET:
+            built = DeviceResidentBatches.build(self.data, tcfg.device_data_budget_mb, self.device)
+            if built is None and tcfg.data_residency == "device":
+                raise ValueError("data_residency='device' but the provider has no whole-set access or exceeds "
+                                 f"device_data_budget_mb={tcfg.device_data_budget_mb}")
+            self._resident_cache = built
+        return self._resident_cache
+
     def _batches(self, rng: np.random.Generator, start_batch: int):
-        """The epoch's host batches (this rank's slice of each): shuffled
-        contiguous slots where the data has them, else i.i.d. index draws,
-        else i.i.d. batch draws."""
+        """The epoch's batches on the device (this rank's slice of each):
+        shuffled contiguous slots where the data has them, else i.i.d. index
+        draws (gathered on the device when the set is resident), else i.i.d.
+        batch draws."""
         tcfg = self.cfg.train
         part = self.mesh.batch_slice(tcfg.batch_size) if self.mesh is not None else slice(None)
         get_batch = getattr(self.data, "get_batch_raw", None) or getattr(self.data, "get_batch", None)
@@ -333,9 +404,14 @@ class Trainer:
             sample_batch = getattr(self.data, "sample_batch_raw", self.data.sample_batch)
             batches = (sample_batch(rng, tcfg.batch_size) for _ in range(tcfg.batches_per_epoch))
             # Draw and discard: the resumed stream equals the uninterrupted one.
-            return ({k: v[part] for k, v in b.items()} for b in itertools.islice(batches, start_batch, None))
+            return (decode_batch({k: v[part] for k, v in b.items()}, self.device)
+                    for b in itertools.islice(batches, start_batch, None))
         # Fast-forward at the index level (no IO); each rank reads only its slice.
-        return (get_batch(idx[part]) for idx in itertools.islice(index_iter, start_batch, None))
+        index_iter = itertools.islice(index_iter, start_batch, None)
+        resident = self._resident()
+        if resident is not None:
+            return map(resident.get, index_iter)
+        return (decode_batch(get_batch(idx[part]), self.device) for idx in index_iter)
 
     def run_epoch(
         self,
@@ -358,16 +434,19 @@ class Trainer:
         use_skips = self.cfg.model.skip_gates(epoch)
         t0 = time.time()
         pending: list = []
-        for j, host_batch in enumerate(self._batches(rng, start_batch)):
-            pos = start_batch + j + 1  # 1-based position within the epoch
-            metrics = self.step_fn(state, decode_batch(host_batch, self.device), use_skips=use_skips)
-            if pos % tcfg.log_every_steps == 0:
-                pending.append(metrics)
-            if (pos - start_batch) % _SYNC_EVERY == 0:
-                float(metrics["total"])
-            # Step-level checkpoints (the reference saves per epoch and cannot resume).
-            if tcfg.checkpoint_every_steps and pos % tcfg.checkpoint_every_steps == 0 and pos < tcfg.batches_per_epoch:
-                self.save(state)
+        tracing = profiling.trace(os.path.join(self.workdir, "profile")) if self.profile else contextlib.nullcontext()
+        with tracing:
+            for j, batch in enumerate(self._batches(rng, start_batch)):
+                pos = start_batch + j + 1  # 1-based position within the epoch
+                metrics = self.step_fn(state, batch, use_skips=use_skips)
+                if pos % tcfg.log_every_steps == 0:
+                    pending.append(metrics)
+                if (pos - start_batch) % _SYNC_EVERY == 0:
+                    float(metrics["total"])
+                # Step-level checkpoints (the reference saves per epoch and cannot resume).
+                if (tcfg.checkpoint_every_steps and pos % tcfg.checkpoint_every_steps == 0
+                        and pos < tcfg.batches_per_epoch):
+                    self.save(state)
         sums: Dict[str, float] = {}
         if pending:
             keys = list(pending[0])
@@ -381,6 +460,71 @@ class Trainer:
         self.metrics_log.append(avg)
         self._export_metrics(epoch, avg)
         return state, avg
+
+    def visualize(self, state: TrainState, epoch: int) -> str:
+        """Render a fixed probe through the current generator; the gallery's path (JAX :667-762).
+
+        The probe is the data's first draw from rng (seed, 7123), one image,
+        the same for every epoch. The generator runs in eval mode with the
+        epoch's skip gates and renders under the probe's own light; input,
+        albedo, depth (utils/io.depth_visualization: near is bright), shadow
+        weights and the rendered face go to <workdir>/visuals/epoch_XXXX/
+        as PNGs, and <workdir>/visuals/index.html gets a row (with the last
+        epoch's mean total loss). A resumed run rebuilds the earlier rows
+        from the epoch directories on disk. Only the writing rank writes.
+        """
+        from geomconsistentfr_torch.metrics.perceptual import write_html_gallery
+        from geomconsistentfr_torch.utils.io import depth_visualization, write_image
+
+        vis_root = os.path.join(self.workdir, "visuals")
+        if not hasattr(self, "_vis_probe"):
+            probe = self.data.sample_batch(np.random.default_rng([self.cfg.train.seed, 7123]), 1)
+            # Stored-dtype sources expand on the host here, as get_batch does.
+            self._vis_probe = {k: v.astype(np.float32) / 255.0 if v.dtype == np.uint8 else v for k, v in probe.items()}
+            self._vis_rows = []
+            if os.path.isdir(vis_root):
+                for name in sorted(os.listdir(vis_root)):
+                    if name.startswith("epoch_"):
+                        row = {"epoch": int(name.split("_")[1])}
+                        for kind in ("input", "albedo", "depth", "shadow", "rendered"):
+                            path = os.path.join(vis_root, name, f"{kind}.png")
+                            if os.path.exists(path):
+                                row[kind] = path
+                        self._vis_rows.append(row)
+        probe = self._vis_probe
+        tensors = {k: torch.as_tensor(np.asarray(probe[k], np.float32)).to(self.device)
+                   for k in ("image", "face_mask", "light_gt")}
+        precision = no_tf32() if self.cfg.model.compute_dtype == "float32" else contextlib.nullcontext()
+        was_training = state.g.training
+        state.g.eval()
+        try:
+            with torch.no_grad(), precision, deterministic_convs():
+                net = state.g(tensors["image"], self.cfg.model.skip_gates(epoch))
+                out = render(net.albedo, net.depth, net.lighting, tensors["face_mask"], self.cfg.render,
+                             target_light=tensors["light_gt"])
+        finally:
+            state.g.train(was_training)
+        if not self.writes:
+            return os.path.join(vis_root, "index.html")
+        vis_dir = os.path.join(vis_root, f"epoch_{epoch:04d}")
+        row = {"epoch": epoch}
+
+        def put(kind, arr01):
+            row[kind] = os.path.join(vis_dir, f"{kind}.png")
+            write_image(row[kind], np.asarray(arr01))
+
+        host = {k: getattr(out, k)[0].cpu().numpy() for k in ("albedo", "depth", "shadow_mask_weights", "rendered")}
+        put("input", probe["image"][0])
+        put("albedo", host["albedo"])
+        put("depth", depth_visualization(host["depth"], np.asarray(probe["face_mask"][0])))
+        put("shadow", host["shadow_mask_weights"])
+        put("rendered", host["rendered"])
+        if self.metrics_log:
+            row["total_loss"] = round(self.metrics_log[-1].get("total", 0.0), 4)
+        self._vis_rows.append(row)
+        index = os.path.join(vis_root, "index.html")
+        write_html_gallery(index, self._vis_rows, title="training progress")
+        return index
 
     def _export_metrics(self, epoch: int, avg: Dict[str, float]) -> None:
         """CSV and the reference-compatible .mat export (train_*.py:671-683), on the writing rank."""

@@ -46,7 +46,7 @@ def _imageio():
 
 
 class NoJpegEncoder(RuntimeError):
-    """Neither OpenCV nor Pillow imports, so nothing here can write a JPEG."""
+    """No libjpeg in the native loader, and neither OpenCV nor Pillow imports: nothing here can write a JPEG."""
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:
@@ -104,8 +104,13 @@ def encode_png(arr: np.ndarray) -> bytes:
 
 
 def encode_jpeg(arr: np.ndarray, quality: int = 90) -> bytes:
-    """uint8 (H, W[, 3]) as JPEG bytes, through OpenCV or Pillow (imageio's JPEG
-    writer is Pillow); raises NoJpegEncoder where neither imports."""
+    """uint8 (H, W[, 3]) as JPEG bytes: libjpeg through the port's native loader
+    (data/native_loader.py, the JAX server's encoder) where it built with libjpeg,
+    else OpenCV, else Pillow; raises NoJpegEncoder where none of them works."""
+    from geomconsistentfr_torch.data import native_loader
+
+    if native_loader.has_native_jpeg():
+        return native_loader.encode_jpeg(np.asarray(arr, np.uint8), quality)
     cv2 = _cv2()
     if cv2 is not None:
         ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(_bgr(arr)), [cv2.IMWRITE_JPEG_QUALITY, int(quality)])
@@ -115,7 +120,8 @@ def encode_jpeg(arr: np.ndarray, quality: int = 90) -> bytes:
         from PIL import Image
     except ImportError:
         raise NoJpegEncoder(
-            "no JPEG encoder is installed (neither cv2 nor PIL imports); ask for 'format': 'png'"
+            "no JPEG encoder is available (no libjpeg for the native loader, and neither cv2 nor PIL imports); "
+            "ask for 'format': 'png'"
         ) from None
     buf = io.BytesIO()
     Image.fromarray(np.ascontiguousarray(arr)).save(buf, format="JPEG", quality=int(quality))

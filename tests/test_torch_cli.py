@@ -7,11 +7,20 @@
     samples, by a --config file) write files that decode to the port's own
     `forward_visuals` / `relight_sweep_rendered_u8` / `estimate_lighting` at
     batch 1, bit for bit (tests/test_torch_infer.py holds those against JAX);
-  * every flag and command not ported exits non-zero naming its ROADMAP item;
+  * `build-cache` writes the JAX CLI's cache byte for byte; `train` (32x32,
+    the set resident on the device, traced, with visuals) prints an epoch's
+    losses equal to an in-process Trainer's that streams, and resumes at its
+    checkpoint; `crop` (a box, a mask, the port's S3FD) writes the JAX CLI's
+    or crop_largest_face's pixels; `eval-multipie --lpips-*` scores the JAX
+    CLI's LPIPS; `visualize-lighting` and `lpips-score` print and write what
+    the JAX CLI does; `lpips-train` writes heads both packages load;
+  * the flags and commands not ported exit non-zero naming why;
   * the bench reads its knobs from the environment and refuses the CPU;
   * one subprocess runs `--help`.
 """
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -136,12 +145,7 @@ def test_transfer_writes_the_estimated_relight(files, tmp_path, capsys):
 
 
 REFUSED = {
-    "train": (["train", "--epochs", "1"], "item 5"),
-    "build-cache": (["build-cache", "--src", "a", "--out", "b"], "item 5"),
-    "crop": (["crop", "--image", "a", "--out-image", "b"], "item 6"),
     "convert": (["convert", "--pth", "a", "--out", "b"], "needs JAX"),
-    "lpips-trunk": (["eval-multipie", "--lpips-trunk", "t.pth"], "item 6"),
-    "lpips-random-trunk": (["eval-multipie", "--lpips-random-trunk"], "item 6"),
     "data-parallel": (["eval-multipie", "--data-parallel"], "item 8"),
     "sample-parallel": (["relight", "--sample-parallel", "--image", "a", "--mask", "b"], "item 8"),
 }
@@ -157,6 +161,218 @@ def test_refused_flags_name_their_roadmap_item(files, case):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert isinstance(e.value.code, str) and "not ported" in e.value.code and item in e.value.code, e.value.code
+
+
+# ---------------------------------------------------------------------------
+# The commands and flags ported since the CLI refused them: each runs, held
+# against the JAX CLI or the port's own in-process calls.
+# ---------------------------------------------------------------------------
+
+TRAIN_CONFIG = {
+    "render": {"img_height": 32, "img_width": 32, "num_sample_points": 16, "t_start": 0.025, "t_stop": 0.105},
+    "train": {"batch_size": 2, "batches_per_epoch": 2, "data_residency": "device"},
+}
+
+
+def last_json_line(capsys) -> dict:
+    return json.loads(capsys.readouterr().out.splitlines()[-1])
+
+
+def run_build_cache(files, tmp_path, capsys):
+    from test_torch_data_cache import write_mp_data
+
+    src = write_mp_data(str(tmp_path / "MP_data"), 3)
+    assert tcli.main(["build-cache", "--src", src, "--out", str(tmp_path / "port")]) == 0
+    report = last_json_line(capsys)
+    assert report["num_samples"] == 3 and report["decoder"] == "native-libjpeg" and report["samples_per_s"] > 0
+    assert jcli.main(["build-cache", "--src", src, "--out", str(tmp_path / "jax"), "--limit", "3"]) == 0
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes(), name
+
+
+def run_train(files, tmp_path, capsys):
+    from geomconsistentfr_torch.data import SyntheticFaceData
+    from geomconsistentfr_torch.train import Trainer
+
+    (tmp_path / "train.json").write_text(json.dumps(TRAIN_CONFIG))
+    argv = ["train", "--config", str(tmp_path / "train.json"), "--data", "synthetic", "--synthetic-samples", "4",
+            "--profile", "--visualize-every", "1", "--device", "cpu", "--out", str(tmp_path / "run")]
+    assert tcli.main(argv + ["--epochs", "2"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [m["epoch"] for m in lines] == [0, 1]
+    cfg = load_config(str(tmp_path / "train.json"), preset="target_lighting_train")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_residency="stream"))
+    trainer = Trainer(cfg, SyntheticFaceData(num_samples=4, size=32), workdir=str(tmp_path / "ref"), device="cpu")
+    state, want = trainer.run_epoch(trainer.init_or_resume(), 0)
+    for k in want:
+        if k != "seconds":
+            assert lines[0][k] == want[k], k
+    assert len(os.listdir(tmp_path / "run" / "profile")) == 2  # a trace an epoch
+    index = (tmp_path / "run" / "visuals" / "index.html").read_text()
+    assert lines[1]["visuals"] == str(tmp_path / "run" / "visuals" / "index.html")
+    assert "epoch_0000/rendered.png" in index and "epoch_0001/shadow.png" in index
+    # Resumed: divmod(step 4, 2 batches an epoch) starts at epoch 2.
+    assert tcli.main(argv + ["--epochs", "3"]) == 0
+    assert [json.loads(x)["epoch"] for x in capsys.readouterr().out.splitlines()] == [2]
+
+
+def run_crop(files, tmp_path, capsys):
+    from geomconsistentfr_torch.models.s3fd import S3FD
+    from geomconsistentfr_torch.preprocess import crop_largest_face, detect_faces_s3fd
+
+    image, mask = files["image"], files["mask"]
+    for flag, value in (("--box", "40,30,220,240"), ("--mask", mask)):
+        out_t, out_j = str(tmp_path / f"port{flag}.png"), str(tmp_path / f"jax{flag}.png")
+        assert tcli.main(["crop", "--image", image, flag, value, "--out-image", out_t]) == 0
+        assert last_json_line(capsys) == {"out": out_t}
+        assert jcli.main(["crop", "--image", image, flag, value, "--out-image", out_j]) == 0
+        assert np.array_equal(imread(out_t), imread(out_j)), flag
+    model = S3FD(generator=torch.Generator().manual_seed(1))
+    torch.save(model.state_dict(), tmp_path / "s3fd.pth")
+    out = str(tmp_path / "s3fd_crop.png")
+    assert tcli.main(["crop", "--image", image, "--s3fd-weights", str(tmp_path / "s3fd.pth"), "--device", "cpu",
+                      "--out-image", out]) == 0
+    report = last_json_line(capsys)
+    img = imread(image)
+    detections = detect_faces_s3fd(img, model=model.eval())
+    assert report["detections"] == len(detections) > 0
+    want = crop_largest_face(img, [tuple(d[:4]) for d in detections])
+    assert np.array_equal(imread(out), want)
+    assert tcli.main(["crop", "--image", image, "--box", "0,0,50,50", "--out-image", out]) == 1
+    assert "200px" in last_json_line(capsys)["error"]
+
+
+def eval_root(files, tmp_path):
+    """A Multi-PIE root of two GT images and masks, and a dump of their renders (for --eval-only)."""
+    root, dump = tmp_path / "mp", tmp_path / "dump"
+    for d in ("groundtruth_images_MP_18_lightings", "MP_depth_masks_fill_nose"):
+        (root / d).mkdir(parents=True)
+    dump.mkdir()
+    img, mask = imread(files["image"]), imread(files["mask"])
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        noisy = np.clip(img.astype(int) + rng.integers(-30, 30, img.shape), 0, 255).astype(np.uint8)
+        write_image_u8(str(root / "groundtruth_images_MP_18_lightings" / f"{i:03d}_{i + 3}.png"), img)
+        write_image_u8(str(root / "MP_depth_masks_fill_nose" / f"{i:03d}.png"), mask)
+        write_image_u8(str(dump / f"{i:03d}_rendered_image.png"), noisy)
+    return str(root), str(dump)
+
+
+def run_eval_lpips(files, tmp_path, capsys, random_trunk: bool):
+    from geomconsistentfr_torch.metrics.eval_multipie import evaluate_output_dir
+    from geomconsistentfr_torch.models.lpips import LPIPSMetric, Trunk
+
+    root, dump = eval_root(files, tmp_path)
+    base = ["eval-multipie", "--checkpoint", files["pth"], "--data-root", root, "--out", dump, "--eval-only"]
+    if random_trunk:
+        assert tcli.main(base + ["--lpips-random-trunk", "--device", "cpu"]) == 0
+        got = last_json_line(capsys)
+        metric = LPIPSMetric(allow_random_trunk=True, device="cpu")
+        want = evaluate_output_dir(dump, os.path.join(root, "groundtruth_images_MP_18_lightings"),
+                                   os.path.join(root, "MP_depth_masks_fill_nose"), lpips_fn=metric)
+        assert got == {**want, "num_inferred": 0}
+        return
+    trunk = Trunk("alex")
+    torch.save({f"features.{k}" if not k.startswith("features.") else k: v for k, v in trunk.state_dict().items()},
+               tmp_path / "alex.pth")
+    g = torch.Generator().manual_seed(2)
+    torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1, generator=g) * 0.1
+                for i, c in enumerate((64, 192, 384, 256, 256))}, tmp_path / "lin.pth")
+    flags = ["--lpips-trunk", str(tmp_path / "alex.pth"), "--lpips-lin", str(tmp_path / "lin.pth")]
+    assert tcli.main(base + flags + ["--device", "cpu"]) == 0
+    got = last_json_line(capsys)
+    assert jcli.main(base + flags) == 0
+    want = last_json_line(capsys)
+    assert set(got) == set(want) and "masked_lpips_mean" in got
+    for k in want:
+        if "lpips" in k:
+            assert abs(got[k] - want[k]) <= 1e-5 * abs(want["masked_lpips_mean"]), k
+        else:
+            assert got[k] == want[k], k
+
+
+PORTED = {
+    "build-cache": run_build_cache,
+    "train": run_train,
+    "crop": run_crop,
+    "lpips-trunk": functools.partial(run_eval_lpips, random_trunk=False),
+    "lpips-random-trunk": functools.partial(run_eval_lpips, random_trunk=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_commands_run(files, tmp_path, capsys, case):
+    PORTED[case](files, tmp_path, capsys)
+
+
+def test_train_with_debug_nans_trains_the_same_and_switches_it_off(tmp_path, capsys):
+    """--debug-nans (anomaly mode and the module-output NaN check) changes no number and is off after."""
+    (tmp_path / "train.json").write_text(json.dumps(TRAIN_CONFIG))
+    lines = {}
+    for flag in ([], ["--debug-nans"]):
+        argv = ["train", "--config", str(tmp_path / "train.json"), "--synthetic-samples", "4", "--epochs", "1",
+                "--device", "cpu", "--out", str(tmp_path / f"run{len(flag)}"), *flag]
+        assert tcli.main(argv) == 0
+        lines[bool(flag)] = {k: v for k, v in last_json_line(capsys).items() if k != "seconds"}
+        assert not torch.is_anomaly_enabled()
+    assert lines[True] == lines[False]
+
+
+def test_visualize_lighting_writes_the_jax_spheres(tmp_path, capsys):
+    for extra in ([], ["--azimuth", "30", "--elevation", "-15", "--clamp", "--size", "64"]):
+        assert tcli.main(["visualize-lighting", "--out", str(tmp_path / "port"), *extra]) == 0
+        got = last_json_line(capsys)
+        assert jcli.main(["visualize-lighting", "--out", str(tmp_path / "jax"), *extra]) == 0
+        assert got["count"] == last_json_line(capsys)["count"] == (1 if extra else len(LIGHT_PRESETS))
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names and "A30E-15.png" in names
+    for name in names:
+        assert np.array_equal(imread(str(tmp_path / "port" / name)), imread(str(tmp_path / "jax" / name))), name
+
+
+@pytest.fixture(scope="module")
+def bapps(tmp_path_factory):
+    from test_torch_lpips_train import write_bapps
+
+    root = tmp_path_factory.mktemp("bapps_cli")
+    return write_bapps(root / "2afc", 6), write_bapps(root / "jnd", 5, jnd=True, seed=1), root
+
+
+@pytest.mark.parametrize("metric", ["l2", "dssim", "lpips"])
+@pytest.mark.parametrize("mode", ["2afc", "jnd"])
+def test_lpips_score_prints_the_jax_score(bapps, capsys, metric, mode):
+    twoafc, jnd, root = bapps
+    argv = ["lpips-score", "--mode", mode, "--metric", metric, "--data-root", twoafc if mode == "2afc" else jnd]
+    if metric == "lpips":
+        from test_torch_lpips import lin_state, torchvision_state
+
+        if not (root / "alex.pth").exists():
+            torch.save(torchvision_state("alex", 7), root / "alex.pth")
+            torch.save(lin_state("alex", 8), root / "lin.pth")
+        argv += ["--trunk", str(root / "alex.pth"), "--lin", str(root / "lin.pth")]
+    assert jcli.main(argv) == 0
+    want = last_json_line(capsys)
+    assert tcli.main(argv + (["--device", "cpu"] if metric == "lpips" else [])) == 0
+    assert last_json_line(capsys) == want
+
+
+def test_lpips_train_writes_heads_both_packages_load(bapps, tmp_path, capsys):
+    from geomconsistentfr_torch.models.lpips import load_lin_weights
+    from geomconsistentfr_tpu.models.lpips import load_lin_weights as jax_load_lin_weights
+
+    twoafc, _, _ = bapps
+    out = str(tmp_path / "heads.npz")
+    assert tcli.main(["lpips-train", "--data-root", twoafc, "--out", out, "--random-trunk", "--epochs", "1",
+                      "--epochs-decay", "1", "--batch-size", "4", "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [r.get("epoch") for r in lines[:2]] == [0, 1] and lines[1]["lr"] == pytest.approx(0.0)
+    assert lines[-1] == {"lin_weights": out, "net": "alex"}
+    assert all(np.isfinite(r["loss_total"]) for r in lines[:2])
+    heads = load_lin_weights(out)
+    assert len(heads) == len(jax_load_lin_weights(out)) == 5
+    assert all(float(v.min()) >= 0.0 for v in heads.values())
 
 
 def test_bench_reads_its_knobs_and_refuses_the_cpu(monkeypatch):
@@ -178,5 +394,6 @@ def test_help_lists_the_commands():
                           capture_output=True, text=True, timeout=120,
                           env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert proc.returncode == 0, proc.stderr
-    for cmd in ("relight", "sweep", "transfer", "eval-multipie", "fix-border", "config", "bench", "train", "crop"):
+    for cmd in ("relight", "sweep", "transfer", "eval-multipie", "fix-border", "config", "bench", "train", "crop",
+                "build-cache", "lpips-train", "lpips-score", "visualize-lighting"):
         assert cmd in proc.stdout

@@ -755,3 +755,97 @@ def test_relighter_gives_the_same_bytes_from_call_to_call(dev, tier):
     for _ in range(3):
         rl.forward_visuals(*(np.repeat(a, 8, 0) for a in row))
         assert np.array_equal(rl.forward_visuals(*row).cpu().numpy(), first)
+
+
+# ---------------------------------------------------------------------------
+# Training from the CLI and the secondary models on the card
+# ---------------------------------------------------------------------------
+
+
+def small_train_cfg(**train):
+    from geomconsistentfr_torch.config import preset_target_lighting_train
+
+    cfg = preset_target_lighting_train()
+    return dataclasses.replace(
+        cfg, render=dataclasses.replace(cfg.render, img_height=32, img_width=32, num_sample_points=16, t_stop=0.105),
+        train=dataclasses.replace(cfg.train, **{"batch_size": 2, "batches_per_epoch": 3, **train}))
+
+
+def u8_cache(root, n=10, size=32):
+    import json
+
+    from geomconsistentfr_torch.data.celebahq import FIELDS
+
+    rng = np.random.default_rng(4)
+    for name, (dt, shape) in FIELDS.items():
+        shape = tuple(size if d == 256 else d for d in shape)
+        np.save(root / f"{name}.npy",
+                (rng.integers(0, 256, (n, *shape)) if dt == np.uint8 else rng.normal(size=(n, *shape))).astype(dt))
+    (root / "meta.json").write_text(json.dumps({"num_samples": n}))
+    return str(root)
+
+
+def test_resident_batches_are_the_streamed_batches_on_the_card(dev, tmp_path):
+    """The uint8 cache on the card, gathered and divided there: the streamed batches' bits."""
+    from geomconsistentfr_torch.data.celebahq import CelebAHQRelightingData
+    from geomconsistentfr_torch.train import DeviceResidentBatches, Trainer
+
+    data = CelebAHQRelightingData(u8_cache(tmp_path))
+    batches = {}
+    for residency in ("device", "stream"):
+        trainer = Trainer(small_train_cfg(data_residency=residency), data, workdir=str(tmp_path / residency))
+        assert isinstance(trainer._resident(), DeviceResidentBatches) == (residency == "device")
+        batches[residency] = list(trainer._batches(np.random.default_rng([0, 1]), 0))
+    for got, want in zip(batches["device"], batches["stream"]):
+        for k in want:
+            assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("net", ["alex", "vgg", "squeeze"])
+def test_lpips_on_the_card_matches_the_cpu(dev, net):
+    from geomconsistentfr_torch.models.lpips import LPIPSMetric
+
+    rng = np.random.default_rng(1)
+    gt = rng.uniform(0, 1, (2, 256, 256, 3)).astype(np.float32)
+    pred = np.clip(gt + rng.normal(scale=0.1, size=gt.shape), 0, 1).astype(np.float32)
+    maps = {d: LPIPSMetric(allow_random_trunk=True, net=net, device=d).batch(torch.from_numpy(gt),
+                                                                              torch.from_numpy(pred)).cpu()
+            for d in ("cuda", "cpu")}
+    assert (maps["cuda"] - maps["cpu"]).abs().max().item() <= 1e-4 * maps["cpu"].abs().max().item()
+
+
+def test_s3fd_heads_on_the_card_match_the_cpu(dev):
+    from geomconsistentfr_torch.models.s3fd import S3FD, heads
+
+    img = np.random.default_rng(2).integers(0, 256, (228, 228, 3)).astype(np.uint8)
+    model = S3FD(generator=torch.Generator().manual_seed(3))
+    cpu = heads(model, img)
+    card = heads(model.to(dev), img)
+    for i, (g, w) in enumerate(zip(card, cpu)):
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), i
+
+
+def test_cli_train_epoch_equals_an_in_process_trainer(dev, tmp_path, capsys):
+    """`cli train` of one-batch epochs with the set on the card: epoch 0's losses (its first
+    step's, which precede any update) are an in-process streaming Trainer's."""
+    import json
+
+    from geomconsistentfr_torch import cli
+    from geomconsistentfr_torch.data.celebahq import CelebAHQRelightingData
+    from geomconsistentfr_torch.train import Trainer
+
+    (tmp_path / "cache").mkdir()
+    cache = u8_cache(tmp_path / "cache")
+    config = {"render": {"img_height": 32, "img_width": 32, "num_sample_points": 16, "t_stop": 0.105},
+              "train": {"batch_size": 2, "batches_per_epoch": 1, "data_residency": "device"}}
+    (tmp_path / "cfg.json").write_text(json.dumps(config))
+    assert cli.main(["train", "--config", str(tmp_path / "cfg.json"), "--data", cache, "--epochs", "2",
+                     "--out", str(tmp_path / "run")]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    trainer = Trainer(small_train_cfg(batches_per_epoch=1, data_residency="stream"), CelebAHQRelightingData(cache),
+                      workdir=str(tmp_path / "ref"))
+    _, want = trainer.run_epoch(trainer.init_or_resume(), 0)
+    assert [m["epoch"] for m in lines] == [0, 1]
+    for k in want:
+        if k != "seconds":
+            assert lines[0][k] == want[k], k

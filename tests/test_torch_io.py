@@ -32,6 +32,7 @@ import torch
 from geomconsistentfr_torch import config as TC
 from geomconsistentfr_torch import lighting_presets as TL
 from geomconsistentfr_torch import postprocess as TP
+from geomconsistentfr_torch.data import native_loader
 from geomconsistentfr_torch.metrics import image_metrics as TM
 from geomconsistentfr_torch.render import RenderOutputs
 from geomconsistentfr_torch.utils import io as TIO
@@ -338,6 +339,8 @@ def test_jpeg_encoder_is_named_when_missing(monkeypatch):
     img = np.zeros((16, 16, 3), np.uint8)
     assert TIO.encode_jpeg(img)[:2] == b"\xff\xd8"
     block_codecs(monkeypatch)
+    assert TIO.encode_jpeg(img)[:2] == b"\xff\xd8"  # libjpeg, through the port's native loader
+    monkeypatch.setattr(native_loader, "has_native_jpeg", lambda: False)
     with pytest.raises(TIO.NoJpegEncoder, match="no JPEG encoder"):
         TIO.encode_jpeg(img)
 

@@ -6,6 +6,7 @@ port's image files go through its own PNG codec.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -71,6 +72,8 @@ from geomconsistentfr_torch import cli, serve
 
 for main, argv in ((cli.main, ["relight", "--checkpoint", os.path.join(tmp, "w.pth"), "--image", "x.png",
                                 "--mask", "x.png", "--light-preset", "A00E45"]),
+                   (cli.main, ["train", "--epochs", "1", "--out", os.path.join(tmp, "run")]),
+                   (cli.main, ["lpips-score", "--data-root", tmp, "--random-trunk"]),
                    (serve.main, ["--checkpoint", os.path.join(tmp, "w.pth"), "--port", "0"])):
     try:
         main(argv)
@@ -104,3 +107,17 @@ def test_no_forbidden_import_statement(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
+
+
+# The JAX package's native loader: its directory at the repo's root, and the
+# library it builds there. The port builds its own from csrc/ into build/native/.
+JAX_NATIVE = (re.compile(r"(?<![\w/])native/"), re.compile(r"[)\]]\s*/\s*[\"']native[\"']"),
+              re.compile("libgcfr_dataloader"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_file_names_the_jax_native_loader(path):
+    text = path.read_text()
+    for pattern in JAX_NATIVE:
+        found = pattern.search(text)
+        assert found is None, f"{path.name} names {found.group(0)!r}"

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from geomconsistentfr_torch import serve as tserve
+from geomconsistentfr_torch.data import native_loader
 from geomconsistentfr_torch.config import apply_precision_tier, preset_single_image
 from geomconsistentfr_torch.infer import Relighter
 from geomconsistentfr_torch.lighting_presets import LIGHT_PRESETS
@@ -329,6 +330,7 @@ def test_jpeg_present_or_refused(state, inputs, monkeypatch):
 
         for name in CODEC_PACKAGES:  # a machine without OpenCV, imageio or Pillow
             monkeypatch.setitem(sys.modules, name, None)
+        monkeypatch.setattr(native_loader, "has_native_jpeg", lambda: False)  # nor libjpeg
         status, payload = srv.request("POST", "/relight", {**body, "format": "jpeg"})
         assert status == 400 and "no JPEG encoder" in payload["error"]
         status, again = srv.request("POST", "/relight", body)

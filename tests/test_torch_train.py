@@ -39,6 +39,7 @@ from geomconsistentfr_torch import config as TC
 from geomconsistentfr_torch import train as TT
 from geomconsistentfr_torch.convert import adam_moments_from_optax, state_dict_from_jax_variables
 from geomconsistentfr_torch.data import celebahq as TD
+from geomconsistentfr_torch.parallel.mesh import Mesh
 from geomconsistentfr_torch.utils import checkpoint as ckpt
 from geomconsistentfr_tpu import config as JC
 from geomconsistentfr_tpu import train as JT
@@ -305,8 +306,13 @@ def test_run_epoch_exports_metrics(tmp_path):
 def test_trainer_refuses_what_it_does_not_do():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.Trainer(trainer_cfg())  # no CUDA device here, and no device asked for
-    with pytest.raises(NotImplementedError):
-        TT.Trainer(trainer_cfg(data_residency="device"), device="cpu")
+    # The whole set on the device runs on one rank (tests/test_torch_train_surface.py runs it);
+    # on a mesh of several ranks 'device' is refused rather than streamed silently.
+    two_ranks = Mesh(("data",), (2,), 0, (0,), (None,), None, torch.device("cpu"))
+    with pytest.raises(ValueError, match="2 ranks"):
+        TT.Trainer(trainer_cfg(data_residency="device"), mesh=two_ranks)
+    assert isinstance(TT.Trainer(trainer_cfg(data_residency="device"), data=TD.SyntheticFaceData(4, size=32),
+                                 device="cpu")._resident(), TT.DeviceResidentBatches)
 
 
 # ---------------------------------------------------------------------------
