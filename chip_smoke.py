@@ -79,13 +79,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
               lone /relight per tier byte-equal to forward_visuals at batch
               1, eight concurrent strict requests coalesced (within one
               level), /estimate, /transfer, JPEG (or its 400), a bad tier;
-              then 16 client threads x 128 PNG requests at the default tier
+              then 16 client threads x 32 PNG requests at the default tier
               (req/s, p50 and p99, /statz, the host's decode and encode ms
               a request, the cores the server and the clients kept busy)
               and SIGTERM during a burst: every admitted request answered.
- 10. eval     `cli eval-multipie` on a synthetic Multi-PIE directory of 862
-              triples (the protocol's count) tiled from the goldens and their
-              mirror images, scored with LPIPS (alex: a seeded trunk in
+ 10. eval     `cli eval-multipie` on a synthetic Multi-PIE directory of 64
+              triples (the protocol has 862; cut for the time limit) tiled
+              from the goldens and their mirror images, scored with LPIPS (alex: a seeded trunk in
               torchvision's layout and seeded heads in the LPIPS library's):
               the dump byte-equal to forward_visuals of the same batches, the
               printed metrics equal to evaluate_output_dir's, the LPIPS mean
@@ -119,6 +119,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
               CPU (1e-4 relative); S3FD ms a frame, the command's seconds.
      visualize_lighting  `cli visualize-lighting`: the 21 presets' spheres
               equal to lighting_sphere here.
+     orbax    the committed full-width orbax fixture that the JAX package
+              wrote (tests/golden/orbax_relightnet_seed0: RelightNet's
+              transfer-variant variables, OCDBT, zstd chunks) read by the
+              port's own reader, every leaf against its sha256 and the read's
+              seconds; load_relighter on the directory at strict and draft,
+              forward_visuals of the goldens (batch 8) byte-equal to a
+              Relighter of the same weights in memory; `cli convert` of the
+              surface's .pth, read back to the same tensors.
+     launch   two ranks under `python -m torch.distributed.run --standalone
+              --nproc-per-node 2` sharing the card over gloo (each rank under
+              the wrapper, which also records its exit code). Four commands
+              at once: `cli relight --sample-parallel` at strict and draft,
+              its PNGs byte-equal to phase cli's; `cli eval-multipie
+              --data-parallel` on phase eval's triples, byte-equal to its
+              dump (a row that differs is held at each rank's half batch in
+              this process, and the bytes and levels it differs by at the
+              whole batch are printed); `cli train` (batch 4, two epochs of
+              two steps, lr 1e-6) within LATER_STEP_BARS of the same epochs
+              here. Then the server with --data-parallel and with
+              --grid-parallel 1x2: a lone request per tier byte-equal to
+              forward_visuals at batch 1, phase serve's load (req/s, p50,
+              p99 beside its one-rank numbers), every answer equal to one
+              process at the batch sizes the server pads to (or at each
+              rank's half of them), every tier built over both ranks, then
+              SIGTERM: every rank exits 0.
  11. timing   each kernel's time per launch beside its bound and its plain
               version's time, at the main paths' shapes, after holding the
               two outputs against each other; the draft staging alone; the
@@ -148,6 +173,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
               process on the card. Per-rank times are labelled "2 ranks on
               one <card>": two ranks on one card scale nothing. The train
               and parallel phases run last, so the others run as before.
+The phases from cli to launch (7-10 and those named) run in phase_surface.
 Then the `kernels` JSON line (K1-K4 and K5, `march_sp`), the nvidia-smi
 line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -872,7 +898,7 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
 CUDNN_BATCHES = (1, 8, 64)
 
 
-def phase_cudnn(goldens, dev, seed=0, rounds=6):
+def phase_cudnn(goldens, dev, seed=0, rounds=4):
     """What running the CNN under cuDNN's deterministic algorithms (as
     Relighter._net does) costs and buys, at strict and fast: the CNN's ms at
     each of CUDNN_BATCHES under cuDNN's defaults and under deterministic_convs
@@ -945,33 +971,59 @@ def _run_in(ctx, fn, *args):
 # and at exit writes the process's kernel launches (shadows_cuda.LAUNCHES,
 # zero at its start) and its clock to a JSON file: when the wrapper started,
 # when torch, the package and the CUDA context were up, and the exit.
+# Under torchrun each rank writes <report>.rank<RANK>.json, with its exit code.
 RUN_MODULE = r"""
-import atexit, json, runpy, sys, time
+import atexit, json, os, runpy, sys, time
 t_start = time.time()
 report_path, module = sys.argv[1], sys.argv[2]
+if "RANK" in os.environ:
+    report_path = report_path[:-len(".json")] + f".rank{os.environ['RANK']}.json"
 import torch
 from geomconsistentfr_torch.ops import shadows_cuda
 torch.zeros(1, device="cuda")
 t_ready = time.time()
+exit_code = [None]
 
 def report():
     with open(report_path, "w") as f:
         json.dump({"launches": dict(shadows_cuda.LAUNCHES), "t_start": t_start, "t_ready": t_ready,
-                   "t_end": time.time()}, f)
+                   "t_end": time.time(), "exit_code": exit_code[0]}, f)
 
 atexit.register(report)
 sys.argv = [module] + sys.argv[3:]
-runpy.run_module(module, run_name="__main__", alter_sys=True)
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    exit_code[0] = 0
+except SystemExit as e:
+    exit_code[0] = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+    raise
 """
 BENCH_REL_BAR = 0.15  # the bench's img/s within 15% of the e2e phase's, tier by tier
-SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 128  # 2048 requests: 10 s or more of load
+# 512 requests (2048 until PR 9, cut for the time limit); the launch phase's
+# two-rank servers take the same load beside this one-rank server.
+SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 32
 SERVE_BODIES = 64  # distinct request bodies (lights), reused round robin
-EVAL_IMAGES, EVAL_BATCH = 862, 8  # the whole protocol's count of images
+# The protocol has 862 images; 64 keep the script within its time limit (the
+# launch phase runs the same 64 over two ranks).
+EVAL_IMAGES, EVAL_BATCH = 64, 8
 SERVE_WARMUP_FORWARDS = 4 * 2  # every tier at the two batch sizes (1 and --max-batch 8)
 
 
 def module_cmd(report: Path, module: str, *args) -> list:
     return [sys.executable, "-c", RUN_MODULE, str(report), module, *map(str, args)]
+
+
+def torchrun_cmd(tmp: Path, report: Path, ranks: int, module: str, *args) -> list:
+    """`python -m torch.distributed.run` of `ranks` ranks on this host, each running RUN_MODULE."""
+    script = tmp / "run_module.py"
+    if not script.exists():
+        script.write_text(RUN_MODULE)
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks),
+            str(script), str(report), module, *map(str, args)]
+
+
+def rank_reports(report: Path, ranks: int) -> list:
+    return [json.loads(report.with_name(f"{report.stem}.rank{r}.json").read_text()) for r in range(ranks)]
 
 
 def module_env(**extra) -> dict:
@@ -1157,16 +1209,19 @@ def phase_bench(tmp: Path, e2e: dict) -> dict:
 
 
 class ServerProcess:
-    """`python -m geomconsistentfr_torch.serve` in a process of its own, on a free port."""
+    """`python -m geomconsistentfr_torch.serve` in a process of its own (with `ranks`, that many
+    ranks under torchrun), on a free port."""
 
-    def __init__(self, tmp: Path, *args):
+    def __init__(self, tmp: Path, *args, ranks: int = 0, tag: str = "serve"):
         import threading
 
-        self.report = tmp / "serve.run.json"
-        self.stderr = open(tmp / "serve.stderr", "w+")
+        self.report = tmp / f"{tag}.run.json"
+        self.stderr = open(tmp / f"{tag}.stderr", "w+")
         self.t0 = time.time()
-        self.proc = subprocess.Popen(module_cmd(self.report, "geomconsistentfr_torch.serve", *args), cwd=ROOT,
-                                     env=module_env(), stdout=subprocess.PIPE, stderr=self.stderr, text=True)
+        cmd = (torchrun_cmd(tmp, self.report, ranks, "geomconsistentfr_torch.serve", *args) if ranks
+               else module_cmd(self.report, "geomconsistentfr_torch.serve", *args))
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=module_env(), stdout=subprocess.PIPE, stderr=self.stderr,
+                                     text=True)
         self.lines = []
         watchdog = threading.Timer(300.0, self.proc.kill)  # a server that never serves is killed
         watchdog.start()
@@ -1175,6 +1230,8 @@ class ServerProcess:
             if not line:
                 watchdog.cancel()
                 self.fail("exited before it served")
+            if not line.startswith("{"):
+                continue
             self.lines.append(json.loads(line))
             if "serving" in self.lines[-1]:
                 break
@@ -1182,9 +1239,9 @@ class ServerProcess:
         self.port = int(self.lines[-1]["serving"].rsplit(":", 1)[1])
         self.ready_s = time.time() - self.t0
 
-    def fail(self, what: str):
+    def fail(self, what: str, phase: str = "serve"):
         self.stderr.seek(0)
-        raise PhaseError(f"serve: the server {what}: {self.stderr.read()[-3000:]}")
+        raise PhaseError(f"{phase}: the server {what}: {self.stderr.read()[-3000:]}")
 
     def request(self, method: str, path: str, body=None, timeout: float = 120.0):
         import http.client
@@ -1417,7 +1474,7 @@ def phase_serve(files, tmp: Path, seed: int = 0) -> dict:
          lone=lone, coalesced=dict(batches=batches, max_level_diff=worst), jpeg=jpeg_result, load=load,
          drain=dict(burst=len(results), answered=answered, admitted=admitted, answered_after_sigterm=in_flight,
                     refused=len(results) - answered))
-    return launches
+    return launches, load
 
 
 def phase_eval(goldens, files, tmp: Path, lpips_files: tuple) -> dict:
@@ -1898,9 +1955,406 @@ def phase_visualize_lighting(tmp: Path) -> None:
     emit("visualize_lighting", ok=True, spheres=len(LIGHT_PRESETS), wall_s=r["wall_s"], startup_s=r["startup_s"])
 
 
+# ---------------------------------------------------------------------------
+# Orbax checkpoints (the port's own reader and writer) and the multi-rank
+# launch of the CLI, the trainer and the server under torchrun.
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = GOLDEN / "orbax_relightnet_seed0"  # tests/torch_make_orbax_fixture.py wrote it with JAX
+ORBAX_HASHES = GOLDEN / "orbax_relightnet_seed0.sha256.json"
+ORBAX_BATCH = 8  # the golden faces, through a Relighter loaded from the fixture
+LAUNCH_RANKS = 2  # ranks of each torchrun, on the one card (gloo)
+# `cli train` over two ranks: batch 4 (two images a rank), two epochs of two
+# steps. At the preset's lr 1e-4 the GAN amplifies the order of the ranks'
+# sums (BatchNorm moments, march_grad's and cuDNN's atomics) into percents of
+# a loss within a few steps (phase train_cli); at 1e-6 the four steps stay
+# within LATER_STEP_BARS of one process, so they can be held there.
+LAUNCH_TRAIN = {"train": {"batch_size": 4, "batches_per_epoch": 2, "learning_rate": 1e-6, "log_every_steps": 1,
+                          "checkpoint_every_steps": 0}}
+LAUNCH_TRAIN_SAMPLES = 16
+
+
+def phase_orbax(goldens, files, tmp: Path) -> dict:
+    """The committed JAX-written fixture through the port's reader (every leaf to its sha256),
+    load_relighter on it against a Relighter of the same weights in memory (strict and draft,
+    bytes), and `cli convert` of the surface's .pth read back."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.convert import (
+        load_checkpoint,
+        state_dict_from_jax_variables,
+        transfer_to_target_variant,
+    )
+    from geomconsistentfr_torch.infer import Relighter, load_relighter
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.utils import zstd
+    from geomconsistentfr_torch.utils.checkpoint import restore_variables
+
+    started = time.perf_counter()
+    want = json.loads(ORBAX_HASHES.read_text())
+    reads = []
+    for _ in range(3):
+        t = time.perf_counter()
+        tree = restore_variables(str(ORBAX_FIXTURE))
+        reads.append(time.perf_counter() - t)
+    flat = {f"{group}.{module}.{leaf}": v for group, modules in tree.items() for module, leaves in modules.items()
+            for leaf, v in leaves.items()}
+    check(sorted(flat) == sorted(want["leaves"]), "orbax", f"read {len(flat)} leaves, the hashes list "
+          f"{len(want['leaves'])}")
+    for name, v in flat.items():
+        h = want["leaves"][name]
+        check(v.dtype.str == h["dtype"] and list(v.shape) == h["shape"]
+              and hashlib.sha256(v.tobytes()).hexdigest() == h["sha256"], "orbax", f"{name} differs from its hash")
+    values = int(sum(v.size for v in flat.values()))
+    check(values == want["num_values"], "orbax", f"{values} values, the hashes say {want['num_values']}")
+    on_disk = sum(p.stat().st_size for p in ORBAX_FIXTURE.rglob("*") if p.is_file())
+
+    dev = torch.device("cuda")
+    batch = goldens[:ORBAX_BATCH]
+    images = torch.from_numpy(np.stack([g["image"] for _, g in batch])).to(dev)
+    masks = torch.from_numpy(np.stack([g["mask"] for _, g in batch])).to(dev)
+    lights = torch.from_numpy(np.stack([g["target_light"][0] for _, g in batch]).astype(np.float32)).to(dev)
+    state = transfer_to_target_variant(state_dict_from_jax_variables(tree))
+    launches, tiers = counts(), {}
+    for tier in ("strict", "draft"):
+        cfg = C.apply_precision_tier(C.preset_single_image(), tier)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rl = load_relighter(str(ORBAX_FIXTURE), cfg=cfg)
+        load_s = time.perf_counter() - t
+        reset_launches()
+        got = rl.forward_visuals(images, masks, lights).cpu()
+        n = dict(K.LAUNCHES)
+        check(n == TIER_LAUNCHES[tier], "orbax", f"{tier}: the forward launched {n}")
+        add_launches(launches, n)
+        ref = Relighter(cfg, state).forward_visuals(images, masks, lights).cpu()
+        diff = int((got != ref).sum())
+        check(diff == 0, "orbax", f"{tier}: load_relighter(dir) differs from the weights in memory in {diff} bytes")
+        tiers[tier] = dict(load_relighter_s=load_s, batch=ORBAX_BATCH, bytes_equal=True)
+        del rl
+
+    out = tmp / "converted"
+    r = run_module(tmp, "orbax", "convert", "geomconsistentfr_torch.cli", "convert", "--pth", files["pth"],
+                   "--out", out)
+    report = last_json(r["stdout"])
+    pth = load_checkpoint(files["pth"])
+    n_values = sum(v.numel() for k, v in pth.items() if not k.endswith("num_batches_tracked"))
+    check(report == {"out": str(out), "num_values": n_values}, "orbax", f"convert printed {report}")
+    back = state_dict_from_jax_variables(restore_variables(str(out)))
+    same = sorted(back) == sorted(pth) and all(torch.equal(back[k], pth[k]) for k in pth)
+    check(same, "orbax", "the converted checkpoint reads back to other tensors than the .pth")
+    check(not any(r["launches"].values()), "orbax", f"convert launched {r['launches']}")
+    emit("orbax", ok=True, fixture=str(ORBAX_FIXTURE.relative_to(ROOT)), leaves=len(flat), values=values,
+         bytes_on_disk=on_disk, read_s=sorted(reads)[1], read_s_each=reads, libzstd=zstd.version(), tiers=tiers,
+         launches=launches, convert=dict(num_values=n_values, wall_s=r["wall_s"], startup_s=r["startup_s"],
+                                         run_s=r["run_s"], read_back="equal"),
+         seconds=time.perf_counter() - started)
+    return launches
+
+
+def start_ranks(tmp: Path, tag: str, module: str, *args) -> dict:
+    """Start `python -m module args` as LAUNCH_RANKS ranks under torchrun; finish_ranks waits for it."""
+    report = tmp / f"{tag}.run.json"
+    out, err = open(tmp / f"{tag}.stdout", "w+"), open(tmp / f"{tag}.stderr", "w+")
+    proc = subprocess.Popen(torchrun_cmd(tmp, report, LAUNCH_RANKS, module, *args), cwd=ROOT, env=module_env(),
+                            stdout=out, stderr=err, text=True)
+    return dict(tag=tag, proc=proc, report=report, out=out, err=err, t0=time.time())
+
+
+def finish_ranks(run: dict, timeout=600) -> dict:
+    """Rank 0's stdout, the launches of each rank, the seconds (wall, start-up to the slowest rank's
+    CUDA context, run) of a start_ranks run; fails unless torchrun and every rank exited 0."""
+    tag, proc = run["tag"], run["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    wall = time.time() - run["t0"]
+    run["out"].seek(0)
+    run["err"].seek(0)
+    stdout, stderr = run["out"].read(), run["err"].read()
+    run["out"].close()
+    run["err"].close()
+    check(proc.returncode == 0, "launch", f"{tag}: torchrun exited {proc.returncode}: {stderr[-3000:]}")
+    reps = rank_reports(run["report"], LAUNCH_RANKS)
+    check(all(rep["exit_code"] == 0 for rep in reps), "launch", f"{tag}: ranks exited {[r['exit_code'] for r in reps]}")
+    ready = max(rep["t_ready"] for rep in reps)
+    return dict(stdout=stdout, per_rank=[rep["launches"] for rep in reps], wall_s=wall,
+                startup_s=ready - run["t0"], run_s=max(rep["t_end"] for rep in reps) - ready)
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def png_diff(a_path, b_path) -> tuple:
+    """(bytes that differ, the largest difference in levels) between two PNGs' pixels."""
+    import numpy as np
+
+    from geomconsistentfr_torch.utils.io import imread
+
+    a, b = imread(str(a_path)).astype(np.int16), imread(str(b_path)).astype(np.int16)
+    return int(np.count_nonzero(a != b)), int(np.abs(a - b).max())
+
+
+def expected_rows(rl, img, msk, lights, b: int):
+    """forward_visuals of each light as a row of a batch of b copies of the face: (rendered, weights)."""
+    import numpy as np
+
+    out = []
+    for start in range(0, len(lights), b):
+        rows = [lights[(start + k) % len(lights)] for k in range(b)]
+        pack = rl.forward_visuals(np.repeat(img[None], b, 0), np.repeat(msk[None], b, 0), np.asarray(rows),
+                                  np.full((b,), 0.5, np.float32)).cpu().numpy()
+        out += [(p[..., 0:3], p[..., 3]) for p in pack[:min(b, len(lights) - start)]]
+    return out
+
+
+def launch_server(files, tmp: Path, tag: str, flags: tuple, lone_rows: dict, load_rows: dict, sizes: dict, lights):
+    """The server as LAUNCH_RANKS ranks under torchrun: a lone request per tier byte-equal to
+    forward_visuals at batch 1 (lone_rows), phase serve's closed-loop load at the default tier with
+    every answer held against one process at the batch sizes `sizes` (load_rows: batch size -> a row
+    per light), then SIGTERM: every rank exits 0."""
+    import base64
+    import signal
+    import threading
+
+    import numpy as np
+
+    from geomconsistentfr_torch.utils.io import decode_image
+
+    base = {"image": b64_file(files["transfer_00104"]), "mask": b64_file(files["transfer_00104_mask"])}
+    started = time.perf_counter()
+    server = ServerProcess(tmp, "--checkpoint", files["pth"], "--port", "0", "--warmup", *flags,
+                           ranks=LAUNCH_RANKS, tag=f"launch_{tag}")
+    try:
+        serving = server.lines[-1]
+        check(serving.get("ranks") == LAUNCH_RANKS, "launch", f"{tag}: serving line {serving}")
+        lone = {}
+        for k, tier in enumerate(("strict", "high", "draft")):
+            status, payload = server.request("POST", "/relight", {**base, "light": lights[k].tolist(),
+                                                                  "precision": tier})
+            check(status == 200, "launch", f"{tag}: lone {tier}: {status} {payload}")
+            rendered, weights = lone_rows[tier][k]
+            got = (decode_image(base64.b64decode(payload["rendered"])),
+                   decode_image(base64.b64decode(payload["shadow_mask"])))
+            check(np.array_equal(got[0], rendered) and np.array_equal(got[1], weights), "launch",
+                  f"{tag}: a lone {tier} request differs from forward_visuals at batch 1")
+            lone[tier] = "byte-equal"
+
+        bodies = [json.dumps({**base, "light": lights[k].tolist()}) for k in range(len(lights))]
+        latencies, answers, lock = [], [], threading.Lock()
+
+        def client(c):
+            mine = []
+            for j in range(SERVE_PER_CLIENT):
+                k = (c * SERVE_PER_CLIENT + j) % len(lights)
+                t = time.perf_counter()
+                status, payload = server.request("POST", "/relight", bodies[k])
+                mine.append((time.perf_counter() - t, k, status, payload))
+            with lock:
+                latencies.extend(m[0] for m in mine)
+                answers.extend(m[1:] for m in mine)
+
+        _, s0 = server.request("GET", "/statz")
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        _, s1 = server.request("GET", "/statz")
+        n = SERVE_CLIENTS * SERVE_PER_CLIENT
+        check(len(answers) == n and all(a[1] == 200 for a in answers), "launch", f"{tag}: {len(answers)} answers")
+        # Each answer against one process: first at the batch sizes the server pads to (B), else at each
+        # rank's share of them (B / 2, data mode), where cuDNN may pick other algorithms.
+        held = {"at_B": 0, "at_B_over_2": 0}
+        worst = dict(bytes_at_B=0, levels_at_B=0)
+        for k, _, payload in answers:
+            got = (decode_image(base64.b64decode(payload["rendered"])),
+                   decode_image(base64.b64decode(payload["shadow_mask"])))
+
+            def equal(b):
+                return all(np.array_equal(g, w) for g, w in zip(got, load_rows[b][k]))
+
+            if any(equal(b) for b in sizes["B"]):
+                held["at_B"] += 1
+                continue
+            check(any(equal(b) for b in sizes["B_over_2"]), "launch",
+                  f"{tag}: light {k}'s answer equals no one-process forward_visuals at {sizes}")
+            held["at_B_over_2"] += 1
+            diffs = [(sum(int(np.count_nonzero(g != w)) for g, w in zip(got, load_rows[b][k])),
+                      max(int(np.abs(g.astype(np.int16) - w).max()) for g, w in zip(got, load_rows[b][k])))
+                     for b in sizes["B"]]
+            nbytes, levels = min(diffs)
+            worst = dict(bytes_at_B=max(worst["bytes_at_B"], nbytes), levels_at_B=max(worst["levels_at_B"], levels))
+        delta = {k: s1[k] - s0[k] for k in ("batches", "batched_rows", "padded_rows", "errors")}
+        lat = np.asarray(latencies) * 1e3
+        load = dict(clients=SERVE_CLIENTS, requests=n, wall_s=wall, req_per_s=n / wall,
+                    p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)), statz=delta,
+                    mean_batch_rows=delta["batched_rows"] / max(delta["batches"], 1), answers=held, **worst)
+        server.proc.send_signal(signal.SIGTERM)
+        out, _ = server.proc.communicate(timeout=120)
+    finally:
+        server.close()
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    final = next((x for x in lines if "drained" in x), None)
+    follower = next((x for x in lines if "follower" in x), None)
+    check(final is not None and final["drained"], "launch", f"{tag}: after SIGTERM rank 0 printed {lines}")
+    reps = rank_reports(server.report, LAUNCH_RANKS)
+    check(all(rep["exit_code"] == 0 for rep in reps), "launch",
+          f"{tag}: after SIGTERM the ranks exited {[rep['exit_code'] for rep in reps]}")
+    check(follower is not None and follower["tiers"] == final["tiers"]
+          and all(v["ranks"] == LAUNCH_RANKS for v in final["tiers"].values()), "launch",
+          f"{tag}: tiers {final['tiers']}, follower {follower}")
+    per_rank = [rep["launches"] for rep in reps]
+    for r, n_r in enumerate(per_rank):
+        check(all(n_r[k] > 0 for k in ("stage", "march", "march_argmin", "refine")), "launch",
+              f"{tag}: rank {r} launched {n_r}")
+    return per_rank, dict(flags=list(flags), serving=serving, ready_s=server.ready_s, lone=lone, load=load,
+                          sigterm=dict(exit_codes=[rep["exit_code"] for rep in reps], drained=final["drained"]),
+                          launches_per_rank=per_rank, tiers=final["tiers"], seconds=time.perf_counter() - started)
+
+
+def phase_launch(files, tmp: Path, serve_load: dict) -> dict:
+    """Two ranks under torchrun sharing the card (gloo). At once: `cli relight --sample-parallel`
+    (strict, draft) and `cli eval-multipie --data-parallel` against the single-process runs of
+    phases cli and eval, and `cli train` against the same epochs in this process. Then the server
+    with --data-parallel and with --grid-parallel 1x2 at phase serve's load (beside its one-rank
+    numbers, `serve_load`), and SIGTERM."""
+    import numpy as np
+    import scipy.io
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+    from geomconsistentfr_torch.train import Trainer
+    from geomconsistentfr_torch.utils.io import imread, read_image_u8, read_mask_u8
+
+    started = time.perf_counter()
+    label = f"{LAUNCH_RANKS} ranks on one {torch.cuda.get_device_name(0)}"
+    launches, rows = counts(), {}
+    pth, image, mask = files["pth"], files["transfer_00104"], files["transfer_00104_mask"]
+    root = tmp / "multipie"  # phase eval's triples and dump
+    cfg_path = tmp / "launch_train.json"
+    cfg_path.write_text(json.dumps(LAUNCH_TRAIN))
+
+    # The four commands run at the same time (their start-up is most of each); each is
+    # checked by its bytes or losses, which do not depend on the others.
+    runs = {f"relight_{tier}": start_ranks(tmp, f"launch_relight_{tier}", "geomconsistentfr_torch.cli",
+                                           "relight", "--sample-parallel", "--checkpoint", pth, "--precision",
+                                           tier, "--image", image, "--mask", mask, "--light-preset",
+                                           "multipie_14", "--out", tmp / f"launch_relight_{tier}")
+            for tier in ("strict", "draft")}
+    runs["eval"] = start_ranks(tmp, "launch_eval", "geomconsistentfr_torch.cli", "eval-multipie", "--data-parallel",
+                               "--checkpoint", pth, "--data-root", root, "--batch-size", EVAL_BATCH,
+                               "--out", tmp / "launch_eval")
+    runs["train"] = start_ranks(tmp, "launch_train", "geomconsistentfr_torch.cli", "train", "--data", "synthetic",
+                                "--synthetic-samples", LAUNCH_TRAIN_SAMPLES, "--config", cfg_path, "--epochs", 2,
+                                "--out", tmp / "launch_train")
+    results = {name: finish_ranks(run) for name, run in runs.items()}
+    commands_s = time.perf_counter() - started
+
+    def row(r, **extra):
+        for n in r["per_rank"]:
+            add_launches(launches, n)
+        return dict(per_rank=r["per_rank"], wall_s=r["wall_s"], startup_s=r["startup_s"], run_s=r["run_s"], **extra)
+
+    # relight --sample-parallel against phase cli's single-process PNGs.
+    for tier in ("strict", "draft"):
+        r, out, one = results[f"relight_{tier}"], tmp / f"launch_relight_{tier}", tmp / f"cli_relight_{tier}"
+        check(len(json_lines(r["stdout"])) == 1, "launch", f"relight {tier}: {r['stdout'][-500:]}")
+        check(r["per_rank"] == [SAMPLES_LAUNCHES[tier]] * LAUNCH_RANKS, "launch",
+              f"relight {tier}: the ranks launched {r['per_rank']}")
+        names = sorted(p.name for p in one.iterdir())
+        check(len(names) == 7 and sorted(p.name for p in out.iterdir()) == names, "launch", f"relight {tier}: files")
+        for name in names:
+            check((out / name).read_bytes() == (one / name).read_bytes(), "launch",
+                  f"relight {tier}: {name} differs from the single-process run")
+        rows[f"relight_{tier}"] = row(r, files_byte_equal=len(names))
+
+    # eval-multipie --data-parallel against phase eval's dump.
+    r, out, dump = results["eval"], tmp / "launch_eval", tmp / "eval_dump"
+    metrics = json_lines(r["stdout"])
+    check(len(metrics) == 1 and metrics[0]["num_inferred"] == EVAL_IMAGES, "launch", f"eval printed {metrics}")
+    batches = EVAL_IMAGES // EVAL_BATCH
+    check(r["per_rank"] == [counts(stage=batches, march=batches)] * LAUNCH_RANKS, "launch",
+          f"eval: the ranks launched {r['per_rank']}")
+    kinds = ("rendered_image", "shadow_mask", "albedo", "depth", "shading", "surface_normals")
+    differ = [(i, kind) for i in range(EVAL_IMAGES) for kind in kinds
+              if (out / f"{i:03d}_{kind}.png").read_bytes() != (dump / f"{i:03d}_{kind}.png").read_bytes()]
+    at_b = [png_diff(out / f"{i:03d}_{kind}.png", dump / f"{i:03d}_{kind}.png") for i, kind in differ]
+    if differ:  # each rank ran half of each batch: hold those rows at B / 2 in one process
+        rl = surface_relighter(pth, "multipie_eval", "high")
+        directions = scipy.io.loadmat(root / "MP_lighting_directions.mat")["lighting_directions"]
+        half = EVAL_BATCH // LAUNCH_RANKS
+        dirs = (root / "input_images_MP_18_lightings", root / "MP_depth_masks_fill_nose")
+        for start in sorted({i - i % half for i, _ in differ}):
+            idx = range(start, start + half)
+            pack = rl.forward_visuals(np.stack([read_image_u8(str(dirs[0] / f"{i:03d}.png")) for i in idx]),
+                                      np.stack([read_mask_u8(str(dirs[1] / f"{i:03d}.png")) for i in idx]),
+                                      target_light=np.asarray([directions[i % 18] for i in idx], np.float32))
+            for k, i in enumerate(idx):
+                pack_files_equal({kind: str(out / f"{i:03d}_{kind}.png") for kind in kinds}, pack[k].cpu().numpy(),
+                                 "launch", f"eval image {i} at batch {half}")
+    rows["eval"] = row(r, images=EVAL_IMAGES, batch=EVAL_BATCH, files=EVAL_IMAGES * len(kinds),
+                       files_differing_at_B=len(differ), bytes_differing_at_B=sum(b for b, _ in at_b),
+                       max_levels_at_B=max((lv for _, lv in at_b), default=0),
+                       held_at_B_over_2=len({i for i, _ in differ}))
+
+    # cli train: two epochs of two data-parallel steps, against the same epochs in this process.
+    r = results["train"]
+    epochs = json_lines(r["stdout"])
+    check([m["epoch"] for m in epochs] == [0, 1], "launch", f"train printed {epochs}")
+    steps = 2 * LAUNCH_TRAIN["train"]["batches_per_epoch"]
+    want = {k: steps * v for k, v in TRAIN_STEP_LAUNCHES.items()}
+    check(r["per_rank"] == [want] * LAUNCH_RANKS, "launch", f"train: the ranks launched {r['per_rank']}")
+    cfg = C.load_config(str(cfg_path), preset="target_lighting_train")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, data_residency="stream"))
+    trainer = Trainer(cfg, SyntheticFaceData(num_samples=LAUNCH_TRAIN_SAMPLES, size=256),
+                      workdir=str(tmp / "launch_train_here"))
+    state, rels = trainer.init_or_resume(), []
+    for epoch, got in enumerate(epochs):
+        state, here = trainer.run_epoch(state, epoch)
+        rels.append(max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in here.items() if k not in ("epoch", "seconds")))
+    check(max(rels) <= LATER_STEP_BARS["loss_rel"], "launch",
+          f"train: the epochs' losses are {rels} from one process's (bar {LATER_STEP_BARS['loss_rel']})")
+    rows["train"] = row(r, batch=LAUNCH_TRAIN["train"]["batch_size"], steps=steps, loss_rel_to_one_process=rels,
+                        bar=LATER_STEP_BARS["loss_rel"], epochs=epochs)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # The servers in data and grid mode, each alone on the card, at phase serve's load.
+    img, msk = imread(image), imread(mask)
+    rng = np.random.default_rng(0)
+    lights = rng.normal(size=(SERVE_BODIES, 3)).astype(np.float32)
+    lights[:, 2] = np.abs(lights[:, 2]) + 0.5
+    relighters = {t: surface_relighter(pth, "single_image", t) for t in ("strict", "high", "draft")}
+    lone_rows = {t: expected_rows(rl, img, msk, lights[:3], 1) for t, rl in relighters.items()}
+    load_rows = {b: expected_rows(relighters["high"], img, msk, lights, b) for b in (1, 2, 4, 8)}
+    del relighters
+    torch.cuda.empty_cache()
+    servers = {"one_rank": {k: serve_load[k] for k in ("clients", "requests", "wall_s", "req_per_s", "p50_ms",
+                                                       "p99_ms", "mean_batch_rows")}}
+    for tag, flags, sizes in (("data", ("--data-parallel",), {"B": (2, 8), "B_over_2": (1, 4)}),
+                              ("grid_1x2", ("--grid-parallel", "1x2"), {"B": (1, 8), "B_over_2": ()})):
+        per_rank, servers[tag] = launch_server(files, tmp, tag, flags, lone_rows, load_rows, sizes, lights)
+        for n in per_rank:
+            add_launches(launches, n)
+    emit("launch", ok=True, ranks=label, backend="gloo" if torch.cuda.device_count() < LAUNCH_RANKS else "nccl",
+         launches=launches, commands_at_once_s=commands_s, seconds=time.perf_counter() - started, **rows,
+         servers=servers)
+    return launches
+
 def phase_surface(goldens, e2e: dict) -> dict:
-    """The cli, bench, serve, eval, train_cli, lpips, crop and visualize_lighting phases, in a
-    temporary directory; their launches summed."""
+    """The cli, bench, serve, eval, train_cli, lpips, crop, visualize_lighting, orbax and launch
+    phases, in a temporary directory; their launches summed."""
     import tempfile
 
     launches = counts()
@@ -1909,13 +2363,16 @@ def phase_surface(goldens, e2e: dict) -> dict:
         files = surface_files(goldens, tmp)
         add_launches(launches, phase_cli(files, tmp))
         add_launches(launches, phase_bench(tmp, e2e))
-        add_launches(launches, phase_serve(files, tmp))
+        serve_launches, serve_load = phase_serve(files, tmp)
+        add_launches(launches, serve_launches)
         lpips_files = lpips_weight_files(tmp)
         add_launches(launches, phase_eval(goldens, files, tmp, lpips_files))
         add_launches(launches, phase_train_cli(tmp))
         phase_lpips(tmp, *lpips_files)
         phase_crop(goldens, tmp)
         phase_visualize_lighting(tmp)
+        add_launches(launches, phase_orbax(goldens, files, tmp))
+        add_launches(launches, phase_launch(files, tmp, serve_load))
     return launches
 
 

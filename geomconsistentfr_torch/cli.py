@@ -18,12 +18,27 @@ Port of geomconsistentfr_tpu/cli.py. Commands:
   lpips-train    train LPIPS's linear heads on a BAPPS-style 2AFC directory
   lpips-score    2AFC or JND score of LPIPS, L2 or DSSIM on a BAPPS directory
   visualize-lighting  shaded spheres, one PNG per light direction
+  convert        a reference .pth -> an orbax checkpoint of flax variables
   bench          the port's throughput bench (geomconsistentfr_torch.bench)
 
 The model commands run on CUDA unless given `--device cpu`, and raise without
-a card. Not ported, each exits non-zero naming why: the multi-rank launch
-(`--data-parallel`, `--sample-parallel`, ROADMAP queue 1 item 8) and
-`convert`, which writes an orbax checkpoint and so needs JAX.
+a card. `--checkpoint` takes a reference .pth or an orbax checkpoint
+directory (utils/orbax.py reads it; no orbax or JAX is needed).
+
+Several ranks, one process each, under torchrun (JAX's rules,
+geomconsistentfr_tpu/cli.py:90-104):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m geomconsistentfr_torch.cli relight --sample-parallel ...
+
+`--sample-parallel` (relight, sweep, transfer, eval-multipie) shards the
+shadow march's t grid over the ranks; `--data-parallel` (eval-multipie; the
+batch a multiple of the world) shards the batch. The two conflict. Either
+joins the process group (`distributed.initialize`; in one process it does
+nothing, as JAX's mesh over one device does) and builds the world mesh.
+`train` under torchrun steps data-parallel over the world (the batch a
+multiple of it). Every rank reads the same inputs; only rank 0 writes files
+and prints.
 """
 
 from __future__ import annotations
@@ -35,20 +50,11 @@ import sys
 
 from geomconsistentfr_torch.config import PRECISION_TIERS
 
-# What is refused, and the ROADMAP queue 1 item that will port it.
-NOT_PORTED = {
-    "convert": "convert writes an orbax checkpoint, which needs JAX; the port reads the reference .pth as it is",
-    "parallel": "the multi-rank launch from the CLI is ROADMAP queue 1 item 8",
-}
 LPIPS_NETS = ("alex", "vgg", "squeeze")
 
 
-def refuse(what: str) -> None:
-    raise SystemExit(f"not ported to geomconsistentfr_torch: {NOT_PORTED[what]}")
-
-
 def _add_common_model_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--checkpoint", required=True, help="reference .pth state dict")
+    p.add_argument("--checkpoint", required=True, help="reference .pth state dict or orbax checkpoint directory")
     p.add_argument("--preset", default=None, help="pipeline preset (default: per command)")
     p.add_argument("--config", default=None, help="JSON file with (partial) PipelineConfig overrides on the preset")
     p.add_argument("--out", default="outputs", help="output directory")
@@ -61,16 +67,36 @@ def _add_common_model_args(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--fast", action="store_true", help="alias for --precision fast")
     p.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain paths)")
-    p.add_argument("--sample-parallel", action="store_true", help="not ported (ROADMAP queue 1 item 8)")
+    p.add_argument("--sample-parallel", action="store_true",
+                   help="latency parallelism under torchrun: shard the shadow march's sample grid over the ranks "
+                   "(an exact MIN combine; outputs identical to one process). Any batch size works")
+
+
+def _world(args):
+    """Join torchrun's process group (the ranks on the CPU for --device cpu, else
+    on the cards); the world mesh, or None in a single process."""
+    from geomconsistentfr_torch.parallel import distributed
+    from geomconsistentfr_torch.parallel.mesh import make_mesh
+
+    device = distributed.initialize("cpu" if args.device == "cpu" else "cuda")
+    return None if device is None else make_mesh(device)
 
 
 def _relighter(args, default_preset: str):
     from geomconsistentfr_torch.config import PRESETS, apply_precision_tier, load_config
     from geomconsistentfr_torch.infer import load_relighter, resolve_device
 
-    if getattr(args, "data_parallel", False) or getattr(args, "sample_parallel", False):
-        refuse("parallel")
-    device = resolve_device(args.device)
+    data_parallel = getattr(args, "data_parallel", False)
+    sample_parallel = getattr(args, "sample_parallel", False)
+    if data_parallel and sample_parallel:
+        raise SystemExit("--data-parallel conflicts with --sample-parallel")
+    mesh = None
+    if data_parallel or sample_parallel:
+        from geomconsistentfr_torch.parallel.mesh import make_mesh
+
+        # One process: a mesh of one rank, as JAX's make_mesh over one device.
+        mesh = _world(args) or make_mesh(resolve_device(args.device))
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     preset = args.preset or default_preset
     cfg = load_config(args.config, preset=preset) if args.config else PRESETS[preset]()
     tier = args.precision
@@ -82,7 +108,14 @@ def _relighter(args, default_preset: str):
         tier = "high"  # the default serving tier; a --config file keeps its own precision fields
     if tier:
         cfg = apply_precision_tier(cfg, tier)
-    return load_relighter(args.checkpoint, cfg=cfg, device=device)
+    return load_relighter(args.checkpoint, cfg=cfg, device=device, mesh=mesh,
+                          parallel="samples" if sample_parallel else "data")
+
+
+def _writer() -> bool:
+    from geomconsistentfr_torch.parallel.distributed import is_writer
+
+    return is_writer()
 
 
 def _parse_light(args):
@@ -117,6 +150,8 @@ def cmd_relight(args) -> int:
     mask = read_mask(args.mask, size)
     light, ambient = _parse_light(args)
     pack = rl.forward_visuals(img[None], mask[None], target_light=light, target_ambient=ambient)[0].cpu().numpy()
+    if not _writer():
+        return 0
     stem = _stem(args.image)
     paths = save_visual_pack(args.out, stem, pack)
     # pack[..., 0:3] is rendered * mask quantized on the device; the composite
@@ -146,6 +181,8 @@ def cmd_sweep(args) -> int:
     lights = np.asarray([LIGHT_PRESETS[n] for n in names], np.float32)
     ambients = np.full((len(names),), DEFAULT_AMBIENT, np.float32)
     tiles = rl.relight_sweep_rendered_u8(img, mask, lights, ambients).cpu().numpy()
+    if not _writer():
+        return 0
     stem = _stem(args.image)
     for i, name in enumerate(names):
         write_image_u8(os.path.join(args.out, f"{stem}_{name}.png"), tiles[i])
@@ -173,6 +210,8 @@ def cmd_transfer(args) -> int:
     # uint8 fetch of the six outputs.
     unit, ambient = rl.estimate_lighting(ref[None])
     pack = rl.forward_visuals(img[None], mask[None], target_light=unit, target_ambient=ambient)[0].cpu().numpy()
+    if not _writer():
+        return 0
     paths = save_visual_pack(args.out, _stem(args.input), pack)
     print(json.dumps({
         "outputs": paths,
@@ -199,15 +238,14 @@ def _lpips_metric(args):
 def cmd_eval_multipie(args) -> int:
     from geomconsistentfr_torch.metrics.eval_multipie import evaluate_output_dir, run_inference
 
-    if args.data_parallel:
-        refuse("parallel")
-    lpips_fn = _lpips_metric(args)
     root = args.data_root
     gt_dir = os.path.join(root, "groundtruth_images_MP_18_lightings")
     mask_dir = os.path.join(root, "MP_depth_masks_fill_nose")
+    # --eval-only re-scores an existing dump without the relighter.
+    rl = None if args.eval_only else _relighter(args, "multipie_eval")
+    lpips_fn = _lpips_metric(args) if _writer() else None  # rank 0 scores
     n = 0
-    if not args.eval_only:  # --eval-only re-scores an existing dump without the relighter
-        rl = _relighter(args, "multipie_eval")
+    if rl is not None:
         n = run_inference(
             rl,
             input_dir=os.path.join(root, "input_images_MP_18_lightings"),
@@ -218,6 +256,8 @@ def cmd_eval_multipie(args) -> int:
             limit=args.limit,
             batch_size=args.batch_size,
         )
+    if not _writer():
+        return 0
     metrics = evaluate_output_dir(args.out, gt_dir, mask_dir, lpips_fn=lpips_fn)
     metrics["num_inferred"] = n
     print(json.dumps(metrics))
@@ -231,7 +271,10 @@ def cmd_train(args) -> int:
     from geomconsistentfr_torch.train import Trainer
     from geomconsistentfr_torch.utils.profiling import debug_nans
 
-    device = resolve_device(args.device)
+    # Under torchrun every rank steps on its slice of each batch (the world
+    # mesh, data-parallel; JAX's Trainer defaults to a mesh over every device).
+    mesh = _world(args)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     preset = args.preset or "target_lighting_train"
     cfg = load_config(args.config, preset=preset) if args.config else PRESETS[preset]()
     if args.precision:
@@ -244,7 +287,7 @@ def cmd_train(args) -> int:
         from geomconsistentfr_torch.data import CelebAHQRelightingData
 
         data = CelebAHQRelightingData(args.data)
-    trainer = Trainer(cfg, data=data, workdir=args.out, device=device, profile=args.profile)
+    trainer = Trainer(cfg, data=data, workdir=args.out, device=device, mesh=mesh, profile=args.profile)
     state = trainer.init_or_resume()
     # The shuffle derives from (seed, epoch), so a resumed run replays the
     # uninterrupted batch order; a mid-epoch step checkpoint resumes inside
@@ -258,9 +301,22 @@ def cmd_train(args) -> int:
             trainer.save(state)
             if args.visualize_every and (epoch + 1) % args.visualize_every == 0:
                 metrics["visuals"] = trainer.visualize(state, epoch)
-            print(json.dumps(metrics), flush=True)
+            if trainer.writes:
+                print(json.dumps(metrics), flush=True)
     finally:
         debug_nans(False)
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """A reference .pth -> an orbax checkpoint directory of flax variables (JAX's `cli convert`)."""
+    from geomconsistentfr_torch.convert import load_checkpoint, variables_from_state_dict
+    from geomconsistentfr_torch.utils.checkpoint import save_variables
+
+    variables = variables_from_state_dict(load_checkpoint(args.pth))
+    save_variables(args.out, variables)
+    n = sum(leaf.size for tree in variables.values() for module in tree.values() for leaf in module.values())
+    print(json.dumps({"out": args.out, "num_values": int(n)}))
     return 0
 
 
@@ -475,7 +531,9 @@ def main(argv=None) -> int:
     p.add_argument("--data-root", required=True)
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--data-parallel", action="store_true", help="not ported (ROADMAP queue 1 item 8)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="under torchrun, shard inference batches over the ranks (--batch-size a multiple of the "
+                   "world size)")
     p.add_argument("--eval-only", action="store_true",
                    help="skip inference: re-score the existing dump in --out (the checkpoint is not loaded)")
     p.add_argument("--lpips-trunk", default=None,
@@ -506,8 +564,15 @@ def main(argv=None) -> int:
                    "<out>/visuals/index.html (0 = off)")
     p.add_argument("--epochs", type=int, default=1000)
     p.add_argument("--out", default="runs/train")
-    p.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain paths)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the plain paths). Under torchrun each rank takes "
+                   "its own card (or shares one), or the CPU for 'cpu'")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("convert", help="a reference .pth -> an orbax checkpoint directory")
+    p.add_argument("--pth", required=True)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser("build-cache", help="pack MP_data into the training cache's memmaps")
     p.add_argument("--src", required=True)
@@ -582,13 +647,14 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench", help="throughput benchmark on the card (one JSON line)")
     p.set_defaults(fn=cmd_bench)
 
-    sub.add_parser("convert", help=f"not ported: {NOT_PORTED['convert']}")
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] == "convert":
-        refuse("convert")
     args = parser.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if "torch.distributed" in sys.modules:  # else no command joined a process group
+            from geomconsistentfr_torch.parallel import distributed
+
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

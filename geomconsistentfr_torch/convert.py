@@ -11,6 +11,10 @@ The port's state dict IS the reference checkpoint's layout, so a reference
       deconv (kh, kw, I, O) -> flip spatial -> (I, O, kh, kw)
       linear (in, out)      -> (out, in)
       bn scale/bias, batch_stats mean/var -> weight/bias, running_mean/var.
+  * `variables_from_state_dict(state)`: the inverse, a reference state dict
+    -> the flax `{'params', 'batch_stats'}` tree of numpy arrays that
+    geomconsistentfr_tpu/convert.py's `torch_state_to_variables` makes and
+    `cli convert` writes as an orbax checkpoint.
   * `transfer_to_target_variant(state)`: embeds transfer-variant weights
     (1x1 bias-free shortcuts) into the target variant (3x3 with bias) as the
     centre tap with zero bias -- an identical function.
@@ -75,6 +79,38 @@ def state_dict_from_jax_variables(variables: Mapping[str, Mapping]) -> Dict[str,
         put(f"{module}.running_var", np.asarray(leaves["var"], np.float32))
         state[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return state
+
+
+def variables_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """A reference state dict (a RelightNet's or a PatchGAN's) -> flax
+    {'params': ..., 'batch_stats': ...} with float32 numpy leaves
+    (num_batches_tracked is dropped)."""
+    params: Dict[str, dict] = {}
+    batch_stats: Dict[str, dict] = {}
+    for key, value in state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        module, leaf = key.rsplit(".", 1)
+        value = np.asarray(value.detach().cpu() if isinstance(value, torch.Tensor) else value, np.float32)
+        if module.startswith("bn"):
+            names = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                     "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+            if leaf not in names:
+                raise ValueError(f"unexpected BatchNorm leaf: {key}")
+            where, name = names[leaf]
+            (params if where == "params" else batch_stats).setdefault(module, {})[name] = value
+        elif leaf == "bias":
+            params.setdefault(module, {})["bias"] = value
+        elif leaf != "weight":
+            raise ValueError(f"unexpected leaf: {key}")
+        elif module.startswith("linear"):
+            params.setdefault(module, {})["kernel"] = np.ascontiguousarray(value.T)
+        elif module.startswith("deconv"):
+            kernel = value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+            params.setdefault(module, {})["kernel"] = np.ascontiguousarray(kernel)
+        else:
+            params.setdefault(module, {})["kernel"] = np.ascontiguousarray(value.transpose(2, 3, 1, 0))
+    return {"params": params, "batch_stats": batch_stats}
 
 
 def adam_moments_from_optax(mu: Mapping[str, Mapping], nu: Mapping[str, Mapping]):

@@ -41,13 +41,19 @@ import numpy as np
 import torch
 
 from geomconsistentfr_torch.config import PipelineConfig, preset_lighting_transfer
-from geomconsistentfr_torch.convert import is_transfer_state, load_checkpoint, transfer_to_target_variant
+from geomconsistentfr_torch.convert import (
+    is_transfer_state,
+    load_checkpoint,
+    state_dict_from_jax_variables,
+    transfer_to_target_variant,
+)
 from geomconsistentfr_torch.models.layers import deterministic_convs
 from geomconsistentfr_torch.models.relightnet import FULL_SKIPS, RelightNet
 from geomconsistentfr_torch.ops import shadows
 from geomconsistentfr_torch.ops.shadows_cuda import refine_min_distance_cuda, sharded_march
 from geomconsistentfr_torch.parallel.mesh import Mesh, all_gather_cat
 from geomconsistentfr_torch.render import RenderOutputs, estimated_light, render
+from geomconsistentfr_torch.utils.checkpoint import restore_variables
 
 # Channel layout of the packed uint8 visualization tensor (B, H, W, 12).
 VISUAL_PACK_LAYOUT = (
@@ -319,7 +325,9 @@ def load_relighter(
     mesh: Optional[Mesh] = None,
     parallel: str = "data",
 ) -> Relighter:
-    """Build a Relighter from a reference `.pth` state dict.
+    """Build a Relighter from a reference `.pth` state dict or an orbax
+    checkpoint directory of flax variables (what the JAX package's
+    `save_variables` and either package's `cli convert` write).
 
     Transfer-variant weights embed exactly into the target variant, so a
     'target' config takes a transfer checkpoint as it is.
@@ -327,11 +335,9 @@ def load_relighter(
     if cfg is None:
         cfg = preset_lighting_transfer()
     if os.path.isdir(checkpoint_path):
-        raise NotImplementedError(
-            "orbax checkpoint directories are not supported by the PyTorch port; "
-            "pass a reference .pth state dict"
-        )
-    state = load_checkpoint(checkpoint_path)
+        state = state_dict_from_jax_variables(restore_variables(checkpoint_path))
+    else:
+        state = load_checkpoint(checkpoint_path)
     if cfg.model.variant == "target" and is_transfer_state(state):
         state = transfer_to_target_variant(state)
     return Relighter(cfg, state, use_skips=use_skips, device=device, mesh=mesh, parallel=parallel)

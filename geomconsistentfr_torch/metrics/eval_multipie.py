@@ -25,6 +25,7 @@ import numpy as np
 from geomconsistentfr_torch.data.multipie import lighting_index, load_lighting_directions
 from geomconsistentfr_torch.infer import AsyncFetch
 from geomconsistentfr_torch.metrics.image_metrics import masked_dssim_matlab, masked_mse, psnr
+from geomconsistentfr_torch.parallel.distributed import is_writer
 from geomconsistentfr_torch.utils.io import imread, read_image_u8, read_mask_u8, save_visual_pack
 
 
@@ -112,6 +113,11 @@ def run_inference(
     its last image. One batch stays in flight: its packed visuals copy to
     pinned host memory while the host reads the next batch's files, and
     its PNGs are written after the next batch is dispatched.
+
+    Over a mesh of several ranks (torchrun), every rank reads the same
+    files and runs the same batches (sharded over the mesh when the
+    relighter's parallel mode is 'data': batch_size a multiple of the
+    world); only rank 0 writes the PNGs.
     """
     inputs = sorted(os.listdir(input_dir))
     gts = sorted(os.listdir(gt_dir))
@@ -124,8 +130,12 @@ def run_inference(
     n = len(inputs) if limit is None else min(limit, len(inputs))
     os.makedirs(output_dir, exist_ok=True)
 
+    writer = is_writer()
+
     def flush(fetch, start, stop):
         pack, _ = fetch.wait()
+        if not writer:
+            return
         for k, i in enumerate(range(start, stop)):
             save_visual_pack(output_dir, inputs[i].split(".")[0], pack[k])
 

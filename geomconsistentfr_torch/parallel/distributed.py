@@ -9,6 +9,14 @@ a failure: NCCL when every rank of the host has a card of its own, gloo when
 ranks share a card (NCCL refuses two ranks on one GPU; gloo takes CUDA
 tensors) or run on the CPU.
 
+Every rank's `initialize` (and `spawn`'s start-up) also makes one control
+group over the world with the gloo backend, in the same place on every
+rank (`dist.new_group` is a collective; it is never made lazily on one
+rank). Host messages that must reach every rank whatever the mesh's backend
+(the multi-rank server's requests, serve.py) go through it:
+`control_group()`. `is_writer()` is true on rank 0 or in a single process:
+the one rank that writes files and prints a command's result.
+
 `spawn` starts `nprocs` ranks on this host with a `file://` rendezvous, for
 the tests and chip_smoke.py:
 
@@ -36,6 +44,7 @@ import torch.multiprocessing as mp
 
 # How long a collective or the rendezvous waits for a missing rank.
 TIMEOUT = datetime.timedelta(minutes=5)
+_CONTROL = None  # the gloo control group over the world, made by _init
 
 
 def rank_device(local_rank: int, local_world: int, device: str = "cuda") -> torch.device:
@@ -62,7 +71,32 @@ def _init(rank: int, world: int, local_rank: int, local_world: int, device: str,
         torch.cuda.set_device(dev)
     dist.init_process_group(choose_backend(dev, local_world), init_method=init_method,
                             rank=rank, world_size=world, timeout=TIMEOUT)
+    global _CONTROL
+    _CONTROL = dist.new_group(backend="gloo", timeout=TIMEOUT)
     return dev
+
+
+def control_group():
+    """The gloo group over the world that `initialize` made (None in a single process)."""
+    if not dist.is_initialized():
+        return None
+    if _CONTROL is None:
+        raise RuntimeError("the process group was not joined through distributed.initialize or spawn, so it "
+                           "has no control group")
+    return _CONTROL
+
+
+def is_writer() -> bool:
+    """True on rank 0, or in a single process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def shutdown() -> None:
+    """Leave the process group (if this process joined one)."""
+    global _CONTROL
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _CONTROL = None
 
 
 def initialize(device: str = "cuda") -> Optional[torch.device]:
@@ -94,7 +128,7 @@ def _spawned(rank: int, fn: Callable, world: int, device: str, init_file: str, a
     try:
         fn(dev, *args)
     finally:
-        dist.destroy_process_group()
+        shutdown()
 
 
 def spawn(fn: Callable, nprocs: int, device: str = "cuda", init_file: Optional[str] = None,

@@ -34,8 +34,31 @@ timeout and returns 503 if the worker wedges or dies. SIGTERM and SIGINT
 close the listener, answer every admitted request, then exit.
 
 The server runs on CUDA unless given `--device cpu`, and raises without a
-card. The multi-rank flags (--data-parallel, --sample-parallel,
---grid-parallel) are not ported (ROADMAP queue 1 item 8).
+card. `--checkpoint` takes a reference .pth or an orbax checkpoint directory.
+
+Several ranks, one process each, under torchrun:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m geomconsistentfr_torch.serve --checkpoint model.pth --data-parallel
+
+--data-parallel shards each batch over the ranks (--max-batch a multiple of
+the world), --sample-parallel shards the shadow march's t grid, and
+--grid-parallel DxS does both on a D x S mesh (D * S the world size); they
+are mutually exclusive (geomconsistentfr_tpu/serve.py:682-734). Rank 0
+binds the port, runs the handlers and the MicroBatcher, and prints the
+`serving` line. Its device calls go through a relay (`RankRelay`): before
+each forward_visuals or estimate_lighting of a tier's Relighter runs on
+rank 0, the relay broadcasts over the gloo control group
+(parallel/distributed.control_group) a header (the op, the tier, the
+inputs' dtypes and shapes) and then the inputs. Every other rank runs
+`follow`: it makes the same call on its own Relighter of that tier, so the
+collectives inside the forwards pair up, and drops the result. Broadcasts go
+out in dispatch order, so pipelining stays on. After rank 0's drain a `stop`
+message ends the followers, which exit 0; they ignore SIGTERM and SIGINT
+(torchrun forwards SIGTERM to every rank), since a follower that died
+mid-collective would hang rank 0's drain for distributed.TIMEOUT. The HTTP
+surface and its answers are the single-process server's. JAX drives every
+device from one process, so this relay has no JAX counterpart.
 """
 
 from __future__ import annotations
@@ -46,11 +69,14 @@ import json
 import queue
 import threading
 import time
+import traceback
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from geomconsistentfr_torch.config import PRECISION_TIERS
 from geomconsistentfr_torch.infer import AsyncFetch
@@ -310,13 +336,15 @@ class MicroBatcher:
         return None
 
 
-def make_tier_pool(cfg, relighter, default_tier: str):
+def make_tier_pool(cfg, relighter, default_tier: str, wrap=None):
     """A lazy tier -> Relighter factory for per-request precision.
 
-    Each tier's Relighter is built once, on the default relighter's weights
-    and device; the default tier maps to that relighter. The worker thread
-    calls it (and `main`'s warm-up, before the server listens), so the cache
-    needs no lock."""
+    Each tier's Relighter is built once, on the default relighter's weights,
+    device, mesh and parallel mode (JAX serve.py:422-445), so a tier runs
+    sharded as the default does; the default tier maps to that relighter.
+    `wrap(tier, relighter)`, where given, wraps each new one (rank 0's relay).
+    The worker thread calls it (and `main`'s warm-up, before the server
+    listens; a follower rank's loop), so the cache needs no lock."""
     from geomconsistentfr_torch.config import apply_precision_tier
     from geomconsistentfr_torch.infer import Relighter
 
@@ -324,11 +352,113 @@ def make_tier_pool(cfg, relighter, default_tier: str):
 
     def tier_pool(t: str):
         if t not in cache:
-            cache[t] = Relighter(apply_precision_tier(cfg, t), relighter.model.state_dict(),
-                                 use_skips=relighter.use_skips, device=relighter.device)
+            rl = Relighter(apply_precision_tier(cfg, t), relighter.model.state_dict(),
+                           use_skips=relighter.use_skips, device=relighter.device, mesh=relighter.mesh,
+                           parallel=relighter.parallel)
+            cache[t] = rl if wrap is None else wrap(t, rl)
         return cache[t]
 
+    tier_pool.built = cache  # the tiers built so far (tier_meshes reads it)
     return tier_pool
+
+
+def tier_meshes(tier_pool) -> dict:
+    """Each built tier's ranks and parallel mode, for the server's last line."""
+    return {t: {"ranks": 1 if rl.mesh is None else rl.mesh.size, "parallel": rl.parallel}
+            for t, rl in sorted(tier_pool.built.items())}
+
+
+# The relay's messages: the op, the tier's index in PRECISION_TIERS, the
+# number of inputs, then each input's dtype code, rank and four dimensions.
+_OPS = ("stop", "forward_visuals", "estimate_lighting")
+_DTYPES = (torch.uint8, torch.float32)
+_MAX_INPUTS, _MAX_DIMS = 4, 4
+_HEADER = 3 + _MAX_INPUTS * (2 + _MAX_DIMS)
+
+
+class RankRelay:
+    """Rank 0's side of a multi-rank server: each device call of a wrapped
+    Relighter is broadcast over `group` (the control group) before it runs.
+    `send` holds a lock, so a message's header and inputs go out together."""
+
+    def __init__(self, group):
+        self.group = group
+        self._lock = threading.Lock()
+        self.stopped = False
+
+    def send(self, op: str, tier: str, inputs=()) -> None:
+        arrays = [np.asarray(x) for x in inputs]
+        arrays = [np.ascontiguousarray(a if a.dtype == np.uint8 else a.astype(np.float32)) for a in arrays]
+        header = [_OPS.index(op), PRECISION_TIERS.index(tier) if tier else -1, len(arrays)]
+        if len(arrays) > _MAX_INPUTS or any(a.ndim > _MAX_DIMS for a in arrays):
+            raise ValueError(f"the relay carries at most {_MAX_INPUTS} inputs of rank {_MAX_DIMS} or less")
+        for a in arrays:
+            code = 0 if a.dtype == np.uint8 else 1
+            header += [code, a.ndim, *a.shape, *([0] * (_MAX_DIMS - a.ndim))]
+        header += [0] * (_HEADER - len(header))
+        with self._lock:
+            if self.stopped:
+                raise WorkerDied("the follower ranks were stopped")
+            dist.broadcast(torch.tensor(header, dtype=torch.int64), src=0, group=self.group)
+            for a in arrays:
+                dist.broadcast(torch.from_numpy(a), src=0, group=self.group)
+            if op == "stop":
+                self.stopped = True
+
+    def stop(self) -> None:
+        self.send("stop", "")
+
+    def wrap(self, tier: str, relighter) -> "RelayedRelighter":
+        return RelayedRelighter(self, tier, relighter)
+
+
+class RelayedRelighter:
+    """A tier's Relighter on rank 0 whose device calls are broadcast first
+    (RankRelay); every other attribute is the Relighter's."""
+
+    def __init__(self, relay: RankRelay, tier: str, relighter):
+        self._relay, self._tier, self._relighter = relay, tier, relighter
+
+    def __getattr__(self, name):
+        return getattr(self._relighter, name)
+
+    def forward_visuals(self, images, masks, target_light=None, target_ambient=None):
+        self._relay.send("forward_visuals", self._tier, (images, masks, target_light, target_ambient))
+        return self._relighter.forward_visuals(images, masks, target_light=target_light,
+                                               target_ambient=target_ambient)
+
+    def estimate_lighting(self, images):
+        self._relay.send("estimate_lighting", self._tier, (images,))
+        return self._relighter.estimate_lighting(images)
+
+
+def follow(group, tier_pool) -> dict:
+    """A follower rank's loop: receive each of rank 0's device calls over
+    `group` and make it on this rank's Relighter of that tier, until `stop`.
+    Returns the count of calls by op."""
+    done = dict.fromkeys(_OPS[1:], 0)
+    while True:
+        header = torch.empty(_HEADER, dtype=torch.int64)
+        dist.broadcast(header, src=0, group=group)
+        h = header.tolist()
+        op = _OPS[h[0]]
+        if op == "stop":
+            return done
+        inputs = []
+        for k in range(h[2]):
+            code, ndim, *dims = h[3 + k * (2 + _MAX_DIMS):3 + (k + 1) * (2 + _MAX_DIMS)]
+            x = torch.empty(dims[:ndim], dtype=_DTYPES[code])
+            dist.broadcast(x, src=0, group=group)
+            inputs.append(x.numpy())
+        relighter = tier_pool(PRECISION_TIERS[h[1]])
+        try:
+            if op == "forward_visuals":
+                relighter.forward_visuals(inputs[0], inputs[1], target_light=inputs[2], target_ambient=inputs[3])
+            else:
+                relighter.estimate_lighting(inputs[0])
+        except Exception:  # noqa: BLE001 - rank 0 raised the same error to its caller; keep following
+            traceback.print_exc()
+        done[op] += 1
 
 
 def warmup(relighter, batch_sizes=(1, 8)) -> float:
@@ -338,8 +468,6 @@ def warmup(relighter, batch_sizes=(1, 8)) -> float:
     a later process loads the build), so no request pays for it. Then one
     forward_visuals per relight batch size and one estimate_lighting at the
     smallest, on zero inputs. Returns the wall seconds."""
-    import torch
-
     t0 = time.monotonic()
     if relighter.device.type == "cuda":
         from geomconsistentfr_torch.ops import shadows_cuda
@@ -466,8 +594,11 @@ def make_handler(relighter, batcher: MicroBatcher | None = None):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--checkpoint", required=True, help="reference .pth state dict")
+    parser.add_argument("--checkpoint", required=True, help="reference .pth state dict or orbax checkpoint directory")
     parser.add_argument("--preset", default="single_image")
+    parser.add_argument("--config", default=None,
+                        help="JSON file with (partial) PipelineConfig overrides on the preset (the tier is applied "
+                        "after it)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8400, help="0 picks a free port (printed on the 'serving' line)")
     parser.add_argument("--device", default=None, help="torch device (default: cuda; 'cpu' runs the plain paths)")
@@ -484,26 +615,59 @@ def main(argv=None) -> int:
                         "before exiting non-zero")
     parser.add_argument("--warmup", action="store_true",
                         help="build the kernels and run every serving shape of every tier before announcing readiness")
-    for flag in ("--data-parallel", "--sample-parallel"):
-        parser.add_argument(flag, action="store_true", help="not ported (ROADMAP queue 1 item 8)")
-    parser.add_argument("--grid-parallel", metavar="DxS", default=None, help="not ported (ROADMAP queue 1 item 8)")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="under torchrun, shard each batch over the ranks (--max-batch a multiple of the world)")
+    parser.add_argument("--sample-parallel", action="store_true",
+                        help="under torchrun, shard each image's shadow march over the ranks (outputs identical to "
+                        "one process; for low concurrency)")
+    parser.add_argument("--grid-parallel", metavar="DxS", default=None,
+                        help="under torchrun, a D x S mesh (D * S ranks): batches shard over D, each march over S")
     args = parser.parse_args(argv)
-    if args.data_parallel or args.sample_parallel or args.grid_parallel:
-        raise SystemExit("not ported to geomconsistentfr_torch: multi-rank serving is ROADMAP queue 1 item 8")
+    if sum(bool(x) for x in (args.data_parallel, args.sample_parallel, args.grid_parallel)) > 1:
+        parser.error("--data-parallel / --sample-parallel / --grid-parallel are mutually exclusive")
+    grid = None
+    if args.grid_parallel:
+        try:
+            grid = tuple(int(v) for v in args.grid_parallel.lower().split("x"))
+        except ValueError:
+            grid = ()
+        if len(grid) != 2 or min(grid) < 1:
+            parser.error("--grid-parallel expects DxS, e.g. 4x2")
 
-    from geomconsistentfr_torch.config import PRESETS, apply_precision_tier
+    from geomconsistentfr_torch.config import PRESETS, apply_precision_tier, load_config
     from geomconsistentfr_torch.infer import load_relighter, resolve_device
+    from geomconsistentfr_torch.parallel import distributed
 
-    device = resolve_device(args.device)
     tier = args.precision
     if args.fast:
         if tier and tier != "fast":
             parser.error("--fast conflicts with --precision " + tier)
         tier = "fast"
     tier = tier or "high"
-    cfg = apply_precision_tier(PRESETS[args.preset](), tier)
-    relighter = load_relighter(args.checkpoint, cfg=cfg, device=device)
-    tier_pool = make_tier_pool(cfg, relighter, tier)
+    cfg = load_config(args.config, preset=args.preset) if args.config else PRESETS[args.preset]()
+    cfg = apply_precision_tier(cfg, tier)
+    mesh, parallel = None, "data"
+    if grid or args.data_parallel or args.sample_parallel:
+        from geomconsistentfr_torch.parallel.mesh import make_mesh, make_mesh_grid
+
+        rank_device = distributed.initialize("cpu" if args.device == "cpu" else "cuda") or \
+            resolve_device(args.device)
+        world_size = dist.get_world_size() if dist.is_initialized() else 1
+        if grid and grid[0] * grid[1] != world_size:
+            parser.error(f"--grid-parallel {args.grid_parallel} needs {grid[0] * grid[1]} ranks; the world has "
+                         f"{world_size}")
+        mesh = make_mesh_grid(*grid, rank_device) if grid else make_mesh(rank_device)
+        parallel = "grid" if grid else "samples" if args.sample_parallel else "data"
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    relighter = load_relighter(args.checkpoint, cfg=cfg, device=device, mesh=mesh, parallel=parallel)
+    group = distributed.control_group()
+    if group is not None and not distributed.is_writer():
+        return _follower(group, make_tier_pool(cfg, relighter, tier))
+    relay = None
+    if group is not None:
+        relay = RankRelay(group)
+        relighter = relay.wrap(tier, relighter)
+    tier_pool = make_tier_pool(cfg, relighter, tier, wrap=None if relay is None else relay.wrap)
     batcher = MicroBatcher(relighter, max_batch=args.max_batch, window_ms=args.batch_window_ms,
                            tier_pool=tier_pool, pipeline=not args.no_pipeline)
     if args.warmup:
@@ -533,12 +697,33 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, _graceful)
 
     host, port = server.server_address[:2]
-    print(json.dumps({"serving": f"http://{host}:{port}", "device": str(device), "tier": tier}), flush=True)
+    ranks = {} if mesh is None else {"ranks": mesh.size, "parallel": parallel}
+    print(json.dumps({"serving": f"http://{host}:{port}", "device": str(device), "tier": tier, **ranks}), flush=True)
     server.serve_forever()
     drained = batcher.drain(timeout_s=args.drain_timeout_s)
     server.server_close()
-    print(json.dumps({"drained": drained, "stats": batcher.stats}), flush=True)
+    if relay is not None:
+        relay.stop()  # the followers leave their loops and exit
+        distributed.shutdown()
+    print(json.dumps({"drained": drained, "stats": batcher.stats, "tiers": tier_meshes(tier_pool)}), flush=True)
     return 0 if drained else 1
+
+
+def _follower(group, tier_pool) -> int:
+    """A rank other than 0: rank 0's device calls until its `stop`; then exit 0."""
+    import signal
+
+    from geomconsistentfr_torch.parallel import distributed
+
+    # torchrun forwards SIGTERM to every rank: rank 0 drains and then stops
+    # this loop, so the signal is not this rank's to act on.
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    calls = follow(group, tier_pool)
+    rank = dist.get_rank()
+    distributed.shutdown()
+    print(json.dumps({"follower": rank, "calls": calls, "tiers": tier_meshes(tier_pool)}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

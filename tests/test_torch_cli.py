@@ -14,7 +14,10 @@
     or crop_largest_face's pixels; `eval-multipie --lpips-*` scores the JAX
     CLI's LPIPS; `visualize-lighting` and `lpips-score` print and write what
     the JAX CLI does; `lpips-train` writes heads both packages load;
-  * the flags and commands not ported exit non-zero naming why;
+  * `convert` writes the JAX CLI's variables (tests/test_torch_orbax.py holds
+    the tree bit for bit); `--sample-parallel` and `--data-parallel` in one
+    process (a mesh of one rank) write what no flag writes, and together they
+    conflict (tests/test_torch_launch.py runs them under torchrun);
   * the bench reads its knobs from the environment and refuses the CPU;
   * one subprocess runs `--help`.
 """
@@ -144,23 +147,12 @@ def test_transfer_writes_the_estimated_relight(files, tmp_path, capsys):
     assert np.array_equal(imread(report["outputs"]["shadow_mask"]), pack[..., 3].numpy())
 
 
-REFUSED = {
-    "convert": (["convert", "--pth", "a", "--out", "b"], "needs JAX"),
-    "data-parallel": (["eval-multipie", "--data-parallel"], "item 8"),
-    "sample-parallel": (["relight", "--sample-parallel", "--image", "a", "--mask", "b"], "item 8"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_refused_flags_name_their_roadmap_item(files, case):
-    argv, item = REFUSED[case]
-    if argv[0] in ("eval-multipie", "relight"):
-        argv = argv + ["--checkpoint", files["pth"], "--device", "cpu"]
-        if argv[0] == "eval-multipie":
-            argv += ["--data-root", files["root"]]
+def test_data_parallel_conflicts_with_sample_parallel(files):
+    argv = ["eval-multipie", "--data-parallel", "--sample-parallel", "--checkpoint", files["pth"], "--device", "cpu",
+            "--data-root", files["root"]]
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
-    assert isinstance(e.value.code, str) and "not ported" in e.value.code and item in e.value.code, e.value.code
+    assert e.value.code == "--data-parallel conflicts with --sample-parallel"
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +285,48 @@ def run_eval_lpips(files, tmp_path, capsys, random_trunk: bool):
             assert got[k] == want[k], k
 
 
+def run_convert(files, tmp_path, capsys):
+    from geomconsistentfr_torch.convert import load_checkpoint, state_dict_from_jax_variables
+    from geomconsistentfr_torch.utils.checkpoint import restore_variables
+
+    assert tcli.main(["convert", "--pth", files["pth"], "--out", str(tmp_path / "port")]) == 0
+    got = last_json_line(capsys)
+    assert jcli.main(["convert", "--pth", files["pth"], "--out", str(tmp_path / "jax")]) == 0
+    assert got == dict(last_json_line(capsys), out=str(tmp_path / "port"))
+    state, back = load_checkpoint(files["pth"]), state_dict_from_jax_variables(restore_variables(got["out"]))
+    assert sorted(back) == sorted(state) and all(torch.equal(back[k], state[k]) for k in state)
+
+
+def run_sample_parallel_one_process(files, tmp_path, capsys):
+    for flags, out in (([], "plain"), (["--sample-parallel"], "sharded")):
+        assert tcli.main(["relight"] + model_args(files, tmp_path / out, "draft") + flags + [
+            "--image", files["image"], "--mask", files["mask"], "--light-preset", "multipie_14"]) == 0
+    names = sorted(os.listdir(tmp_path / "plain"))
+    assert len(names) == 7 and sorted(os.listdir(tmp_path / "sharded")) == names
+    for name in names:
+        assert (tmp_path / "plain" / name).read_bytes() == (tmp_path / "sharded" / name).read_bytes(), name
+
+
+def run_data_parallel_one_process(files, tmp_path, capsys):
+    from test_torch_eval import make_dataset
+
+    root = make_dataset(tmp_path / "mp", n=3, size=32)
+    (tmp_path / "c32.json").write_text(json.dumps({"render": dict(TRAIN_CONFIG["render"])}))
+    base = ["eval-multipie", "--checkpoint", files["pth"], "--config", str(tmp_path / "c32.json"), "--device", "cpu",
+            "--data-root", root, "--batch-size", "2"]
+    assert tcli.main(base + ["--out", str(tmp_path / "plain")]) == 0
+    plain = last_json_line(capsys)
+    assert tcli.main(base + ["--data-parallel", "--out", str(tmp_path / "sharded")]) == 0
+    assert last_json_line(capsys) == plain and plain["num_inferred"] == 3
+    for name in sorted(os.listdir(tmp_path / "plain")):
+        assert (tmp_path / "plain" / name).read_bytes() == (tmp_path / "sharded" / name).read_bytes(), name
+
+
 PORTED = {
     "build-cache": run_build_cache,
+    "convert": run_convert,
+    "sample-parallel": run_sample_parallel_one_process,
+    "data-parallel": run_data_parallel_one_process,
     "train": run_train,
     "crop": run_crop,
     "lpips-trunk": functools.partial(run_eval_lpips, random_trunk=False),

@@ -20,9 +20,10 @@ import jax
 import jax.numpy as jnp
 
 from geomconsistentfr_torch import config as TC
-from geomconsistentfr_torch.convert import state_dict_from_jax_variables
+from geomconsistentfr_torch.convert import state_dict_from_jax_variables, variables_from_state_dict
 from geomconsistentfr_torch.infer import Relighter as TRelighter
 from geomconsistentfr_torch.infer import load_relighter
+from geomconsistentfr_torch.utils.checkpoint import save_variables
 from geomconsistentfr_tpu import config as JC
 from geomconsistentfr_tpu.infer import Relighter as JRelighter
 from geomconsistentfr_tpu.infer import pack_visuals as j_pack_visuals
@@ -165,5 +166,8 @@ def test_load_relighter_embeds_transfer_weights(tmp_path):
     transfer_cfg = small_cfg(TC, "strict", preset="preset_lighting_transfer")
     same = load_relighter(str(path), cfg=transfer_cfg, device="cpu")
     assert same.model.conv_shortcut_h1_out.weight.shape[2:] == (1, 1)
-    with pytest.raises(NotImplementedError):
-        load_relighter(str(tmp_path), cfg=cfg, device="cpu")
+    # The same weights as an orbax checkpoint directory load to the same function.
+    save_variables(str(tmp_path / "ckpt"), variables_from_state_dict(state))
+    from_dir = load_relighter(str(tmp_path / "ckpt"), cfg=cfg, device="cpu")
+    c = from_dir.forward(images, masks, lights, ambients)
+    assert torch.equal(c.rendered, a.rendered) and torch.equal(c.min_distance, a.min_distance)

@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package, and never falls back to the CPU.
 
 The child process also blocks OpenCV, imageio and Pillow: without them the
-port's image files go through its own PNG codec.
+port's image files go through its own PNG codec. It blocks orbax,
+tensorstore, msgpack and zstandard too, and reads the committed orbax
+fixture (tests/golden/orbax_relightnet_seed0) through the port's own reader.
 """
 
 import ast
@@ -15,12 +17,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "geomconsistentfr_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "geomconsistentfr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "geomconsistentfr_tpu", "orbax", "tensorstore", "msgpack", "zstandard")
 
 _CHILD = r"""
 import importlib, importlib.util, pkgutil, sys, tempfile
-# Nor does the port need an image codec package: OpenCV, imageio, Pillow.
-for name in ("jax", "jaxlib", "flax", "geomconsistentfr_tpu", "cv2", "imageio", "PIL"):
+# Nor does the port need an image codec package (OpenCV, imageio, Pillow) or
+# orbax's stack (orbax, tensorstore, msgpack, zstandard).
+for name in ("jax", "jaxlib", "flax", "geomconsistentfr_tpu", "cv2", "imageio", "PIL", "orbax", "tensorstore",
+             "msgpack", "zstandard"):
     sys.modules[name] = None  # any import of them now raises ImportError
 import geomconsistentfr_torch
 for info in pkgutil.walk_packages(geomconsistentfr_torch.__path__, "geomconsistentfr_torch."):
@@ -81,6 +85,17 @@ for main, argv in ((cli.main, ["relight", "--checkpoint", os.path.join(tmp, "w.p
         assert "device='cpu'" in str(e), e
     else:
         raise AssertionError(f"{main.__module__}.main without --device ran with no CUDA device")
+# The committed orbax fixture, through the port's reader, to its hashes.
+import hashlib, json
+from geomconsistentfr_torch.convert import state_dict_from_jax_variables
+from geomconsistentfr_torch.utils.checkpoint import restore_variables
+
+want = json.load(open("tests/golden/orbax_relightnet_seed0.sha256.json"))["leaves"]
+tree = restore_variables("tests/golden/orbax_relightnet_seed0")
+got = {f"{group}.{module}.{leaf}": hashlib.sha256(v.tobytes()).hexdigest()
+       for group, modules in tree.items() for module, leaves in modules.items() for leaf, v in leaves.items()}
+assert got == {k: v["sha256"] for k, v in want.items()}
+assert len(state_dict_from_jax_variables(tree)) > 300
 print("ISOLATED")
 """
 

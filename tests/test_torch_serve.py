@@ -374,15 +374,15 @@ def test_request_codec_equals_the_jax_server():
 
 def test_main_serves_and_drains_on_sigterm(tmp_path):
     """`main` in a subprocess on the CPU (256x256 preset): healthz, one
-    /estimate, then SIGTERM drains and exits 0; the multi-rank flags are refused."""
+    /estimate, then SIGTERM drains and exits 0; two multi-rank flags together are refused."""
     pth = tmp_path / "w.pth"
     torch.save(RelightNet(preset_single_image().model, generator=torch.Generator().manual_seed(0)).state_dict(), pth)
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "geomconsistentfr_torch.serve", "--checkpoint", str(pth), "--device", "cpu",
            "--port", "0"]
-    refused = subprocess.run(cmd + ["--sample-parallel"], cwd=ROOT, env=env, capture_output=True, text=True,
-                             timeout=120)
-    assert refused.returncode != 0 and "item 8" in refused.stderr
+    refused = subprocess.run(cmd + ["--sample-parallel", "--grid-parallel", "1x1"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=120)
+    assert refused.returncode != 0 and "mutually exclusive" in refused.stderr
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         line = json.loads(proc.stdout.readline())

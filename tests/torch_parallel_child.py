@@ -144,3 +144,19 @@ def trainer_epoch(device, out_dir, tag, shape, cfg, workdir, seed):
     state, avg = trainer.run_epoch(state, 0)
     trainer.save(state)
     _save(out_dir, tag, rank, avg=avg, state=_snapshot(state))
+
+
+def trainer_epochs(device, out_dir, tag, cfg, workdir, epochs, num_samples):
+    """`cli train`'s loop in a spawned rank: Trainer(mesh=the world) from
+    init_or_resume() (weights seeded by cfg.train.seed), `epochs` epochs."""
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+
+    rank = _setup()
+    trainer = TT.Trainer(cfg, SyntheticFaceData(num_samples=num_samples, size=cfg.render.img_height),
+                         workdir=os.path.join(workdir, f"rank{rank}"), mesh=M.make_mesh(device))
+    state = trainer.init_or_resume()
+    rows = []
+    for epoch in range(epochs):
+        state, avg = trainer.run_epoch(state, epoch)
+        rows.append(avg)
+    _save(out_dir, tag, rank, epochs=rows)
