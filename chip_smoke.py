@@ -10,15 +10,20 @@ march kernels of another checkout (e.g. the parent commit, unpacked with
 (parent, this tree, this tree, parent), each in a child process of its own
 (`--timing-of ROOT`, which times one tree), with the SASS counts of both
 builds, and prints each run and a summary line (compare_timing lists the
-rows).
+rows). Each turn also spawns two ranks on the card (parallel_timing_rank):
+K5's forward, its slice, its combine, the collectives a forward issues and
+their bytes, one int64 all_reduce (the collective floor), march_grad at the
+winner, the 1x2 grid step and the combine's share of it, and the
+sample-parallel draft forward.
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device   CUDA is required (no CPU fallback); the card's name and power
               limit as nvidia-smi reports them.
   2. build    every kernel of the port is compiled from csrc/ (nvcc, sm_90a):
               march (K1), march_argmin (K2), refine (K3), march_grad (the
-              backward of the training march K4, whose forward is K2) and
-              stage (the staging every march reads), with
+              backward of the training march K4, whose forward is K2),
+              stage (the staging every march reads) and unpack_key (K5's
+              unpack of K2's packed keys), with
               the registers ptxas reports for each and the counts of F2I,
               I2F, FRND, LDG and float32 and integer arithmetic opcodes in
               its SASS (cuobjdump -sass), in the whole function and in each
@@ -163,9 +168,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
               Relighter(parallel='samples') at batch 64, strict (K1 on its
               80 of the 160 samples) and draft (K2 on its slice, K3 on
               every rank), against the same forward in one process; K5 on
-              the golden depth maps (batch 8, 160 samples), bit-equal to K2
-              on the full grid, against its plain version and, through
-              march_grad, against K4; two steps of the 1x2 grid train step
+              the golden depth maps (batch 8, 160 samples): K2's key form
+              on the rank's slice (bit-equal to its packed index form), one
+              MIN of the int64 keys (exactly one collective a forward), the
+              unpack (bit-equal to its plain version), march_grad at t*
+              (its t-map form bit-equal to its index form); its distances
+              bit-equal to K2 on the full grid and t* its winner, against
+              its plain version and, through march_grad, against K4; K5
+              timed at the training shape (3, 256^2: forward, combine,
+              collectives, bytes a rank, the collective floor); two steps
+              of the 1x2 grid train step
               (batch 3, K5 and march_grad on each rank) and one 2x1
               data-parallel step (batch 4). After each step every rank's
               parameters, BatchNorm statistics and Adam moments hash the
@@ -174,8 +186,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               one <card>": two ranks on one card scale nothing. The train
               and parallel phases run last, so the others run as before.
 The phases from cli to launch (7-10 and those named) run in phase_surface.
-Then the `kernels` JSON line (K1-K4 and K5, `march_sp`), the nvidia-smi
-line, and, last:
+Then the `kernels` JSON line (K1-K4, K5 as `march_sp`, and `unpack_key`,
+which replaces the reference's pmin combine), the nvidia-smi line, and,
+last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Bars (march and golden) are those of tests/test_torch_shadows.py,
@@ -201,15 +214,51 @@ GOLDEN = ROOT / "tests" / "golden"
 # tier, pooled).
 KERNELS = ("march", "march_argmin", "refine", "march_grad", "stage")
 # The compiled functions: K2 is built twice, one thread a pixel and (at 128
-# samples or more) two threads a pixel, "march_argmin_split".
-COMPILED = KERNELS + ("march_argmin_split",)
-# K5 (march_sp) launches the march_argmin form on a rank's slice of the t grid.
-ALL_KERNELS = KERNELS + ("march_sp",)
+# samples or more) two threads a pixel, "march_argmin_split"; the unpack of
+# K2's keys after their MIN over the ranks (K5), "unpack_key".
+COMPILED = KERNELS + ("march_argmin_split", "unpack_key")
+# K5 (march_sp) launches the march_argmin form's key epilogue on a rank's slice
+# of the t grid; unpack_key unpacks the keys after their MIN over the ranks.
+ALL_KERNELS = KERNELS + ("march_sp", "unpack_key")
 
 
 def counts(**n) -> dict:
     """Launch counts by kernel name (shadows_cuda.LAUNCHES' keys), 0 where not given."""
-    return {k: n.get(k, 0) for k in ("stage", *KERNELS[:4], "march_sp")}
+    return {k: n.get(k, 0) for k in ("stage", *KERNELS[:4], "march_sp", "unpack_key")}
+
+
+class CollectiveCounter:
+    """Counts the torch.distributed collectives called inside it, and the bytes of the
+    tensors this rank hands them (an all_gather's input, an all_reduce's buffer)."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast", "reduce", "reduce_scatter",
+             "reduce_scatter_tensor", "all_to_all", "all_to_all_single", "gather", "scatter")
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.calls, self.nbytes, self._saved = 0, 0, {}
+        for name in self.NAMES:
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def counted(*args, _fn=fn, **kwargs):
+                self.calls += 1
+                self.nbytes += sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+                return _fn(*args, **kwargs)
+
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        return False
 
 # Published H100 SXM peaks (dense, no sparsity) used for bounds.
 PEAK_F32_FLOPS = 67e12
@@ -302,6 +351,8 @@ def sass_kernel_name(mangled: str):
         return KERNELS[int(form.group(1))] + ("_split" if form.group(2) not in (None, "1") else "")
     if "march_grad_kernel" in mangled:
         return "march_grad"
+    if "unpack_key_kernel" in mangled:
+        return "unpack_key"
     return "stage" if "stage_kernel" in mangled else None
 
 
@@ -2560,11 +2611,14 @@ def phase_train(dev, seed=0, steps=6):
 PARALLEL_RANKS = 2
 SAMPLES_LAUNCHES = {  # per rank, per sample-parallel Relighter.forward
     "strict": counts(stage=1, march=1),
-    # The pooling (the draft staging's, shadows_cuda.pool_march_inputs), K2 on the rank's slice of the
-    # pooled inputs, K3 around the combined t*: each stages its own input
-    "draft": counts(stage=3, march_argmin=1, refine=1),
+    # The pooling (the draft staging's, shadows_cuda.pool_march_inputs), K2's key form on the rank's
+    # slice of the pooled inputs, the unpack of the keys' MIN, K3 around the combined t*: each stages
+    # its own input
+    "draft": counts(stage=3, march_argmin=1, refine=1, unpack_key=1),
 }
-GRID_STEP_LAUNCHES = counts(stage=1, march_grad=1, march_sp=1)
+GRID_STEP_LAUNCHES = counts(stage=1, march_grad=1, march_sp=1, unpack_key=1)
+# The collectives a K5 forward issues (forward and backward): one MIN of the int64 keys.
+K5_COLLECTIVES = 1
 LATER_STEP_BARS = {k: 10 * v for k, v in TRAIN_BARS.items()}
 DP_G_GRAD_NORM_REL = 0.15
 
@@ -2605,10 +2659,24 @@ def train_batches(seed, b, n):
     return [data.get_batch(range(i * b, (i + 1) * b)) for i in range(n)]
 
 
+def k5_inputs(goldens, dev, seed, batch=8):
+    """K5's inputs: the golden depth maps and masks, their target lights at the training light
+    distance, a seeded random cotangent."""
+    import numpy as np
+    import torch
+
+    fixtures = [g for _, g in goldens[:batch]]
+    depth = torch.from_numpy(np.stack([g["depth"][0, 0] for g in fixtures])).to(dev)
+    mask = torch.from_numpy(np.stack([g["mask"] for g in fixtures])).to(dev)
+    unit = np.stack([g["target_light"][0] for g in fixtures]).astype(np.float32)
+    light = torch.from_numpy(unit / np.linalg.norm(unit, axis=1, keepdims=True) * 4013.0).to(dev)
+    cot = torch.from_numpy(np.random.default_rng(seed).normal(size=tuple(depth.shape)).astype(np.float32)).to(dev)
+    return depth, mask, light, cot
+
+
 def parallel_rank(dev, out_dir: str, seed: int) -> None:
     """One rank of the parallel phase; writes <out_dir>/rank<r>.json. Every
     rank runs the same calls in the same order (their collectives pair up)."""
-    import numpy as np
     import torch
 
     from geomconsistentfr_torch import config as C
@@ -2625,9 +2693,9 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
     world = M.make_mesh(dev)
 
     # 1. Sample-parallel serving: Relighter(parallel='samples') at batch 64,
-    # strict (K1 on 80 of the 160 samples) and draft (K2 on 40 of the 80
-    # strided samples, then K3 on every rank), against the same forward in
-    # this process alone.
+    # strict (K1 on 80 of the 160 samples) and draft (K2's key form on 40 of
+    # the 80 strided samples, the keys' MIN and the unpack, then K3 on every
+    # rank), against the same forward in this process alone.
     images, masks, lights = serving_inputs(goldens, dev, seed)
     res["samples"] = {}
     for tier in ("strict", "draft"):
@@ -2663,17 +2731,15 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
         torch.cuda.empty_cache()
 
     # 2. K5 on the golden depth maps (batch 8, 256x256, 160 samples, 80 per
-    # rank): bit-equal to K2 on the full grid, its winner too on >= 0.9999 of
-    # pixels; against its plain version (the plain argmin march on the slice,
-    # the same combine, the plain VJP at the winner) and, through march_grad,
-    # against RayMarchMinDistance (K4) on this rank alone.
+    # rank): one collective (forward and backward), bit-equal to K2 on the
+    # full grid, its t* equal to the full grid's winner on >= 0.9999 of
+    # pixels; K2's key form bit-equal to its packed index form, the unpack to
+    # its plain version, march_grad's t-map form to its index form; against
+    # its plain version (the plain argmin march on the slice, pack_march_key,
+    # the same MIN, unpack_march_key, the plain VJP at the winner) and,
+    # through march_grad, against RayMarchMinDistance (K4) on this rank alone.
     cfg = C.preset_target_lighting_train().render
-    batch = goldens[:8]
-    depth = torch.from_numpy(np.stack([g["depth"][0, 0] for _, g in batch])).to(dev)
-    mask = torch.from_numpy(np.stack([g["mask"] for _, g in batch])).to(dev)
-    unit = np.stack([g["target_light"][0] for _, g in batch]).astype(np.float32)
-    light = torch.from_numpy(unit / np.linalg.norm(unit, axis=1, keepdims=True) * 4013.0).to(dev)
-    cot = torch.from_numpy(np.random.default_rng(seed).normal(size=tuple(depth.shape)).astype(np.float32)).to(dev)
+    depth, mask, light, cot = k5_inputs(goldens, dev, seed)
     n_s = world.size
     table = torch.as_tensor(S.sharded_sample_ts(cfg, n_s), device=dev)
     ts_local = table.view(n_s, -1)[rank].contiguous()
@@ -2681,23 +2747,34 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
 
     reset_launches()
     d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
-    out = K.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, group)
-    (out * cot).sum().backward()
+    with CollectiveCounter() as collectives:
+        out = K.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, group)
+        (out * cot).sum().backward()
     torch.cuda.synchronize()
     n = dict(K.LAUNCHES)
     check(n == GRID_STEP_LAUNCHES, "parallel", f"K5 forward and backward launched {n}")
-    full, full_idx, _ = K._launch_argmin(depth, mask, light, K._ts_for(dev, cfg), cfg)
+    check(collectives.calls == K5_COLLECTIVES, "parallel", f"K5 issued {collectives.calls} collectives")
+    ts_full = K._ts_for(dev, cfg)
+    full, full_idx, _ = K._launch_argmin(depth, mask, light, ts_full, cfg)
     check(torch.equal(out.detach(), full), "parallel", "K5: distances differ from K2 on the full grid")
-    local_min, local_idx, _ = K._argmin(depth, mask, light, ts_local, cfg)
-    _, idx, _ = K._first_winner(local_min, local_idx, ts_local, group)
-    idx_agree = (idx == full_idx).float().mean().item()
-    check(idx_agree >= 0.9999, "parallel", f"K5: winner equal to the full grid's on {idx_agree} of pixels")
+    local_min, local_idx, _ = K._launch_argmin(depth, mask, light, ts_local, cfg)
+    key, _ = K._march_key(depth, mask, light, ts_local, cfg)
+    check(torch.equal(key, S.pack_march_key(local_min, ts_local[local_idx.long()])), "parallel",
+          "K2's key form differs from its packed index form")
+    reduced = M.all_min(key, group)
+    got_d, t_star = K.unpack_march_key(reduced)
+    plain_d, plain_t = S.unpack_march_key(reduced)
+    check(torch_equal_bits(got_d, plain_d) and torch_equal_bits(t_star, plain_t), "parallel",
+          "the unpack kernel differs from its plain version")
+    check(torch.equal(got_d, full), "parallel", "K5: the unpacked distances differ from K2 on the full grid")
+    t_agree = (t_star == ts_full[full_idx.long()]).float().mean().item()
+    check(t_agree >= 0.9999, "parallel", f"K5: t* equal to the full grid's winner on {t_agree} of pixels")
     plain_min, plain_idx = S.ray_march_argmin_batch(depth, mask, light, cfg, ts_local)
-    plain_out, plain_gidx, _ = K._first_winner(plain_min, plain_idx, ts_local, group)
+    plain_out, plain_t = S.unpack_march_key(M.all_min(S.pack_march_key(plain_min, ts_local[plain_idx.long()]), group))
     k5_err = check_march(out.detach(), plain_out, "parallel", "K5 vs its plain version")
-    plain_idx_agree = (plain_gidx == idx).float().mean().item()
-    check(plain_idx_agree >= 0.9999, "parallel", f"K5 vs plain: winner equal on {plain_idx_agree} of pixels")
-    want_d, want_l = S.march_vjp(depth, mask, light, table[idx.long()], cot, cfg)
+    plain_t_agree = (plain_t == t_star).float().mean().item()
+    check(plain_t_agree >= 0.9999, "parallel", f"K5 vs plain: t* equal on {plain_t_agree} of pixels")
+    want_d, want_l = S.march_vjp(depth, mask, light, t_star, cot, cfg)
     d4, lp4 = depth.clone().requires_grad_(), light.clone().requires_grad_()
     (K.RayMarchMinDistance.apply(d4, mask, lp4, cfg) * cot).sum().backward()
     grad_err = {}
@@ -2707,37 +2784,51 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
         check(dd_rel <= GRAD_BARS["d_depth_rel_to_max"] and dl_rel <= GRAD_BARS["d_light_rel_to_image_max"],
               "parallel", f"K5 gradients {tag}: d_depth {dd_rel}, d_light {dl_rel}")
         grad_err[tag] = dict(d_depth_rel_to_max=dd_rel, d_light_rel_to_image_max=dl_rel)
+    # march_grad's t-map form (K5's backward) against its index form, bit for
+    # bit: 64 copies of one golden image, each with a cotangent on one
+    # on-face pixel, so one thread makes each copy's gradients and the
+    # atomics add in one order.
+    on = torch.nonzero(mask[0].reshape(-1)).view(-1)
+    pick = on[torch.randperm(on.numel(), generator=torch.Generator().manual_seed(seed))[:64].to(dev)]
+    rep_d, rep_m, rep_l = (x[:1].expand(64, *x.shape[1:]).contiguous() for x in (depth, mask, light))
+    _, rep_idx, rep_staged = K._launch_argmin(rep_d, rep_m, rep_l, ts_full, cfg)
+    one_hot = torch.zeros_like(rep_d)
+    one_hot.view(64, -1)[torch.arange(64, device=dev), pick] = cot[0].reshape(-1)[pick]
+    by_idx = K.march_grad_cuda(rep_d, rep_m, rep_l, rep_idx, ts_full, one_hot, cfg, rep_staged)
+    by_t = K.march_grad_at_cuda(rep_d, rep_m, rep_l, ts_full[rep_idx.long()], one_hot, cfg, rep_staged)
+    check(torch_equal_bits(by_t[0], by_idx[0]) and torch_equal_bits(by_t[1], by_idx[1]), "parallel",
+          "march_grad's t-map form differs from its index form")
 
-    # K5 timed at the training shape (3, 256, 256): the whole forward, K2 on
-    # the slice (the call with its staging by CUDA events, slice_ms, and the
-    # kernel alone by the profiler, kernel_ms), the combine alone, march_grad
-    # at the winner, and the plain version (the plain argmin march on the
-    # slice, the combine).
+    # K5 timed at the training shape (3, 256, 256), as --compare-parent times
+    # it: the forward, its slice, the combine, the collectives, march_grad; the
+    # plain version (the plain argmin march on the slice, the same combine
+    # on the plain keys); the unpack kernel and its plain version.
     td, tm, tl, tc = (x[:3].contiguous() for x in (depth, mask, light, cot))
-    with torch.no_grad():
-        k5_ms = cuda_time_ms(lambda: K.RayMarchMinDistanceSP.apply(td, tm, tl, cfg, ts_local, group), 10, windows=5)
-    slice_ms = cuda_time_ms(lambda: K._launch_argmin(td, tm, tl, ts_local, cfg), 20, windows=5)
-    slice_device_ms = kernel_device_ms(lambda: K._launch_argmin(td, tm, tl, ts_local, cfg))
-    t_min, t_idx, t_staged = K._launch_argmin(td, tm, tl, ts_local, cfg)
-    combine_ms = cuda_time_ms(lambda: K._first_winner(t_min, t_idx, ts_local, group), 10, windows=5)
-    _, t_gidx, t_table = K._first_winner(t_min, t_idx, ts_local, group)
-    bwd_ms = cuda_time_ms(lambda: K.march_grad_cuda(td, tm, tl, t_gidx, t_table, tc, cfg, t_staged), 20, windows=5)
-    plain_ms = cuda_time_ms(lambda: K._first_winner(*S.ray_march_argmin_batch(td, tm, tl, cfg, ts_local),
-                                                    ts_local, group), 2)
+    k5_time = time_k5(K, td, tm, tl, tc, cfg, ts_local, group)
+
+    def plain_k5():
+        p_min, p_idx = S.ray_march_argmin_batch(td, tm, tl, cfg, ts_local)
+        return S.unpack_march_key(M.all_min(S.pack_march_key(p_min, ts_local[p_idx.long()]), group))
+
+    plain_ms = cuda_time_ms(plain_k5, 2)
+    t_key = M.all_min(K._march_key(td, tm, tl, ts_local, cfg)[0], group)
+    unpack = dict(ms=cuda_time_ms(lambda: K.unpack_march_key(t_key), 20, windows=5),
+                  kernel_ms=kernel_device_ms(lambda: K.unpack_march_key(t_key), name="unpack_key_kernel"),
+                  plain_ms=cuda_time_ms(lambda: S.unpack_march_key(t_key), 20, windows=5),
+                  # the keys read once, the distances and t* written once
+                  **bound(0, 16 * t_key.numel()))
     b, h, w = td.shape
     live = b * h * w  # the training march has no cull
     ops = live * (ts_local.numel() * (OPS_PER_SAMPLE[S.resolve_mask_gather(cfg)] + EXTRA_OPS_PER_SAMPLE[
         "march_argmin"]) + OPS_PER_PIXEL)
-    # K2 on the slice (depth, mask, out, idx; light; the slice), then the
-    # combine's inputs and outputs (local min and index in, global min and
-    # index out).
-    nbytes = 4 * (4 * b * h * w + 3 * b + ts_local.numel()) + 4 * 4 * b * h * w
-    res["k5"] = dict(launches=n, distances_equal_full_grid=True, winner_agreement=idx_agree,
-                     plain_winner_agreement=plain_idx_agree, max_abs_err=k5_err, grad_err=grad_err,
-                     ms=k5_ms, slice_ms=slice_ms, kernel_ms=slice_device_ms, combine_ms=combine_ms,
-                     backward_ms=bwd_ms, plain_ms=plain_ms, samples_per_rank=ts_local.numel(),
-                     **bound(ops, nbytes))
-    del d, lp, d4, lp4, out, full, want_d
+    # The forward on one rank: depth and mask read, light and the slice, the
+    # distances and t* written (the key's exchange is the collective's).
+    nbytes = 4 * (2 * b * h * w + 3 * b + ts_local.numel()) + 4 * 2 * b * h * w
+    res["k5"] = dict(launches=n, collectives_fwd_bwd=collectives.calls, distances_equal_full_grid=True,
+                     t_star_agreement=t_agree, plain_t_star_agreement=plain_t_agree, max_abs_err=k5_err,
+                     grad_err=grad_err, plain_ms=plain_ms, samples_per_rank=ts_local.numel(), **k5_time,
+                     unpack=unpack, **bound(ops, nbytes))
+    del d, lp, d4, lp4, out, full, want_d, rep_d, rep_m, rep_l, one_hot, by_idx, by_t
     torch.cuda.empty_cache()
 
     # 3. The 1x2 grid train step: two steps at preset_target_lighting_train,
@@ -2764,13 +2855,65 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
     res["grid"] = run_steps(T.make_grid_parallel_step(tcfg, grid), grid, train_batches(seed, 3, 2), 3)
     want = {k: 2 * v for k, v in GRID_STEP_LAUNCHES.items()}
     check(res["grid"]["launches"] == want, "parallel", f"grid steps launched {res['grid']['launches']}")
-    res["grid"]["combine_share"] = combine_ms / res["grid"]["step_ms"]
+    res["grid"]["combine_share"] = k5_time["combine_ms"] / res["grid"]["step_ms"]
 
     # 4. The 2x1 data-parallel step: batch 4, two images per rank.
     res["dp"] = run_steps(T.make_data_parallel_step(tcfg, world), world, train_batches(seed, 4, 1), 4)
     check(res["dp"]["launches"] == TRAIN_STEP_LAUNCHES, "parallel", f"DP step launched {res['dp']['launches']}")
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(res, f)
+
+
+def time_k5(K, td, tm, tl, tc, cfg, ts_local, group) -> dict:
+    """K5 on this rank at (td, tm, tl), through what this tree and its parent share: the forward
+    (CUDA events), K2 on the slice with its staging (slice_ms) and the kernel alone (kernel_ms,
+    torch.profiler), the combine alone (the MIN of the keys and the unpack; a tree before the key:
+    the MIN of the distances, the first-winner MIN of the indices and the gather of the t table),
+    the collectives a forward issues and the bytes this rank hands them, one MIN all_reduce of one
+    int64 over the group (collective_floor_ms: what a collective costs at least), and march_grad
+    at the winner as K5's backward launches it."""
+    import torch
+    import torch.distributed as dist
+
+    with torch.no_grad():
+        def forward():
+            return K.RayMarchMinDistanceSP.apply(td, tm, tl, cfg, ts_local, group)
+
+        forward_ms = cuda_time_ms(forward, 10, windows=5)
+        with CollectiveCounter() as collectives:
+            forward()
+        if hasattr(K, "_march_key"):
+            def on_slice():
+                return K._march_key(td, tm, tl, ts_local, cfg)
+
+            key, staged = on_slice()
+
+            def combine():
+                return K._combine(key, group)
+
+            _, t_star = combine()
+
+            def backward():
+                return K._march_grad(tl, None, None, tc, staged, cfg, t_map=t_star)
+        else:
+            def on_slice():
+                return K._launch_argmin(td, tm, tl, ts_local, cfg)
+
+            local_min, local_idx, staged = on_slice()
+
+            def combine():
+                return K._first_winner(local_min, local_idx, ts_local, group)
+
+            _, idx, table = combine()
+
+            def backward():
+                return K._march_grad(tl, idx, table, tc, staged, cfg)
+        one = torch.zeros(1, dtype=torch.int64, device=td.device)
+        return dict(ms=forward_ms, slice_ms=cuda_time_ms(on_slice, 20, windows=5), kernel_ms=kernel_device_ms(on_slice),
+                    combine_ms=cuda_time_ms(combine, 10, windows=5), backward_ms=cuda_time_ms(backward, 20, windows=5),
+                    collectives=collectives.calls, bytes_per_rank=collectives.nbytes,
+                    collective_floor_ms=cuda_time_ms(lambda: dist.all_reduce(one, op=dist.ReduceOp.MIN, group=group),
+                                                     10, windows=5))
 
 
 def phase_parallel(dev, seed=0):
@@ -3211,8 +3354,71 @@ def compare_timing(goldens, dev, batch=64) -> dict:
     return rows
 
 
+def parallel_timing_rank(dev, out_dir: str, root: str, seed: int) -> None:
+    """One of two ranks timing ROOT's sample-sharded paths for --compare-parent, through the API
+    this tree and its parent share: K5 at the training shape (time_k5, on the parallel phase's
+    inputs), the 1x2 grid train step (batch 3) with the combine's share of it, and the
+    sample-parallel draft forward (batch 64). Writes <out_dir>/timing<rank>.json."""
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch import train as T
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.ops import shadows as S
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.parallel import mesh as M
+
+    check(Path(K.__file__).resolve().is_relative_to(root), "compare", f"a rank imported {K.__file__}, not {root}'s")
+    rank = torch.distributed.get_rank()
+    goldens = load_goldens()
+    world = M.make_mesh(dev)
+    tcfg = C.preset_target_lighting_train()
+    td, tm, tl, tc = (x[:3].contiguous() for x in k5_inputs(goldens, dev, seed))
+    ts_local = torch.as_tensor(S.sharded_sample_ts(tcfg.render, world.size).reshape(world.size, -1)[rank], device=dev)
+    res = dict(rank=rank, k5=time_k5(K, td, tm, tl, tc, tcfg.render, ts_local, world.world_group))
+
+    grid = M.make_mesh_grid(1, world.size, dev)
+    step = T.make_grid_parallel_step(tcfg, grid)
+    state = T.init_state(tcfg, dev, torch.Generator().manual_seed(seed))
+    local = T.decode_batch(train_batches(seed, 3, 1)[0], dev)
+    skips = tcfg.model.skip_gates(0)
+    step_ms = cuda_time_ms(lambda: step(state, local, use_skips=skips), 2, warmup=1, windows=3)
+    res["grid"] = dict(step_ms=step_ms, combine_share=res["k5"]["combine_ms"] / step_ms)
+    del state
+    torch.cuda.empty_cache()
+
+    images, masks, lights = serving_inputs(goldens, dev, seed)
+    cfg = C.apply_precision_tier(C.preset_single_image(), "draft")
+    state = RelightNet(cfg.model, generator=torch.Generator().manual_seed(seed)).state_dict()
+    rl = Relighter(cfg, state, mesh=world, parallel="samples")
+    res["samples_draft_forward_ms"] = cuda_time_ms(lambda: rl.forward(images, masks, lights), 4, windows=3)
+    with open(Path(out_dir) / f"timing{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def parallel_timing(root: Path, seed: int = 0) -> list:
+    """parallel_timing_rank on PARALLEL_RANKS ranks of ROOT's package; each rank's record."""
+    import shutil
+    import tempfile
+
+    from geomconsistentfr_torch.parallel import distributed
+
+    tmp = tempfile.mkdtemp(prefix="gcfr_ptiming_")
+    try:
+        try:
+            distributed.spawn(parallel_timing_rank, PARALLEL_RANKS, "cuda", str(Path(tmp) / "rdzv"),
+                              args=(tmp, str(root), seed))
+        except Exception as e:  # a rank raised: its traceback is in the message
+            raise PhaseError(f"compare: a timing rank failed: {e}") from e
+        return [json.loads((Path(tmp) / f"timing{r}.json").read_text()) for r in range(PARALLEL_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timing_child(root: Path) -> int:
-    """--timing-of ROOT, compare_parent's child: build ROOT's kernels and print one compare_run line."""
+    """--timing-of ROOT, compare_parent's child: build ROOT's kernels and print one compare_run line
+    (the kernels' timing, then the sample-sharded paths' on two ranks)."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -3224,8 +3430,10 @@ def timing_child(root: Path) -> int:
     check(Path(K.__file__).resolve().is_relative_to(root), "compare", f"imported {K.__file__}, not {root}'s package")
     lib, log = K.build()
     K._library()
+    timing = compare_timing(load_goldens(), torch.device("cuda:0"))
+    torch.cuda.empty_cache()
     emit("compare_run", ok=True, root=str(root), ptxas=ptxas_registers(log), sass=sass_counts(lib, cuobjdump_path()),
-         timing=compare_timing(load_goldens(), torch.device("cuda:0")), nvidia_smi=nvidia_smi_line())
+         timing=timing, parallel=parallel_timing(root), nvidia_smi=nvidia_smi_line())
     return 0
 
 
@@ -3244,7 +3452,14 @@ def compare_parent(parent: Path) -> int:
         runs.append((tree, run))
     summary = {key: {f"{tree}_{i}": {k: run["timing"][key].get(k) for k in ("ms", "kernel_device_ms")}
                      for i, (tree, run) in enumerate(runs)} for key in runs[0][1]["timing"]}
-    emit("compare", ok=True, order=[t for t, _ in runs], rows=summary)
+    # The sample-sharded paths, two ranks on the card: each rank's K5 numbers, grid step and draft forward.
+    parallel = {f"{tree}_{i}": [dict(**{k: r["k5"][k] for k in ("ms", "combine_ms", "collectives", "bytes_per_rank",
+                                                                 "collective_floor_ms", "slice_ms", "kernel_ms",
+                                                                 "backward_ms")},
+                                     grid_step_ms=r["grid"]["step_ms"], combine_share=r["grid"]["combine_share"],
+                                     samples_draft_forward_ms=r["samples_draft_forward_ms"]) for r in run["parallel"]]
+                for i, (tree, run) in enumerate(runs)}
+    emit("compare", ok=True, order=[t for t, _ in runs], rows=summary, parallel=parallel)
     print(runs[0][1]["nvidia_smi"], flush=True)
     return 0
 
@@ -3317,7 +3532,8 @@ def main() -> int:
     # two ranks. `launches` sums the main paths' runs: one forward per tier,
     # the user-facing surface's processes (cli, bench, serve, eval), the six
     # training steps, and the parallel phase's forwards and steps
-    # over both ranks.
+    # over both ranks. unpack_key is bit-equal to its plain version wherever
+    # it is held (max_abs_err 0), at K5's shape.
     rows = {"march": (timing["strict"], [timing["fast"]], "geomconsistentfr_tpu/ops/shadows_pallas.py:64"),
             "march_argmin": (timing["draft_argmin"], [timing["train_argmin"]],
                              "geomconsistentfr_tpu/ops/shadows_pallas.py:881"),
@@ -3356,7 +3572,18 @@ def main() -> int:
         replaces="geomconsistentfr_tpu/ops/shadows_pallas.py:815", launches=parallel_launches["march_sp"],
         max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
         bound_by=k5["bound_by"], library_ms=None, kernel_ms=k5["kernel_ms"], slice_ms=k5["slice_ms"],
-        combine_ms=k5["combine_ms"], backward_ms=k5["backward_ms"], ranks=PARALLEL_RANKS,
+        combine_ms=k5["combine_ms"], backward_ms=k5["backward_ms"], collectives=k5["collectives"],
+        bytes_per_rank=k5["bytes_per_rank"], collective_floor_ms=k5["collective_floor_ms"], ranks=PARALLEL_RANKS,
+    ))
+    # The unpack of the MIN-reduced keys replaces the reference's pmin combine
+    # (the two pmins of distances and t), as the staging replaces XLA's pooling.
+    unpack = k5["unpack"]
+    kernels.append(dict(
+        name="unpack_key", route="cuda", source="geomconsistentfr_torch/csrc/march.cu",
+        replaces="geomconsistentfr_tpu/ops/shadows_pallas.py:851",
+        launches=surface_launches["unpack_key"] + parallel_launches["unpack_key"], max_abs_err=0.0,
+        ms=unpack["ms"], plain_ms=unpack["plain_ms"], bound_ms=unpack["bound_ms"], bound_by=unpack["bound_by"],
+        library_ms=None, kernel_ms=unpack["kernel_ms"],
     ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,8 +2,11 @@
 // the 3D distance from the pixel->light ray to the bilinearly sampled depth
 // point on the pixel->border segment. One templated kernel, three forms, fed
 // by one staging kernel (stage_kernel, below them, which at the draft tier
-// also pools), and the backward of K2 (march_grad_kernel, last: the training
-// march K4 is K2 forward and march_grad backward):
+// also pools), the unpack of K2's packed keys (unpack_key_kernel, after the
+// march: the sample-sharded march K5 and its serving form combine them), and
+// the backward of K2 (march_grad_kernel, last: the training march K4 is K2
+// forward and march_grad backward, K5 K2's key form on a rank's slice of the
+// t grid, one MIN over the ranks, the unpack, then march_grad):
 //
 //  K1 (kMin)     the min over the t grid. Replaces the inference form of
 //                geomconsistentfr_tpu/ops/shadows_pallas.py `_march_kernel`,
@@ -13,7 +16,12 @@
 //                every sample is vetoed). Replaces `_march_kernel` with
 //                want_tstar, reached through `ray_march_min_distance_pallas(
 //                ..., return_argmin_t=True)`: the draft tier's low-resolution
-//                march, and the forward of the training autograd.
+//                march, and the forward of the training autograd. Given a
+//                key pointer, it writes one packed 64-bit (distance, t) word a
+//                pixel in place of both (pack_key, below): the sample-sharded
+//                marches (K5 and the sample-parallel serving march) reduce
+//                those words with one MIN over their ranks and unpack them
+//                with unpack_key_kernel.
 //  K3 (kRefine)  the draft tier's boundary refine: the min over a few offsets
 //                around a per-pixel centre, t = clip(centre + off, t_lo, t_hi),
 //                from the 1e6 sentinel. The centre is read from a full-
@@ -115,7 +123,8 @@
 // vetoed sample); sqrt(n2 + 1e-4) / denom is monotone in n2, so the result
 // equals the min of per-sample distances exactly, and is taken once at the
 // end. K2 carries the sample index beside it; the wrapper maps the index to t
-// through the same float32 table (shadows_pallas.py:1152-1154).
+// through the same float32 table (shadows_pallas.py:1152-1154), or the
+// kernel packs the winner's t itself (its key form).
 //
 // Rounding choices:
 //  * The veto's rounding is banker's (round half to even), as in the
@@ -346,6 +355,24 @@ __device__ __forceinline__ float sample_n2(const float2* __restrict__ img, unsig
   return s.face ? n2 : kOffFaceN2;
 }
 
+// K2's key form: one 64-bit word whose signed order is the lexicographic
+// order of (distance, t). The high word is the distance exactly as `out`
+// would hold it (bias included), as an order-preserving int32: its float
+// bits, -0 taken as +0, and where negative (a negative shadow_bias can make
+// min_d + bias < 0) its 31 low bits flipped, so a more negative float maps
+// to a smaller int. The low word is the winning t's float bits, -0 taken as
+// +0: the wrapper keeps t in [0, 1], where the bits order as the values do.
+// So the signed int64 MIN of a pixel's keys over the ranks is the global
+// minimum distance and, among the ranks that reach it, the smallest t: the
+// JAX package's two pmins (shadows_pallas.py:851-855). ops/shadows.py
+// pack_march_key is its plain version, unpack_march_key unpack_key_kernel's.
+__device__ __forceinline__ long long pack_key(float d, float t) {
+  int hi = d == 0.0f ? 0 : __float_as_int(d);
+  hi = hi < 0 ? hi ^ 0x7fffffff : hi;
+  const unsigned lo = t == 0.0f ? 0u : __float_as_uint(t);
+  return (long long)(((unsigned long long)(unsigned)hi << 32) | lo);
+}
+
 // The min (K1, K3) or first argmin (K2) of sample_n2 over samples begin,
 // begin + kStep, ... < n of the staged table.
 template <int kForm, bool kBilinear, int kStep>
@@ -376,8 +403,9 @@ __device__ __forceinline__ void march_samples(const float2* __restrict__ img, un
 // `mask` (4 bytes a pixel, not dm's 8). ts: the t table (K1, K2) or
 // the window offsets (K3). K3's centre: t_map (B, H, W), or, where centre_idx
 // is given, centre_ts[centre_idx[b, row / s, col / s]] (K2's winners and the
-// table they index). idx: K2's winning sample indices. Unused pointers may be
-// null.
+// table they index). idx: K2's winning sample indices. key: K2's key form,
+// one pack_key(distance, ts[winner]) word a pixel, written in place of out
+// and idx (both then unused). Unused pointers may be null.
 // K1 and K2 hold 4 blocks an SM (64 registers); K3, whose 8-sample loop gains
 // less from registers than from blocks, 5. With kLanes threads a pixel (K2
 // only) a block is 8 rows x 32 / kLanes columns.
@@ -387,7 +415,8 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
              const uint8_t* __restrict__ flags, const float* __restrict__ light,
              const float* __restrict__ ts, const float* __restrict__ t_map,
              const int32_t* __restrict__ centre_idx, const float* __restrict__ centre_ts,
-             float* __restrict__ out, int32_t* __restrict__ idx, MarchParams p) {
+             float* __restrict__ out, int32_t* __restrict__ idx, long long* __restrict__ key,
+             MarchParams p) {
   static_assert(kLanes == 1 || kForm == kArgmin, "only K2 splits a pixel's samples");
   constexpr int kCols = kBlockCols / kLanes;  // pixel columns a block covers
   extern __shared__ float s_ts[];
@@ -412,6 +441,17 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
                     ly >= p.lo_y && ly <= p.hi_y;
   const float bias = gate ? p.gate_bias : 0.0f;
   const float sentinel = p.gate_on ? kOffFace + bias : kOffFace;
+  // One pixel's result: its distance and (K2) its winning sample.
+  const auto emit = [&](float d, int s) {
+    if constexpr (kForm == kArgmin) {
+      if (key != nullptr) {
+        key[o] = pack_key(d, ts[s]);
+        return;
+      }
+      idx[o] = s;
+    }
+    out[o] = d;
+  };
 
   // The cull. With flags, each thread reads its unit's byte. Without, the
   // block flags each cull unit (8 rows x chunk) that meets it from the mask:
@@ -451,10 +491,7 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   }
 
   if (!any_live) {
-    if (writer) {
-      out[o] = sentinel;
-      if constexpr (kForm == kArgmin) idx[o] = 0;
-    }
+    if (writer) emit(sentinel, 0);
     return;
   }
   for (int i = tid; i < p.n_ts; i += kThreads) {
@@ -462,10 +499,7 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   }
   __syncthreads();
   if (!live) {
-    if (writer) {
-      out[o] = sentinel;
-      if constexpr (kForm == kArgmin) idx[o] = 0;
-    }
+    if (writer) emit(sentinel, 0);
     return;
   }
 
@@ -518,8 +552,27 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   float min_d = sqrtf(best + kEps) / denom;
   if constexpr (kForm == kRefine) min_d = fminf(min_d, kOffFace);
   if (best >= kOffFaceN2) min_d = kOffFace;
-  out[o] = p.gate_on ? min_d + bias : min_d;
-  if constexpr (kForm == kArgmin) idx[o] = best_s;
+  emit(p.gate_on ? min_d + bias : min_d, best_s);
+}
+
+// The sample-sharded march's unpack: the MIN-reduced pack_key words back to
+// (B, H, W) float32 distances (bit-equal to K2's `out` on the full grid) and
+// winning offsets t*. With the MIN over the ranks (a collective, outside any
+// kernel) it replaces the JAX package's pmin combine of distances and t
+// (shadows_pallas.py:851-855), which is no Pallas kernel. One thread a
+// pixel; 16 bytes a pixel and no arithmetic, so bytes bound it: at
+// training's (3, 256^2) 3.1 MB, ~1 us at 3.35 TB/s, about a launch's own
+// time (PERF.md).
+__global__ void __launch_bounds__(kThreads)
+unpack_key_kernel(const long long* __restrict__ key, float* __restrict__ out, float* __restrict__ t_star,
+                  long long n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long k = (unsigned long long)key[i];
+  int hi = (int)(unsigned)(k >> 32);
+  hi = hi < 0 ? hi ^ 0x7fffffff : hi;
+  out[i] = __int_as_float(hi);
+  t_star[i] = __uint_as_float((unsigned)k);
 }
 
 // The kernels' input staging, once per march (the draft tier's one pass for
@@ -837,12 +890,14 @@ __device__ __forceinline__ void pixel_grad(
 }
 
 // dm: the forward's staged quad; flags: its cull flags, or null without the
-// cull; idx: K2's winning sample per pixel; ts: the table it indexes; g: the
-// cotangent of the march's output. d_depth and d_light arrive zeroed.
+// cull; idx: K2's winning sample per pixel and ts the table it indexes, or,
+// where t_map is given, each pixel's winning t itself (K5's backward, from
+// unpack_key_kernel: the same float as ts[idx]); g: the cotangent of the
+// march's output. d_depth and d_light arrive zeroed.
 __global__ void __launch_bounds__(kGradRows * kGradCols)
 march_grad_kernel(const float2* __restrict__ dm, const uint8_t* __restrict__ flags,
                   const float* __restrict__ light, const float* __restrict__ ts,
-                  const int32_t* __restrict__ idx, const float* __restrict__ g,
+                  const int32_t* __restrict__ idx, const float* __restrict__ t_map, const float* __restrict__ g,
                   float* __restrict__ d_depth, float* __restrict__ d_light, GradParams p) {
   const int h = p.height, w = p.width;
   const int b = blockIdx.z;
@@ -862,7 +917,7 @@ march_grad_kernel(const float2* __restrict__ dm, const uint8_t* __restrict__ fla
     }
     if (on) {
       const float2* __restrict__ img = dm + (size_t)b * (h + 1) * (w + 1);
-      const float t = ts[idx[o]];
+      const float t = t_map != nullptr ? t_map[o] : ts[idx[o]];
       float* __restrict__ dgrad = d_depth + (size_t)b * plane;
       const float lx = light[3 * b + 0], ly = light[3 * b + 1], lz = light[3 * b + 2];
       if (p.bilinear) {
@@ -925,12 +980,13 @@ extern "C" int gcfr_stage_launch(
 
 // The march: `form` is K1 (0), K2 (1) or K3 (2); `staged` the quad
 // stage_kernel wrote; `flags` its cull flags, or null for the in-kernel scan
-// of `mask`.
+// of `mask`; `key` (K2 only, may be null) its key form, in place of out and
+// idx.
 extern "C" int gcfr_march_launch(
     int form, const float* staged, const float* mask, const uint8_t* flags,
     const float* light, const float* ts,
     const float* t_map, const int32_t* centre_idx, const float* centre_ts,
-    float* out, int32_t* idx, int batch, int height, int width, int n_ts,
+    float* out, int32_t* idx, long long* key, int batch, int height, int width, int n_ts,
     int bilinear, int cull, int col_chunk, int gate_on, int centre_scale,
     int centre_n, float lo_x, float hi_x, float lo_y, float hi_y,
     float gate_bias, float t_lo, float t_hi, void* stream) {
@@ -938,6 +994,7 @@ extern "C" int gcfr_march_launch(
                 centre_scale, centre_n, log2_or_minus1(col_chunk),
                 log2_or_minus1(centre_scale), lo_x, hi_x, lo_y, hi_y, gate_bias,
                 t_lo, t_hi};
+  if (key != nullptr && (form != kArgmin || n_ts < 1)) return (int)cudaErrorInvalidValue;
   dim3 block(kBlockCols, kBlockRows);
   const bool split = form == kArgmin && n_ts >= kSplitFrom;
   dim3 grid((width * (split ? kSplitLanes : 1) + kBlockCols - 1) / kBlockCols,
@@ -947,19 +1004,19 @@ extern "C" int gcfr_march_launch(
   const float2* dm2 = reinterpret_cast<const float2*>(staged);
   switch (form) {
     case kMin:
-      march_kernel<kMin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
+      march_kernel<kMin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, key, p);
       break;
     case kArgmin:
       if (split) {
         march_kernel<kArgmin, kSplitLanes><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx,
-                                                                      centre_ts, out, idx, p);
+                                                                      centre_ts, out, idx, key, p);
       } else {
         march_kernel<kArgmin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts,
-                                                            out, idx, p);
+                                                            out, idx, key, p);
       }
       break;
     case kRefine:
-      march_kernel<kRefine, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, p);
+      march_kernel<kRefine, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, key, p);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -967,18 +1024,27 @@ extern "C" int gcfr_march_launch(
   return (int)cudaGetLastError();
 }
 
+// The unpack (unpack_key_kernel) of n reduced keys into out and t_star.
+extern "C" int gcfr_unpack_key_launch(const long long* key, float* out, float* t_star, long long n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  unpack_key_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, (cudaStream_t)stream>>>(key, out,
+                                                                                                    t_star, n);
+  return (int)cudaGetLastError();
+}
+
 // K4's backward (march_grad) on the forward's staged quad and flags (null
-// without the cull); d_depth (B, H, W) and d_light (B, 3) must be zeroed by
+// without the cull), at ts[idx], or at t_map where it is not null (then idx
+// and ts may be null); d_depth (B, H, W) and d_light (B, 3) must be zeroed by
 // the caller.
 extern "C" int gcfr_march_grad_launch(
     const float* staged, const uint8_t* flags, const float* light, const float* ts,
-    const int32_t* idx, const float* g, float* d_depth, float* d_light, int batch, int height,
+    const int32_t* idx, const float* t_map, const float* g, float* d_depth, float* d_light, int batch, int height,
     int width, int bilinear, int col_chunk, void* stream) {
   GradParams p{batch, height, width, bilinear, col_chunk, log2_or_minus1(col_chunk)};
   dim3 block(kGradCols, kGradRows);
   dim3 grid((width + kGradCols - 1) / kGradCols,
             (height + kGradRows - 1) / kGradRows, batch);
   march_grad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float2*>(staged), flags, light, ts, idx, g, d_depth, d_light, p);
+      reinterpret_cast<const float2*>(staged), flags, light, ts, idx, t_map, g, d_depth, d_light, p);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,8 @@ what the ranks split:
     (ops/shadows_cuda.sharded_march). The MIN is exact and every step after
     it is per pixel, so the outputs are bit-equal to one process's. At the
     draft tier the slices come from the scaled config (its strided grid),
-    the argmin march combines its first winner too, and the refine runs
+    the argmin march combines its winning t too, in the same MIN (K2's
+    packed (distance, t) keys, one collective), and the refine runs
     replicated on every rank. forward, forward_visuals, relight_sweep*.
   * 'grid' (a 2-D (data, samples) mesh): the batch shards over the data
     axis (B a multiple of its size) and the march over the samples axis;

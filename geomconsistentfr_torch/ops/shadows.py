@@ -17,6 +17,9 @@ path of the port, and what the kernels are held against on the card.
   * `stage_inputs` is the kernels' input staging (stage_kernel): depth and
     mask padded and interleaved, with the cull's flags, at the draft tier
     the pooled inputs of `scale_march_inputs` too.
+  * `pack_march_key` is K2's key form, the 64-bit (distance, t) word the
+    sample-sharded marches reduce with one MIN over their ranks, and
+    `unpack_march_key` the unpack kernel (unpack_key_kernel).
 Their arithmetic is written op by op in the order the kernels evaluate it.
 Each loop carries the min of the raw cross-product norm^2 (1e30 for a vetoed
 sample) and takes sqrt(n2 + 1e-4) / denominator once at the end; both are
@@ -90,7 +93,8 @@ def sharded_sample_ts(cfg: RenderConfig, n_shards: int) -> np.ndarray:
 
     Shard i marches rows [i*chunk, (i+1)*chunk) of the result. The slices
     increase with i, so among the shards that reach a pixel's minimum the
-    smallest global index is the first winner, as on the full grid. The pad
+    smallest t (the one MIN of pack_march_key's words takes it) is the first
+    winner, as on the full grid. The pad
     repeats the last offset, which cannot change a running minimum, nor win
     over the offset it repeats (strict `<` keeps the first).
     """
@@ -377,12 +381,60 @@ def _march(depth, mask, light_point, cfg: RenderConfig, ts, return_argmin: bool)
     return min_d, best_s, ts
 
 
+_LOW_WORD = 0xFFFFFFFF
+
+
+def _order_bits(bits: torch.Tensor) -> torch.Tensor:
+    """A float32's int32 bits <-> an int32 in the float's order (its own inverse): negative
+    floats get their 31 low bits flipped, so that a more negative float is a smaller int."""
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def pack_march_key(min_d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(distance, t) float32 -> int64 keys whose signed order is (distance, t)'s lexicographic order.
+
+    The high word is the distance's order-preserving int32 (-0 taken as +0,
+    so that the two compare equal), the low word t's float bits (-0 taken as
+    +0; t lies in [0, 1], where the bits order as the values). So the MIN of
+    a pixel's keys over the ranks of a sample-sharded march is the global
+    minimum distance and, among the ranks that reach it, the smallest t: the
+    JAX package's two pmins (shadows_pallas.py:851-855). K2's key form
+    (csrc/march.cu pack_key) writes the same words.
+    """
+    d = torch.where(min_d == 0, 0.0, min_d.float())
+    t = torch.where(t == 0, 0.0, t.float())
+    hi = _order_bits(d.view(torch.int32)).long()
+    return (hi << 32) | (t.view(torch.int32).long() & _LOW_WORD)
+
+
+def unpack_march_key(key: torch.Tensor) -> tuple:
+    """pack_march_key's inverse: int64 keys -> (distances, t), float32, bit for bit."""
+    d = _order_bits((key >> 32).to(torch.int32)).view(torch.float32)
+    t = (key & _LOW_WORD).to(torch.int32).view(torch.float32)
+    return d, t
+
+
 def ray_march_min_distance(depth, mask, light_point, cfg: RenderConfig, ts=None, return_argmin_t: bool = False):
     """Single image: (H, W), (H, W), (3,) -> (H, W) (and t* with return_argmin_t)."""
     out = ray_march_min_distance_batch(depth[None], mask[None], light_point[None], cfg, ts, return_argmin_t)
     if return_argmin_t:
         return out[0][0], out[1][0]
     return out[0]
+
+
+def ray_march_min_distance_lights(depth, mask, light_points, cfg: RenderConfig) -> torch.Tensor:
+    """One image under a sweep of lights: (H, W) depth and mask, (L, 3) light points -> (L, H, W).
+
+    The JAX package's vmap over lights (shadows.py:518). The image is
+    expanded over the L lights and marched as a batch: by kernel K1 on CUDA
+    tensors (ops/shadows_cuda; through its differentiable march where a
+    gradient is needed), by the plain march on the CPU.
+    """
+    from geomconsistentfr_torch.ops import shadows_cuda  # it imports this module
+
+    n = light_points.shape[0]
+    depth, mask = (x[None].expand(n, *x.shape).contiguous() for x in (depth, mask))
+    return shadows_cuda.ray_march_min_distance_cuda(depth, mask, light_points.float().contiguous(), cfg)
 
 
 def sample_distance_at_batch(depth, mask, light_point, t_map, cfg: RenderConfig) -> torch.Tensor:

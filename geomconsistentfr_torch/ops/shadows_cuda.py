@@ -13,7 +13,10 @@ The wrappers, one per kernel:
   * `pool_march_inputs` is the draft pooling alone, on the same staging
     kernel, for the draft paths whose pooled inputs go to another march;
   * `march_grad_cuda` launches the backward of K4 ('march_grad') on the
-    forward's staged input.
+    forward's staged input, at K2's winning indices; `march_grad_at_cuda`
+    the same kernel at a per-pixel t map (K5's backward);
+  * `unpack_march_key` launches the unpack of K2's packed (distance, t) keys
+    ('unpack_key').
 For a CUDA tensor a wrapper launches its kernel (or raises); for a CPU tensor
 it runs the plain version of ops/shadows.py. There is no other fallback.
 K1-K3 read depth and mask interleaved and padded, (B, H + 1, W + 1, 2),
@@ -33,14 +36,19 @@ whenever depth or the light point needs a gradient.
 The sample-sharded paths, where each rank of a process group marches a
 contiguous slice of the t grid (`shadows.sharded_sample_ts`):
   * `sharded_march` serves (`Relighter(parallel='samples'|'grid')`): K1 on
-    the slice, or K2 with `return_argmin_t`, then the MIN combine over the
-    group and, with K2, the first-winner combine of the indices;
+    the slice then the MIN over the group, or with `return_argmin_t` K2's
+    key form on the slice, one MIN of the keys and the unpack;
   * `RayMarchMinDistanceSP` is K5, the JAX package's
-    `ray_march_min_distance_pallas_vjp_sp` (the grid train step): K2 on the
-    slice (counted as 'march_sp'), both combines, then march_grad at the
-    global winner, replicated on every rank with no collective of its own.
-The combines are collectives of torch.distributed outside the kernels, as
-`pmin` is outside the Pallas kernel.
+    `ray_march_min_distance_pallas_vjp_sp` (the grid train step): K2's key
+    form on the slice (counted as 'march_sp'), one MIN of the keys over the
+    group, the unpack, then march_grad at the global winner's t, replicated
+    on every rank with no collective of its own.
+K2's key form packs each pixel's (distance, winning t) into one int64 whose
+signed order is their lexicographic order (`shadows.pack_march_key`), so
+the one MIN is the reference's two pmins: the global minimum, then the
+smallest t among the ranks that reach it (shadows_pallas.py:851-855). The
+MIN is a collective of torch.distributed outside the kernels, as `pmin` is
+outside the Pallas kernel.
 
 The kernels are compiled by `nvcc` for sm_90a at first use into
 `<repo>/build/kernels/` (git-ignored), keyed by a hash of the source and the
@@ -64,7 +72,7 @@ import torch
 
 from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops import shadows
-from geomconsistentfr_torch.parallel.mesh import all_gather_cat, all_min, group_rank
+from geomconsistentfr_torch.parallel.mesh import all_min
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "march.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -75,15 +83,17 @@ NVCC_FLAGS = (
 )
 
 # Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"stage": 0, "march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0}
+LAUNCHES = {"stage": 0, "march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0,
+            "unpack_key": 0}
 
 # The kernel's `form` argument (csrc/march.cu, enum Form).
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_c_int] + [_c_void_p] * 10 + [_c_int] * 10 + [_c_float] * 7 + [_c_void_p]
+_ARGTYPES = [_c_int] + [_c_void_p] * 11 + [_c_int] * 10 + [_c_float] * 7 + [_c_void_p]
 _STAGE_ARGTYPES = [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p]
-_GRAD_ARGTYPES = [_c_void_p] * 8 + [_c_int] * 5 + [_c_void_p]
+_GRAD_ARGTYPES = [_c_void_p] * 9 + [_c_int] * 5 + [_c_void_p]
+_UNPACK_ARGTYPES = [_c_void_p] * 3 + [ctypes.c_longlong, _c_void_p]
 
 
 def _nvcc() -> str:
@@ -124,7 +134,8 @@ def build() -> tuple[Path, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     for fn, argtypes in ((lib.gcfr_stage_launch, _STAGE_ARGTYPES), (lib.gcfr_march_launch, _ARGTYPES),
-                         (lib.gcfr_march_grad_launch, _GRAD_ARGTYPES)):
+                         (lib.gcfr_march_grad_launch, _GRAD_ARGTYPES),
+                         (lib.gcfr_unpack_key_launch, _UNPACK_ARGTYPES)):
         fn.argtypes, fn.restype = argtypes, _c_int
     return lib
 
@@ -241,8 +252,9 @@ def pool_march_inputs(depth, mask, light_point, cfg: RenderConfig):
 
 
 def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: RenderConfig, t_map=None, centre=None,
-            idx=None, count_as=None):
-    """Launch one form of the march kernel on a staged quad, on the current stream; (B, H, W) distances.
+            idx=None, key=None, count_as=None):
+    """Launch one form of the march kernel on a staged quad, on the current stream; (B, H, W)
+    distances, or with `key` (K2's key form) the int64 keys it wrote.
 
     staged: the quad and flags of the march's grid (staged.quad, .flags);
     without flags the kernel culls from `mask`, which may be None where the
@@ -265,12 +277,12 @@ def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: Ren
     t_lo, t_hi = shadows.refine_t_range(cfg) if kernel == "refine" else (0.0, 0.0)
     centre_idx, centre_ts = centre if centre is not None else (None, None)
 
-    out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, w), dtype=torch.float32, device=dev) if key is None else None
     with torch.cuda.device(dev):
         err = _library().gcfr_march_launch(
             _FORMS[kernel], quad.data_ptr(), _ptr(mask), _ptr(flags), light_point.data_ptr(),
             ts.data_ptr(), _ptr(t_map),
-            _ptr(centre_idx), _ptr(centre_ts), out.data_ptr(), _ptr(idx),
+            _ptr(centre_idx), _ptr(centre_ts), _ptr(out), _ptr(idx), _ptr(key),
             b, h, w, ts.numel(), int(bilinear), int(cfg.shadow_mask_cull), chunk, int(gate_on),
             cfg.shadow_resolution_scale, 0 if centre_ts is None else centre_ts.numel(),
             lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, _stream(dev),
@@ -278,7 +290,7 @@ def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: Ren
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     LAUNCHES[count_as or kernel] += 1
-    return out
+    return out if key is None else key
 
 
 def ray_march_min_distance_cuda(
@@ -344,6 +356,62 @@ def _argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
     return _launch_argmin(depth, mask, light_point, ts, cfg, count_as)
 
 
+def _march_key(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
+    """(int64 keys (B, H, W), the staged input or None): each pixel's (min distance, first winning
+    t in ts) packed as shadows.pack_march_key packs them. On CUDA tensors K2's key form after its
+    staging; on the CPU the plain argmin march and pack_march_key (no staging)."""
+    if depth.device.type == "cpu":
+        min_d, idx = shadows.ray_march_argmin_batch(depth, mask, light_point, cfg, ts)
+        return shadows.pack_march_key(min_d, ts[idx.long()]), None
+    _check_inputs(depth, mask, light_point, cfg, "march")
+    if ts.numel() == 0:
+        raise ValueError("the key form needs at least one sample offset")
+    staged = _stage(depth, mask, light_point, cfg, flags=True)
+    key = torch.empty(depth.shape, dtype=torch.int64, device=depth.device)
+    return _launch("march_argmin", staged, None, light_point, ts, cfg, key=key, count_as=count_as), staged
+
+
+def unpack_march_key(key: torch.Tensor) -> tuple:
+    """(distances, t*), float32, from int64 march keys: the unpack kernel (unpack_key_kernel) on a
+    CUDA tensor, shadows.unpack_march_key on a CPU tensor; bit for bit the same."""
+    if key.device.type == "cpu":
+        return shadows.unpack_march_key(key)
+    if key.dtype != torch.int64 or not key.is_contiguous():
+        raise ValueError(f"the unpack reads contiguous int64 keys, got {key.dtype}")
+    out = torch.empty(key.shape, dtype=torch.float32, device=key.device)
+    t_star = torch.empty_like(out)
+    with torch.cuda.device(key.device):
+        err = _library().gcfr_unpack_key_launch(key.data_ptr(), out.data_ptr(), t_star.data_ptr(), key.numel(),
+                                                _stream(key.device))
+    if err != 0:
+        raise RuntimeError(f"unpack_key kernel launch failed: CUDA error {err}")
+    LAUNCHES["unpack_key"] += 1
+    return out, t_star
+
+
+def _combine(key: torch.Tensor, group) -> tuple:
+    """The group's march from each rank's keys: one MIN of the keys over the group (none
+    without a group), then the unpack -> (min distances, t*), the same on every rank."""
+    return unpack_march_key(all_min(key, group))
+
+
+def _check_grad_inputs(depth, mask, light_point, grad, cfg: RenderConfig, staged):
+    """march_grad's checks on the card (inputs, cotangent, the forward's staged quad and flags); grad contiguous."""
+    _check_inputs(depth, mask, light_point, cfg, "march_grad")
+    b, h, w = depth.shape
+    dev = depth.device
+    grad = grad.contiguous()
+    _check("grad", grad, (b, h, w), dev)
+    if staged is None:
+        raise ValueError("march_grad reads the forward's staged input: pass the shadows.Staged K2 read")
+    _check("the staged quad", staged.quad, (b, h + 1, w + 1, 2), dev)
+    chunk = shadows.effective_col_chunk(cfg)
+    if cfg.shadow_mask_cull and (staged.flags is None or staged.flags.dtype != torch.uint8
+                                 or tuple(staged.flags.shape) != (b, h // 8, w // chunk) or staged.flags.device != dev):
+        raise ValueError(f"the cull needs the staging's uint8 flags of shape {(b, h // 8, w // chunk)}")
+    return grad
+
+
 def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig, staged=None):
     """(d_depth (B, H, W), d_light (B, 3)): K4's backward at K2's winners.
 
@@ -356,34 +424,39 @@ def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig, 
     """
     if depth.device.type == "cpu":
         return shadows.march_vjp(depth, mask, light_point, ts[idx.long()], grad, cfg)
-    _check_inputs(depth, mask, light_point, cfg, "march_grad")
+    grad = _check_grad_inputs(depth, mask, light_point, grad, cfg, staged)
     b, h, w = depth.shape
-    dev = depth.device
-    if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h, w) or not idx.is_contiguous() or idx.device != dev:
+    if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h, w) or not idx.is_contiguous() or idx.device != depth.device:
         raise ValueError("idx must be a contiguous int32 (B, H, W) tensor on the depth's device")
-    _check("ts", ts, (ts.numel(),), dev)
-    grad = grad.contiguous()
-    _check("grad", grad, (b, h, w), dev)
-    if staged is None:
-        raise ValueError("march_grad reads the forward's staged input: pass the shadows.Staged K2 read")
-    _check("the staged quad", staged.quad, (b, h + 1, w + 1, 2), dev)
-    chunk = shadows.effective_col_chunk(cfg)
-    if cfg.shadow_mask_cull and (staged.flags is None or staged.flags.dtype != torch.uint8
-                                 or tuple(staged.flags.shape) != (b, h // 8, w // chunk) or staged.flags.device != dev):
-        raise ValueError(f"the cull needs the staging's uint8 flags of shape {(b, h // 8, w // chunk)}")
+    _check("ts", ts, (ts.numel(),), depth.device)
     return _march_grad(light_point, idx, ts, grad, staged, cfg)
 
 
-def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderConfig):
+def march_grad_at_cuda(depth, mask, light_point, t_star, grad, cfg: RenderConfig, staged=None):
+    """march_grad_cuda's t-map form: the VJP at each pixel's winning offset t_star (B, H, W)
+    float32 itself, as K5's backward takes it from the unpack, with no table. Same function as
+    shadows.march_vjp(depth, mask, light_point, t_star, grad, cfg); at t_star = ts[idx] the same
+    floats as the index form."""
+    if depth.device.type == "cpu":
+        return shadows.march_vjp(depth, mask, light_point, t_star, grad, cfg)
+    grad = _check_grad_inputs(depth, mask, light_point, grad, cfg, staged)
+    _check("t_star", t_star, tuple(depth.shape), depth.device)
+    lo, hi = t_star.aminmax()  # the kernel's taps stay in the image for t in [0, 1]; this waits for the card
+    _check_t_range(lo.item(), hi.item(), "t_star")
+    return _march_grad(light_point, None, None, grad, staged, cfg, t_map=t_star)
+
+
+def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderConfig, t_map=None):
     """The march_grad launch on tensors already checked: the forward's own (the
-    autograd backward's), or march_grad_cuda's; grad contiguous."""
-    b, h, w = idx.shape
-    dev = idx.device
+    autograd backward's), or march_grad_cuda's; grad contiguous. At ts[idx], or
+    at t_map where given."""
+    b, h, w = grad.shape
+    dev = grad.device
     grads = torch.zeros(b * h * w + 3 * b, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _library().gcfr_march_grad_launch(
             staged.quad.data_ptr(), _ptr(staged.flags if cfg.shadow_mask_cull else None), light_point.data_ptr(),
-            ts.data_ptr(), idx.data_ptr(), grad.data_ptr(), grads.data_ptr(), grads.data_ptr() + 4 * b * h * w,
+            _ptr(ts), _ptr(idx), _ptr(t_map), grad.data_ptr(), grads.data_ptr(), grads.data_ptr() + 4 * b * h * w,
             b, h, w, int(shadows.resolve_mask_gather(cfg) == "bilinear"), shadows.effective_col_chunk(cfg),
             _stream(dev),
         )
@@ -393,21 +466,25 @@ def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderC
     return grads.as_strided((b, h, w), (h * w, w, 1)), grads.as_strided((b, 3), (3, 1), b * h * w)
 
 
-def _save_forward(ctx, depth, mask, light_point, idx, staged) -> None:
-    """Keep what march_grad_cuda reads: on the card the staged quad and flags (not copies: K2's input)."""
+def _save_forward(ctx, depth, mask, light_point, winner, staged) -> None:
+    """Keep what march_grad reads: the winners (K2's index, or K5's t map), and on the card the
+    staged quad and flags (not copies: K2's input)."""
     quad, flags = (staged.quad, staged.flags) if staged is not None else (None, None)
-    ctx.save_for_backward(depth, mask, light_point, idx, quad, flags)
+    ctx.save_for_backward(depth, mask, light_point, winner, quad, flags)
 
 
-def _backward(ctx, grad, ts):
+def _backward(ctx, grad, ts=None):
     """march_grad at the forward's winners (its plain version on CPU tensors), from what
-    _save_forward kept; the forward checked its inputs and made the index and the staged quad."""
-    depth, mask, light_point, idx, quad, flags = ctx.saved_tensors
+    _save_forward kept: at ts[idx], or without `ts` at the saved t map. The forward checked its
+    inputs and made the winners and the staged quad."""
+    depth, mask, light_point, winner, quad, flags = ctx.saved_tensors
+    idx, t_map = (winner, None) if ts is not None else (None, winner)
     if quad is None:
-        return shadows.march_vjp(depth, mask, light_point, ts[idx.long()], grad, ctx.cfg)
-    if grad.dtype != torch.float32 or grad.shape != idx.shape:
-        raise ValueError(f"march_grad needs a float32 {tuple(idx.shape)} cotangent, got {grad.dtype} {tuple(grad.shape)}")
-    return _march_grad(light_point, idx, ts, grad.contiguous(), shadows.Staged(quad, flags), ctx.cfg)
+        return shadows.march_vjp(depth, mask, light_point, t_map if ts is None else ts[idx.long()], grad, ctx.cfg)
+    if grad.dtype != torch.float32 or grad.shape != winner.shape:
+        raise ValueError(f"march_grad needs a float32 {tuple(winner.shape)} cotangent, got {grad.dtype} "
+                         f"{tuple(grad.shape)}")
+    return _march_grad(light_point, idx, ts, grad.contiguous(), shadows.Staged(quad, flags), ctx.cfg, t_map=t_map)
 
 
 class RayMarchMinDistance(torch.autograd.Function):
@@ -437,34 +514,15 @@ class RayMarchMinDistance(torch.autograd.Function):
         return d_depth, None, d_light, None
 
 
-_NO_WINNER = torch.iinfo(torch.int32).max
-
-
-def _first_winner(local_min, local_idx, ts_local, group):
-    """Combine the shards' marches: (global min, global first-winner index, the padded global t table).
-
-    A shard whose minimum is not the global one is strictly greater (the
-    MIN is one of the shards' values, so the equality test is exact). Among
-    the shards that reach it, the smallest index into the concatenated
-    slices wins: the slices are contiguous and increasing, so that is the
-    smallest t, the full grid's first winner (shadows_pallas.py:851-855).
-    """
-    if group is None:
-        return local_min, local_idx, ts_local
-    global_min = all_min(local_min, group)
-    offset = group_rank(group) * ts_local.numel()
-    candidate = torch.where(local_min == global_min, local_idx + offset, _NO_WINNER)
-    return global_min, all_min(candidate, group), all_gather_cat(ts_local, group)
-
-
 def sharded_march(depth, mask, light_point, cfg: RenderConfig, ts_local, group, return_argmin_t: bool = False):
     """The march over the group's t grid, this rank marching `ts_local`; the same result on every rank.
 
     Serving form (infer.py:280-307 of the JAX package): K1 on the slice then
-    the MIN over the group, or with `return_argmin_t` K2 on the slice, the
-    MIN and the first-winner combine -> (min distances, t*). The slices must
-    be the group ranks' contiguous rows of `shadows.sharded_sample_ts`, in
-    group-rank order. A march that needs a gradient is K5.
+    the MIN over the group, or with `return_argmin_t` K2's key form on the
+    slice, one MIN of the keys and the unpack -> (min distances, t*): the
+    global minimum and the smallest t among the ranks that reach it, the full
+    grid's first winner. The slices must be the group ranks' contiguous rows
+    of `shadows.sharded_sample_ts`. A march that needs a gradient is K5.
     """
     if needs_grad(depth, light_point):
         if return_argmin_t:
@@ -473,9 +531,8 @@ def sharded_march(depth, mask, light_point, cfg: RenderConfig, ts_local, group, 
     ts_local = _ts_for(depth.device, cfg, ts_local)
     if not return_argmin_t:
         return all_min(ray_march_min_distance_cuda(depth, mask, light_point, cfg, ts_local), group)
-    local_min, local_idx, _ = _argmin(depth, mask, light_point, ts_local, cfg)
-    out, idx, table = _first_winner(local_min, local_idx, ts_local, group)
-    return out, table[idx.long()]
+    key, _ = _march_key(depth, mask, light_point, ts_local, cfg)
+    return _combine(key, group)
 
 
 class RayMarchMinDistanceSP(torch.autograd.Function):
@@ -483,13 +540,16 @@ class RayMarchMinDistanceSP(torch.autograd.Function):
 
     apply(depth, mask, light_point, cfg, ts_local, group) -> (B, H, W), the
     same on every rank of `group` (None: one shard, ts_local is the grid).
-    Forward: K2 on this rank's slice (counted as 'march_sp'), the MIN combine
-    and the first-winner combine of the indices. Backward: march_grad at the
-    global winner, on the quad this rank's K2 read (every rank stages the same
-    inputs), from the same residuals on every rank, so with no
-    collective; its atomics may order the sums differently on two ranks,
-    which is why the train step averages gradients over every rank. On CPU
-    tensors: the plain argmin march on the slice and shadows.march_vjp.
+    Forward: K2's key form on this rank's slice (counted as 'march_sp'), one
+    MIN of the int64 keys over the group (the only collective), the unpack
+    into the distances and each pixel's winning t*. Backward: march_grad at
+    t* (its t-map form: no table), on the quad this rank's K2 read (every
+    rank stages the same inputs), from the same residuals on every rank, so
+    with no collective; its atomics may order the sums differently on two
+    ranks, which is why the train step averages gradients over every rank.
+    On CPU tensors: the plain argmin march on the slice,
+    shadows.pack_march_key, the same MIN over gloo, shadows.unpack_march_key
+    and shadows.march_vjp.
     """
 
     @staticmethod
@@ -498,14 +558,14 @@ class RayMarchMinDistanceSP(torch.autograd.Function):
             raise NotImplementedError("the draft tier's march has no gradient: it serves only")
         ctx.cfg = cfg
         ts_local = _ts_for(depth.device, cfg, ts_local)
-        local_min, local_idx, staged = _argmin(depth, mask, light_point, ts_local, cfg, count_as="march_sp")
-        out, idx, ctx.table = _first_winner(local_min, local_idx, ts_local, group)
-        _save_forward(ctx, depth, mask, light_point, idx, staged)
+        key, staged = _march_key(depth, mask, light_point, ts_local, cfg, count_as="march_sp")
+        out, t_star = _combine(key, group)
+        _save_forward(ctx, depth, mask, light_point, t_star, staged)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        d_depth, d_light = _backward(ctx, grad, ctx.table)
+        d_depth, d_light = _backward(ctx, grad)
         return d_depth, None, d_light, None, None, None
 
 

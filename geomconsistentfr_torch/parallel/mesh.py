@@ -19,7 +19,9 @@ itself. The collectives below take such a group and do nothing with it.
 
 The collectives:
   * `all_min`: the elementwise MIN over a group (not differentiable; the
-    march combines with it inside its own autograd Function);
+    march combines with it inside its own autograd Function). The
+    sample-sharded march reduces its int64 (distance, t) keys with it, one
+    collective a march (ops/shadows_cuda: gloo and NCCL both take int64 MIN);
   * `all_sum`, `all_mean`: differentiable; their backward sums the
     cotangent over the group, as JAX's psum transposes. A loss built from
     them is the same value on every rank, and the gradient of the global
@@ -139,12 +141,8 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def group_rank(group) -> int:
-    return 0 if group is None else dist.get_rank(group)
-
-
 def all_min(x: torch.Tensor, group) -> torch.Tensor:
-    """Elementwise MIN of x over the group (a new tensor; no gradient)."""
+    """Elementwise MIN of x (float or integer) over the group (a new tensor; no gradient)."""
     if group is None:
         return x
     out = x.detach().clone()

@@ -67,6 +67,7 @@ import argparse
 import base64
 import json
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -672,7 +673,7 @@ def main(argv=None) -> int:
                            tier_pool=tier_pool, pipeline=not args.no_pipeline)
     if args.warmup:
         secs = sum(warmup(tier_pool(t), batch_sizes=(batcher.min_batch, args.max_batch)) for t in PRECISION_TIERS)
-        print(json.dumps({"warmup_seconds": round(secs, 2)}), flush=True)
+        _print_line({"warmup_seconds": round(secs, 2)})
 
     class GracefulServer(ThreadingHTTPServer):
         # server_close() joins the handler threads: after the batcher drains,
@@ -698,15 +699,23 @@ def main(argv=None) -> int:
 
     host, port = server.server_address[:2]
     ranks = {} if mesh is None else {"ranks": mesh.size, "parallel": parallel}
-    print(json.dumps({"serving": f"http://{host}:{port}", "device": str(device), "tier": tier, **ranks}), flush=True)
+    _print_line({"serving": f"http://{host}:{port}", "device": str(device), "tier": tier, **ranks})
     server.serve_forever()
     drained = batcher.drain(timeout_s=args.drain_timeout_s)
     server.server_close()
     if relay is not None:
         relay.stop()  # the followers leave their loops and exit
         distributed.shutdown()
-    print(json.dumps({"drained": drained, "stats": batcher.stats, "tiers": tier_meshes(tier_pool)}), flush=True)
+    _print_line({"drained": drained, "stats": batcher.stats, "tiers": tier_meshes(tier_pool)})
     return 0 if drained else 1
+
+
+def _print_line(obj) -> None:
+    """One JSON line on stdout in a single write: under torchrun the ranks share
+    the pipe, and print()'s separate write of the newline lets two ranks' lines
+    run together."""
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def _follower(group, tier_pool) -> int:
@@ -722,7 +731,7 @@ def _follower(group, tier_pool) -> int:
     calls = follow(group, tier_pool)
     rank = dist.get_rank()
     distributed.shutdown()
-    print(json.dumps({"follower": rank, "calls": calls, "tiers": tier_meshes(tier_pool)}), flush=True)
+    _print_line({"follower": rank, "calls": calls, "tiers": tier_meshes(tier_pool)})
     return 0
 
 

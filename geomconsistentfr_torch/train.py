@@ -27,8 +27,9 @@ Several ranks (parallel/mesh.py), each a process of torch.distributed:
   * `make_grid_parallel_step`: a (data x samples) mesh. The data axis shards
     the batch as above; the samples axis shards the march's t grid: the
     march is K5 (ops/shadows_cuda.RayMarchMinDistanceSP) on this rank's slice
-    of `sharded_sample_ts`, MIN-combined over the samples group, with its
-    backward at the global winner. Everything else runs replicated along
+    of `sharded_sample_ts`, combined over the samples group by one MIN of
+    packed (distance, t) keys, with its backward at the global winner's t.
+    Everything else runs replicated along
     the samples axis.
 The gradients are averaged over the whole world, not the data group alone:
 march_grad's atomics (and some cuDNN backward algorithms) add in no fixed

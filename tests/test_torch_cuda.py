@@ -2,7 +2,9 @@
 
 K1 is the march, K2 the march with the argmin, K3 the draft tier's refine,
 march_grad the backward of the training march (K2 forward, march_grad
-backward; the last tests drive it through render() and a train step).
+backward; the last tests drive it through render() and a train step); K5,
+the sample-sharded march, is K2's key form, one MIN of the keys over the
+ranks, the unpack kernel and march_grad's t-map form.
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without one. On
 the card, run them without the JAX test configuration:
 
@@ -359,11 +361,14 @@ def load_ranks(tmp_path, tag, n=2):
 
 
 def test_k5_on_two_ranks_is_the_full_grid_k2(dev, tmp_path):
-    """K5 (RayMarchMinDistanceSP): K2 on each rank's 16 of the 32 samples, the
-    MIN and first-winner combines, march_grad at the global winner. Its
-    distances are bit-equal to K2 on the full grid, its winner equal on
-    >= 0.9999 of pixels, each rank launches one march_sp and one march_grad,
-    and each rank's gradients are the plain VJP at the winner (the bars of
+    """K5 (RayMarchMinDistanceSP): K2's key form on each rank's 16 of the 32
+    samples, one MIN of the keys, the unpack, march_grad at the global
+    winner's t. Its distances are bit-equal to K2 on the full grid, its t*
+    equal to the full grid's winner on >= 0.9999 of pixels, each rank
+    launches one march_sp, one unpack_key and one march_grad and issues
+    exactly one collective (forward and backward, counted by a wrapper on
+    torch.distributed's collectives in the rank), and each rank's gradients
+    are the plain VJP at the winner (the bars of
     test_march_grad_matches_plain_vjp)."""
     from geomconsistentfr_torch.parallel import distributed
 
@@ -378,10 +383,12 @@ def test_k5_on_two_ranks_is_the_full_grid_k2(dev, tmp_path):
     ranks = load_ranks(tmp_path, "k5")
     full, t_full = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
     for r in ranks:
-        assert r["launches"] == counts(stage=1, march_grad=1, march_sp=1)
+        assert r["launches"] == counts(stage=1, march_grad=1, march_sp=1, unpack_key=1)
+        assert r["collectives"] == 1 and r["collective_bytes"] == 8 * full.numel()
         assert torch.equal(r["out"], full.cpu()) and torch.equal(r["served"], full.cpu())
-        assert torch.equal(r["served_min"], full.cpu()) and torch.equal(r["idx"], ranks[0]["idx"])
-        t_star = r["table"][r["idx"].long()]
+        assert torch.equal(r["served_min"], full.cpu()) and torch.equal(r["t_star"], ranks[0]["t_star"])
+        t_star = r["t_star"]
+        assert torch.equal(r["served_t"], t_star)
         assert (t_star == t_full.cpu()).float().mean().item() >= 0.9999
         want_d, want_l = shadows.march_vjp(depth, mask, light, t_star.to(dev), g, cfg)
         assert_grads_close(r["d_depth"].to(dev), r["d_light"].to(dev), want_d, want_l)
@@ -412,7 +419,7 @@ def test_grid_step_on_two_ranks_keeps_replicas_bit_identical(dev, tmp_path):
     distributed.spawn(child.train_steps, 2, "cuda", str(tmp_path / "rdzv"),
                       args=(str(tmp_path), "grid", [(1, 2)], cfg, start, batches, (False,) * 4))
     ranks = [r["results"][(1, 2)] for r in load_ranks(tmp_path, "grid")]
-    assert ranks[0]["launches"] == ranks[1]["launches"] == counts(stage=2, march_grad=2, march_sp=2)
+    assert ranks[0]["launches"] == ranks[1]["launches"] == counts(stage=2, march_grad=2, march_sp=2, unpack_key=2)
     assert ranks[0]["losses"] == ranks[1]["losses"]
     for i in range(2):
         for key, values in ranks[0]["states"][i].items():
@@ -701,8 +708,8 @@ def light_grad_terms(depth, mask, light, t_star, g, cfg):
 
 def test_k5_backward_in_one_process(dev):
     """K5 with no group (one shard, the whole table): its forward stages and
-    launches K2 once (as 'march_sp'), its backward march_grad once on the
-    forward's quad. Its gradients are K4's (the same kernels: only the
+    launches K2's key form once (as 'march_sp') and the unpack once, its
+    backward march_grad once on the forward's quad, at the unpacked t*. Its gradients are K4's (the same kernels: only the
     atomics' order differs) at the march_grad bars, and the plain VJP's:
     d_depth at its bar, d_light within 1e-5 of the sum of its pixels' |terms|.
     On this scene image 1's light gradient is ill-conditioned: its y term
@@ -720,7 +727,7 @@ def test_k5_backward_in_one_process(dev):
     out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts, None)
     (out * g).sum().backward()
     torch.cuda.synchronize()
-    assert launches_since(before) == counts(stage=1, march_sp=1, march_grad=1)
+    assert launches_since(before) == counts(stage=1, march_sp=1, march_grad=1, unpack_key=1)
     want_out, t_star = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
     assert_bits_equal(out.detach(), want_out)
     d4, lp4 = depth.clone().requires_grad_(), light.clone().requires_grad_()
@@ -730,6 +737,119 @@ def test_k5_backward_in_one_process(dev):
     assert (d.grad - want_d).abs().max().item() <= 1e-4 * want_d.abs().max().item()
     terms = light_grad_terms(depth, mask, light, t_star, g, cfg)
     assert bool(((lp.grad - want_l).abs().double() <= 1e-5 * terms).all()), (lp.grad - want_l, terms)
+
+
+# ---------------------------------------------------------------------------
+# K5's key path: K2's key form, the unpack, march_grad's t-map form.
+# ---------------------------------------------------------------------------
+
+# 160 samples: K2 splits a pixel over two lanes (kSplitFrom = 128); t up to 0.82.
+KEY_GRIDS = {32: dict(t_stop=0.185), 160: dict(t_stop=0.8245)}
+
+
+@pytest.mark.parametrize("bias", [5.0, -20.0], ids=["bias_pos", "bias_neg"])
+@pytest.mark.parametrize("cull", [0, 16], ids=["cull_off", "cull_col16"])
+@pytest.mark.parametrize("samples", [32, 160], ids=["one_lane", "two_lanes"])
+def test_k2_key_form_is_the_packed_index_form(dev, samples, cull, bias):
+    """K2's key epilogue writes pack_march_key(out, ts[idx]) of its index form, bit for bit, at one
+    and two lanes a pixel, with the gate's bias on (negative distances where it is negative), on
+    the edge scenes with their all-culled image (the sentinel and ts[0]); the plain argmin march
+    packs the same words."""
+    depth, mask, light = edge_scene(dev, seed=23)
+    cfg = RenderConfig(**dict(SMALL, num_sample_points=samples, **KEY_GRIDS[samples]),
+                       shadow_bias_gate="inside_image", shadow_bias=bias, shadow_mask_cull=cull > 0,
+                       shadow_col_chunk=cull)
+    ts = shadows_cuda._ts_for(dev, cfg)
+    assert ts.numel() == samples
+    out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+    before = dict(shadows_cuda.LAUNCHES)
+    key, staged = shadows_cuda._march_key(depth, mask, light, ts, cfg)
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(stage=1, march_argmin=1)
+    assert key.dtype == torch.int64 and key.shape == out.shape and staged.quad.shape == (6, 65, 65, 2)
+    assert torch.equal(key, shadows.pack_march_key(out, ts[idx.long()]))
+    want_d, want_idx = shadows.ray_march_argmin_batch(depth, mask, light, cfg, ts)
+    assert torch.equal(key, shadows.pack_march_key(want_d, ts[want_idx.long()]))
+    # Image 5 has no face and a light outside the gate: the sentinel, and the table's first offset.
+    assert bool((out[5] == 1e6).all()) and bool((shadows.unpack_march_key(key)[1][5] == ts[0]).all())
+    if bias < 0:
+        assert bool((out < 0).any())
+
+
+def test_unpack_kernel_is_its_plain_version(dev):
+    """unpack_key_kernel equals shadows.unpack_march_key bit for bit, on K2's keys (their distances
+    bit-equal to K2's index form) and on random 64-bit words, at a size no block divides."""
+    depth, mask, light = edge_scene(dev, seed=24)
+    cfg = RenderConfig(**SMALL, shadow_bias_gate="inside_image", shadow_bias=-20.0, shadow_mask_cull=True,
+                       shadow_col_chunk=32)
+    ts = shadows_cuda._ts_for(dev, cfg)
+    out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+    key, _ = shadows_cuda._march_key(depth, mask, light, ts, cfg)
+    words = torch.from_numpy(np.random.default_rng(25).integers(-2 ** 63, 2 ** 63 - 1, size=5001,
+                                                                 dtype=np.int64)).to(dev)
+    before = dict(shadows_cuda.LAUNCHES)
+    for k in (key, words, key.view(-1)[:1001]):
+        got_d, got_t = shadows_cuda.unpack_march_key(k)
+        want_d, want_t = shadows.unpack_march_key(k)
+        assert_bits_equal(got_d, want_d)
+        assert_bits_equal(got_t, want_t)
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(unpack_key=3)
+    got_d, got_t = shadows_cuda.unpack_march_key(key)
+    assert_bits_equal(got_d, out)
+    assert torch.equal(got_t, ts[idx.long()])
+    with pytest.raises(ValueError):
+        shadows_cuda.unpack_march_key(key.to(torch.int32))
+
+
+def test_march_grad_t_map_form_is_the_index_form(dev):
+    """march_grad reading t* from a per-pixel map (K5's backward) against its index form. Each
+    image of a batch of 64 (16 on-face pixels of each of 4 scenes) has a cotangent on one pixel,
+    so one thread makes its gradients and the atomics add in one order: the two forms are bit-equal.
+    Under a dense cotangent, where the atomics add in any order, they agree at the march_grad bars."""
+    depth, mask, _ = scene(dev, seed=26)
+    light = torch.from_numpy(GRAD_LIGHTS).to(dev)
+    cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
+    ts = shadows_cuda._ts_for(dev, cfg)
+    rng = np.random.default_rng(27)
+    src, pix = [], []
+    for i in range(4):
+        on = np.flatnonzero(mask[i].cpu().numpy().reshape(-1))
+        src += [i] * 16
+        pix += list(rng.choice(on, 16, replace=False))
+    src = torch.tensor(src, device=dev)
+    d, m, lp = (x.index_select(0, src).contiguous() for x in (depth, mask, light))
+    _, idx, staged = shadows_cuda._launch_argmin(d, m, lp, ts, cfg)
+    g = torch.zeros_like(d)
+    g.view(64, -1)[torch.arange(64, device=dev), torch.tensor(pix, device=dev)] = torch.from_numpy(
+        rng.normal(size=64).astype(np.float32)).to(dev)
+    before = dict(shadows_cuda.LAUNCHES)
+    by_idx = shadows_cuda.march_grad_cuda(d, m, lp, idx, ts, g, cfg, staged)
+    by_t = shadows_cuda.march_grad_at_cuda(d, m, lp, ts[idx.long()], g, cfg, staged)
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(march_grad=2)
+    assert by_idx[0].abs().max().item() > 0 and by_idx[1].abs().max().item() > 0
+    assert_bits_equal(by_t[0], by_idx[0])
+    assert_bits_equal(by_t[1], by_idx[1])
+    dense = torch.from_numpy(rng.normal(size=tuple(d.shape)).astype(np.float32)).to(dev)
+    assert_grads_close(*shadows_cuda.march_grad_at_cuda(d, m, lp, ts[idx.long()], dense, cfg, staged),
+                       *shadows_cuda.march_grad_cuda(d, m, lp, idx, ts, dense, cfg, staged))
+    with pytest.raises(ValueError):
+        shadows_cuda.march_grad_at_cuda(d, m, lp, ts[idx.long()] + 2.0, g, cfg, staged)
+
+
+def test_march_over_lights_on_the_card(dev):
+    """shadows.ray_march_min_distance_lights on CUDA tensors: one staging and one K1 launch over the
+    image expanded across the lights, bit-equal to the plain march of the repeated image."""
+    depth, mask, light = edge_scene(dev, seed=28)
+    cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=16)
+    before = dict(shadows_cuda.LAUNCHES)
+    got = shadows.ray_march_min_distance_lights(depth[0], mask[0], light, cfg)
+    torch.cuda.synchronize()
+    assert launches_since(before) == counts(stage=1, march=1)
+    n = light.shape[0]
+    assert_bits_equal(got, shadows.ray_march_min_distance_batch(depth[:1].expand(n, 64, 64).contiguous(),
+                                                                 mask[:1].expand(n, 64, 64).contiguous(), light, cfg))
 
 
 @pytest.mark.parametrize("tier", ["strict", "fast"])

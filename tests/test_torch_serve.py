@@ -405,3 +405,24 @@ def test_main_serves_and_drains_on_sigterm(tmp_path):
     assert proc.returncode == 0, err
     last = json.loads(out.strip().splitlines()[-1])
     assert last["drained"] is True and last["stats"]["estimate_requests"] == 1
+
+
+def test_status_lines_are_single_writes(monkeypatch):
+    """Each status line reaches stdout in one write, newline included: under
+    torchrun the ranks share the pipe, and a separate write of the newline lets
+    rank 0's `drained` line and a follower's line run together."""
+    writes = []
+
+    class Recorder:
+        def write(self, s):
+            writes.append(s)
+
+        def flush(self):
+            pass
+
+    monkeypatch.setattr(sys, "stdout", Recorder())
+    tserve._print_line({"drained": True, "stats": {"batches": 3}})
+    tserve._print_line({"follower": 1, "calls": 7})
+    assert [json.loads(w) for w in writes] == [{"drained": True, "stats": {"batches": 3}},
+                                               {"follower": 1, "calls": 7}]
+    assert all(w.endswith("\n") and w.count("\n") == 1 for w in writes)

@@ -96,6 +96,28 @@ def test_plain_march_light_inside_image():
     np.testing.assert_array_equal(single.numpy(), got[0])
 
 
+def test_march_over_lights_matches_jax():
+    """shadows.ray_march_min_distance_lights, one image under a sweep of lights (L, H, W), against
+    the JAX package's vmap over lights (shadows.py:518) at 32x32, 12 samples, at the bars of
+    test_plain_march_matches_jax; and bit-equal to the batch march of the image repeated."""
+    cfg = dict(img_height=32, img_width=32, num_sample_points=12, t_start=0.025, t_stop=0.085, march_chunk=12,
+               shadow_mask_cull=True, shadow_col_chunk=16)
+    rng = np.random.default_rng(11)
+    depth = (rng.normal(size=(32, 32)) * 20).astype(np.float32)
+    mask = (rng.uniform(size=(32, 32)) > 0.1).astype(np.float32)
+    mask[:8] = 0.0
+    lights = np.concatenate([FAR_LIGHTS, [[0.0, 0.0, 10.0], [4000.0, 0.0, 600.0], [5.0, -3.0, 20.0]]])
+    lights = lights.astype(np.float32)
+    want = np.asarray(JS.ray_march_min_distance_lights(jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights),
+                                                       JRenderConfig(**cfg)))
+    got = TS.ray_march_min_distance_lights(torch.from_numpy(depth), torch.from_numpy(mask), torch.from_numpy(lights),
+                                           TRenderConfig(**cfg)).numpy()
+    assert got.shape == (5, 32, 32)
+    assert_march_close(got, want)
+    batch = port_march(np.repeat(depth[None], 5, 0), np.repeat(mask[None], 5, 0), lights, TRenderConfig(**cfg))
+    np.testing.assert_array_equal(got, batch)
+
+
 def test_plain_march_ts_slice():
     depth, mask = scene(2, seed=3)
     ts = JS.sample_ts(JRenderConfig(**SMALL)).astype(np.float32)[5:21]

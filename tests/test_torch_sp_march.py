@@ -6,9 +6,11 @@ computes JAX's side on the suite's virtual 8-device mesh.
   * K5, `RayMarchMinDistanceSP` (plain path on the CPU), on 2 ranks (16
     samples) and 4 ranks (15 samples: the last shard holds one pad), 32x32,
     cosine terrain, one image whose mask is all zeros (every shard ties at
-    the sentinel: the first winner, index 0, must win). Held to: the
-    full-grid plain march, bit for bit (the MIN is exact), and its first
-    winner on >= 0.9999 of pixels; every rank the same bits; JAX's
+    the sentinel: the first winner, the grid's first offset, must win). Held
+    to: the full-grid plain march, bit for bit (the MIN is exact), and its
+    first winner's t on >= 0.9999 of pixels; one collective a forward (the
+    MIN of the packed (distance, t) keys), none in the backward; every rank
+    the same bits; JAX's
     `ray_march_min_distance_pallas_vjp_sp` under shard_map: the distances
     at the march bars, t* on >= 0.998 of pixels, jax.grad in depth and the
     light at the bars of tests/test_torch_train_march.py, with the pixels
@@ -151,25 +153,29 @@ def k5_runs(tmp_path_factory):
 def test_k5_forward_is_the_full_grid_march_on_every_rank(k5_runs, n):
     run = k5_runs[n]
     ranks = run["ranks"]
-    ranks_identical(ranks, ("out", "d_depth", "d_light", "idx", "served", "served_t", "served_min"))
+    ranks_identical(ranks, ("out", "d_depth", "d_light", "t_star", "served", "served_t", "served_min"))
     r = ranks[0]
     np.testing.assert_array_equal(r["out"].numpy(), run["full_d"])
     np.testing.assert_array_equal(r["served"].numpy(), run["full_d"])
     np.testing.assert_array_equal(r["served_min"].numpy(), run["full_d"])
-    # The padded global table, in shard order; the served t* is the winner's offset.
-    np.testing.assert_array_equal(r["table"].numpy(), TS.sharded_sample_ts(run["tcfg"], n))
-    np.testing.assert_array_equal(r["served_t"].numpy(), r["table"].numpy()[r["idx"].numpy()])
+    # t* is an offset of the padded global table; the served t* is K5's.
+    assert np.isin(r["t_star"].numpy(), TS.sharded_sample_ts(run["tcfg"], n)).all()
+    np.testing.assert_array_equal(r["served_t"].numpy(), r["t_star"].numpy())
+    # One MIN of the int64 keys a forward, 8 bytes a pixel, and no collective in the backward.
+    for rank in ranks:
+        assert rank["collectives"] == 1 and rank["collective_bytes"] == 8 * run["full_d"].size
+        assert rank["t_star"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_k5_winner_is_the_full_grid_first_winner(k5_runs, n):
     run = k5_runs[n]
-    idx = run["ranks"][0]["idx"].numpy()
-    assert idx.dtype == np.int32
-    assert (idx == run["full_idx"]).mean() >= 0.9999
+    t_star = run["ranks"][0]["t_star"].numpy()
+    ts = TS.sample_ts(run["tcfg"]).astype(np.float32)
+    assert (t_star == ts[run["full_idx"]]).mean() >= 0.9999
     # The all-vetoed image: every shard reaches the sentinel; the first shard's first sample wins.
-    assert (run["full_d"][3] >= 1e5).all() and (idx[3] == 0).all()
-    assert (run["jax"][1][3] == run["ranks"][0]["table"][0].item()).all()
+    assert (run["full_d"][3] >= 1e5).all() and (t_star[3] == ts[0]).all()
+    assert (run["jax"][1][3] == ts[0]).all()
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -178,8 +184,7 @@ def test_k5_matches_jax_vjp_sp(k5_runs, n):
     j_out, j_t, j_dd, j_dl = run["jax"]
     r = run["ranks"][0]
     assert_march_close(r["out"].numpy(), j_out)
-    t = r["table"].numpy()[r["idx"].numpy()]
-    assert (t == j_t).mean() >= 0.998
+    assert (r["t_star"].numpy() == j_t).mean() >= 0.998
     assert run["keep"].mean() >= 0.99
     assert np.abs(j_dd).max() > 0
     assert_grads_close(r["d_depth"].numpy(), r["d_light"].numpy(), j_dd, j_dl)

@@ -12,6 +12,7 @@ import os
 import numpy as np
 import torch
 
+from chip_smoke import CollectiveCounter
 from geomconsistentfr_torch import train as TT
 from geomconsistentfr_torch.infer import Relighter
 from geomconsistentfr_torch.models.layers import BatchNorm
@@ -38,24 +39,27 @@ def _shard(ts_global: np.ndarray, m: M.Mesh, axis: str) -> torch.Tensor:
 
 
 def k5(device, out_dir, tag, cfg, depth, mask, lights, cot):
-    """K5 on this rank's slice of sharded_sample_ts over a 1-D mesh of the world (its launches
-    counted), the winner it combines, and the serving combine."""
+    """K5 on this rank's slice of sharded_sample_ts over a 1-D mesh of the world (its launches and
+    its collectives counted, forward and backward), the winner t* it combines, and the serving
+    combine."""
     rank = _setup()
     m = M.make_mesh(device)
     ts_local = _shard(shadows.sharded_sample_ts(cfg, m.size), m, "data").to(device)
     depth, mask, lights, cot = (torch.from_numpy(a).to(device) for a in (depth, mask, lights, cot))
     d, lp = depth.clone().requires_grad_(), lights.clone().requires_grad_()
     before = dict(shadows_cuda.LAUNCHES)
-    out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, m.world_group)
-    (out * cot).sum().backward()
+    with CollectiveCounter() as collectives:
+        out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, m.world_group)
+        (out * cot).sum().backward()
     launches = {k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()}
-    local_min, local_idx, _ = shadows_cuda._argmin(depth, mask, lights, ts_local, cfg)
-    _, idx, table = shadows_cuda._first_winner(local_min, local_idx, ts_local, m.world_group)
+    key, _ = shadows_cuda._march_key(depth, mask, lights, ts_local, cfg)
+    _, t_star = shadows_cuda._combine(key, m.world_group)
     served, served_t = shadows_cuda.sharded_march(depth, mask, lights, cfg, ts_local, m.world_group,
                                                   return_argmin_t=True)
     served_min = shadows_cuda.sharded_march(depth, mask, lights, cfg, ts_local, m.world_group)
-    _save(out_dir, tag, rank, out=out.detach(), d_depth=d.grad, d_light=lp.grad, idx=idx, table=table,
-          served=served, served_t=served_t, served_min=served_min, launches=launches)
+    _save(out_dir, tag, rank, out=out.detach(), d_depth=d.grad, d_light=lp.grad, t_star=t_star,
+          served=served, served_t=served_t, served_min=served_min, launches=launches,
+          collectives=collectives.calls, collective_bytes=collectives.nbytes)
 
 
 def batchnorm(device, out_dir, tag, x, cot, momentum):
