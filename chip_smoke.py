@@ -27,16 +27,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
               the registers ptxas reports for each and the counts of F2I,
               I2F, FRND, LDG and float32 and integer arithmetic opcodes in
               its SASS (cuobjdump -sass), in the whole function and in each
-              of its loops.
+              of its loops. K1-K3 are built for each of the four vetoes
+              (onehot, bilinear, hat, hat_y) and each form of their taps
+              (the quad; the clamped taps for t outside [0, 1] and H or W
+              above 2048), march_grad (one-hot only) in both tap forms.
   3. march    each kernel vs its plain PyTorch version on the card, batch 8,
               the golden fixtures' depth maps and face masks (K1-K3 bit for
               bit, K2's winning index on every pixel):
-              K1 at 256x256, 160 and 159 samples, both vetoes, cull
+              K1 at 256x256, 160 and 159 samples, all four vetoes, cull
               off/row/col-32, all three gates;
               K2 on those maps pooled 4x4 under the draft tier (64x64, 80
-              samples, plus a slice of the t grid), both vetoes, cull
+              samples, plus a slice of the t grid), all four vetoes, cull
               off/row, all three gates, its winning index too;
-              K3 at 256x256 around the plain K2's upsampled t*, both vetoes,
+              K3 at 256x256 around the plain K2's upsampled t*, all vetoes,
               cull off/col-64, all three gates, and around the plain K2's
               index (the draft path's form), bit-equal to the t_map form;
               the staging (full resolution with the cull's flags, and the
@@ -49,10 +52,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
               at every serving tier;
               march_grad at 256x256 under preset_target_lighting_train (160
               samples) and on the transfer grid (159 from 0.03), a seeded
-              random cotangent, both vetoes, cull off/col-32, all three
-              gates: K2 forward and march_grad backward through the
-              autograd Function, against the plain VJP at the kernel's
-              winners.
+              random cotangent, every forward veto (the backward vetoes
+              one-hot), cull off/col-32, all three gates: K2 forward and
+              march_grad backward through the autograd Function, against
+              the plain VJP at the kernel's winners;
+              at what RenderConfig admits beyond the presets (march_admitted),
+              all four vetoes: the staging, K1, K2, K3 (t_map and index
+              forms) bit for bit and march_grad at 60x60, 240x240 (chunk
+              48) and 8x4096 (the clamped taps), and a t grid to 1.02 at
+              256x256 (the clamped taps); the draft march at 240x240 (a
+              60x60 low-resolution march).
   4. golden   the ten golden fixtures rendered through the kernels at the
               strict tier (K1) and at the draft tier (K2 then K3), against the
               reference outputs they store.
@@ -78,6 +87,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
               relight_sweep_rendered_u8), transfer (the estimated light
               equal to estimate_lighting's, the render byte-equal), config
               and fix-border; seconds per command, start-up apart.
+     admitted the slice of the surface at what RenderConfig admits beyond
+              the presets, seven commands at once: `cli relight --config`
+              at 240x240 with each tier's fields in the file (the draft's
+              chunk 0: a 60x60 low-resolution march), `cli relight
+              --precision fast --config` with the 'hat' and 'hat_y' vetoes
+              at 256x256 (each relight's PNGs byte-equal to forward_visuals
+              here, its launches its march's), and one `cli train
+              --precision fast` step (bilinear forward, one-hot backward)
+              within FAST_LOSS_REL of the same step here; img/s of
+              Relighter.forward at batch 64 and of the step.
   8. bench    `python -m geomconsistentfr_torch.bench` at strict, fast and
               draft: its JSON lines, each value within 15% of e2e's img/s.
   9. serve    `python -m geomconsistentfr_torch.serve --port 0 --warmup`: a
@@ -154,7 +173,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               two outputs against each other; the draft staging alone; the
               whole draft march (staging, K2, K3: three device launches) as
               a row of its own; march_grad at batch 3 and 64 (one fill and
-              the kernel); a one-element fill, the launch floor.
+              the kernel); a one-element fill, the launch floor; then each
+              kernel in its other forms (time_forms): 'hat' and 'hat_y' at
+              the main paths' shapes, 240x240 and 8x4096.
   12. train   Trainer.run_epoch at full width (preset_target_lighting_train,
               batch 3, 256x256, SyntheticFaceData, seeded random G and D),
               six steps crossing a D update at steps 0 and 5: finite losses,
@@ -187,8 +208,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               and parallel phases run last, so the others run as before.
 The phases from cli to launch (7-10 and those named) run in phase_surface.
 Then the `kernels` JSON line (K1-K4, K5 as `march_sp`, and `unpack_key`,
-which replaces the reference's pmin combine), the nvidia-smi line, and,
-last:
+which replaces the reference's pmin combine; K1-K4 with the vetoes and
+shape forms phase march held them at, and their times in those forms), the
+nvidia-smi line, and, last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Bars (march and golden) are those of tests/test_torch_shadows.py,
@@ -213,10 +235,26 @@ GOLDEN = ROOT / "tests" / "golden"
 # in form order, its backward, and the staging every march reads (at the draft
 # tier, pooled).
 KERNELS = ("march", "march_argmin", "refine", "march_grad", "stage")
-# The compiled functions: K2 is built twice, one thread a pixel and (at 128
-# samples or more) two threads a pixel, "march_argmin_split"; the unpack of
-# K2's keys after their MIN over the ranks (K5), "unpack_key".
-COMPILED = KERNELS + ("march_argmin_split", "unpack_key")
+# The compiled functions. Each march form is built for each form of its taps
+# and for the vetoes 'onehot' (whose function also holds the 'bilinear'
+# veto's loop, picked at run time), 'hat' and 'hat_y': "march",
+# "march.hat", ..., "march.hat_y.clamp" (the one-hot quad form keeps the bare
+# name; ".clamp" is the clamped taps of csrc/march.cu's range, for t outside
+# [0, 1] and H or W above 2048); K2 is built twice more, one thread a pixel
+# and (at 128 samples or more) two threads a pixel, "march_argmin_split";
+# march_grad (one-hot only) in both tap forms; the unpack of K2's keys after
+# their MIN over the ranks (K5), "unpack_key".
+VETOES = ("onehot", "bilinear", "hat", "hat_y")
+COMPILED_VETOES = (0, 2, 3)
+MARCH_FORMS = ("march", "march_argmin", "refine", "march_argmin_split")
+
+
+def compiled_name(base: str, veto: int = 0, clamp: bool = False) -> str:
+    return base + ("" if veto == 0 else "." + VETOES[veto]) + (".clamp" if clamp else "")
+
+
+COMPILED = (tuple(compiled_name(f, v, c) for f in MARCH_FORMS for v in COMPILED_VETOES for c in (False, True))
+            + ("march_grad", "march_grad.clamp", "stage", "unpack_key"))
 # K5 (march_sp) launches the march_argmin form's key epilogue on a rank's slice
 # of the t grid; unpack_key unpacks the keys after their MIN over the ranks.
 ALL_KERNELS = KERNELS + ("march_sp", "unpack_key")
@@ -291,10 +329,10 @@ EXTRA_OPS_PER_SAMPLE = {"march": 0, "march_argmin": 2, "refine": 3}
 # and the division), the chain rule 95 (through the distance 38, into the
 # depth taps 8, the sample position 13, the endpoint Jacobian 28, the light's
 # three sums 8) and the block's light reduction 15 (five shuffle-adds for
-# each of three sums) = 213; the
-# bilinear veto adds its 32. A pixel whose winner is vetoed stops after the
-# setup and the veto (40 + 16); every other pixel does the reduction (15).
-GRAD_OPS = {"grad": 213, "vetoed": 56, "other": 15, "bilinear_extra": 32}
+# each of three sums) = 213; its veto is the one-hot veto whatever the
+# forward's. A pixel whose winner is vetoed stops after the setup and the
+# veto (40 + 16); every other pixel does the reduction (15).
+GRAD_OPS = {"grad": 213, "vetoed": 56, "other": 15}
 # march_grad vs the plain VJP (tests/test_torch_cuda.py): its atomics add in
 # any order, so the bars are relative to the gradient's size.
 GRAD_BARS = {"d_depth_rel_to_max": 1e-4, "d_light_rel_to_image_max": 1e-4}
@@ -346,11 +384,13 @@ SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 
 
 def sass_kernel_name(mangled: str):
-    form = re.search(r"march_kernelILi(\d)E(?:Li(\d)E)?", mangled)  # a parent's has no lanes argument
+    # march_kernel<form, lanes, veto, clamp>; a parent's may have no veto and clamp, or no lanes.
+    form = re.search(r"march_kernelILi(\d)E(?:Li(\d)E)?(?:Li(\d)ELb([01])E)?", mangled)
     if form:
-        return KERNELS[int(form.group(1))] + ("_split" if form.group(2) not in (None, "1") else "")
+        base = KERNELS[int(form.group(1))] + ("_split" if form.group(2) not in (None, "1") else "")
+        return compiled_name(base, int(form.group(3) or 0), form.group(4) == "1")
     if "march_grad_kernel" in mangled:
-        return "march_grad"
+        return "march_grad.clamp" if "march_grad_kernelILb1E" in mangled else "march_grad"
     if "unpack_key_kernel" in mangled:
         return "unpack_key"
     return "stage" if "stage_kernel" in mangled else None
@@ -518,9 +558,10 @@ def paired_host_ms(a, b, iters: int = 20, rounds: int = 15) -> dict:
 # in some windows, and now and then most of a window's (a window of 20
 # launches has read 2); it never adds any. So each window opens on a marker
 # kernel (a one-element negation, left out), and a reading is taken again, up
-# to three windows, until the window holds a whole number of launches per
-# call; the fullest window is kept.
-PROFILE_WINDOWS = 3
+# to five windows, until the window holds a whole number of launches per
+# call; the fullest window is kept. Three windows in a row have read nothing
+# (march_grad_cuda at batch 64, H100 80GB HBM3).
+PROFILE_WINDOWS = 5
 
 
 def profiled(fn, iters: int, keep, per_call: int = 0) -> list:
@@ -603,11 +644,18 @@ def phase_march(goldens, dev):
 
     worst = dict.fromkeys(KERNELS, 0.0)
     runs = dict.fromkeys(KERNELS, 0)
+    # What each kernel was held at: its vetoes and its shape forms.
+    ran = {k: dict(vetoes=set(), forms=set()) for k in KERNELS[:4]}
+
+    def held(kernel, veto, form):
+        ran[kernel]["vetoes"].add(veto)
+        ran[kernel]["forms"].add(form)
+
     tstar_agree = 1.0
     for preset in ("preset_single_image", "preset_lighting_transfer"):
         base = getattr(C, preset)().render
         draft = C.apply_precision_tier(getattr(C, preset)(), "draft").render
-        for gather in ("onehot", "bilinear"):
+        for gather in VETOES:
             for gate in ("none", "inside_image", "wide"):
                 for cull in (dict(), dict(shadow_mask_cull=True), dict(shadow_mask_cull=True, shadow_col_chunk=32)):
                     cfg = dataclasses.replace(base, shadow_mask_gather=gather, shadow_bias_gate=gate, **cull)
@@ -621,6 +669,7 @@ def phase_march(goldens, dev):
                         runs["stage"] += 1
                     worst["march"] = max(worst["march"], check_equal(got, want, "march", tag))
                     runs["march"] += 1
+                    held("march", gather, "256x256")
 
                 # K2 on the draft tier's pooled inputs (64x64, 80 samples; the
                 # draft's 64-column cull is the row cull there), then K3 at full
@@ -641,13 +690,14 @@ def phase_march(goldens, dev):
                         worst["march_argmin"] = max(worst["march_argmin"], check_equal(got_d, want_d, "march", tag))
                         tstar_agree = min(tstar_agree, check_tstar(got_t, want_t, "march", tag))
                         runs["march_argmin"] += 1
+                        held("march_argmin", gather, "64x64")
                         if ts is not None:
                             continue
                         t_map = S.upsample_tstar_nn(want_t, cfg)
                         got = K.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
                         want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
                         # The draft path's form: the centre read from the plain K2's index.
-                        table = K._ts_for(dev, m_cfg)
+                        table, _ = K._ts_for(dev, m_cfg)
                         _, want_idx = S.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
                         got_from_idx = K.refine_around_argmin_cuda(depth, mask, light, want_idx, table, cfg)
                         torch.cuda.synchronize()
@@ -655,6 +705,7 @@ def phase_march(goldens, dev):
                         worst["refine"] = max(worst["refine"], check_equal(got, want, "march", tag))
                         check(torch_equal_bits(got_from_idx, got), "march", f"{tag}: the index form differs")
                         runs["refine"] += 1
+                        held("refine", gather, "256x256")
                         # The draft path itself: the staging pass (bit-equal to its
                         # plain version), K2 on its pooled quad and flags, K3 on its
                         # full-resolution quad and flags.
@@ -711,7 +762,7 @@ def phase_march(goldens, dev):
     grad_err = {"d_depth": 0.0, "d_depth_rel_to_max": 0.0, "d_light_rel_to_image_max": 0.0}
     train = C.preset_target_lighting_train().render
     for grid in (dict(), dict(num_sample_points=159, t_start=0.03)):
-        for gather in ("onehot", "bilinear"):
+        for gather in VETOES:
             for gate in ("none", "inside_image", "wide"):
                 for cull in (dict(), dict(shadow_mask_cull=True, shadow_col_chunk=32)):
                     cfg = dataclasses.replace(train, shadow_mask_gather=gather, shadow_bias_gate=gate, **grid, **cull)
@@ -733,13 +784,255 @@ def phase_march(goldens, dev):
                     for key, v in zip(grad_err, (dd, dd_rel, dl_rel)):
                         grad_err[key] = max(grad_err[key], v)
                     runs["march_grad"] += 1
+                    held("march_grad", gather, "256x256")
+    admitted = march_admitted(batch, dev, worst, grad_err, held)
     worst["march_grad"] = grad_err["d_depth"]
     emit("march", ok=True, configs=runs, batch=8, surface_configs=surface_runs,
          bit_equal=["march", "march_argmin", "refine", "stage"],
          size={"march": 256, "march_argmin": 64, "refine": 256, "march_grad": 256},
          samples={"march": [160, 159], "march_argmin": [80, 36], "refine": 8, "march_grad": [160, 159]},
-         tstar_agreement=tstar_agree, max_abs_err=worst, march_grad_err=grad_err, march_grad_bars=GRAD_BARS)
-    return worst
+         tstar_agreement=tstar_agree, max_abs_err=worst, march_grad_err=grad_err, march_grad_bars=GRAD_BARS,
+         admitted=admitted)
+    return worst, {k: {f: sorted(v) for f, v in r.items()} for k, r in ran.items()}
+
+
+# The sizes and t tables RenderConfig admits beyond the presets', as phase
+# march holds them (H, W, shadow_col_chunk): rows that no 8-row group fills,
+# a chunk that is no power of two, W above 2048 (the clamped taps).
+ADMITTED_SHAPES = {"60x60": (60, 60, 0), "240x240_col48": (240, 240, 48), "8x4096": (8, 4096, 0)}
+
+
+def admitted_inputs(batch, dev, h, w):
+    """The golden depth maps and face masks cut (or tiled along a row) to h x w, and far lights."""
+    import numpy as np
+    import torch
+
+    depth = np.stack([g["depth"][0, 0] for _, g in batch])
+    mask = np.stack([g["mask"] for _, g in batch]).astype(np.float32)
+    if w > depth.shape[2]:  # rows of 8 images side by side, each image's row band in turn
+        reps = w // depth.shape[2]
+        pick = lambda a: np.concatenate([np.roll(a, i, axis=0)[:, 120:120 + h] for i in range(reps)], axis=2)
+        depth, mask = pick(depth), pick(mask)
+    else:
+        y0, x0 = (depth.shape[1] - h) // 2, (depth.shape[2] - w) // 2
+        depth, mask = depth[:, y0:y0 + h, x0:x0 + w], mask[:, y0:y0 + h, x0:x0 + w]
+    unit = np.stack([g["target_light"][0] for _, g in batch]).astype(np.float32)
+    light = unit / np.linalg.norm(unit, axis=1, keepdims=True) * 4013.0
+    light[0] = [0.37 * w / 4, -0.29 * h / 4, 20.0]  # inside the image
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (depth, mask, light)]
+
+
+SPARSE_PIXELS = 512  # march_admitted's cotangent: nonzero on this many pixels of each image
+
+
+def sparse_cotangent(shape, rng, dev, first_col=0, edge=0):
+    """A seeded normal cotangent on SPARSE_PIXELS random pixels of each image from column
+    `first_col` on and on every pixel of its last `edge` columns, 0 elsewhere, and those pixels'
+    flat indices (B, k)."""
+    import numpy as np
+    import torch
+
+    b, h, w = shape
+    cols = np.arange(h * w) % w
+    pool, last = np.flatnonzero((cols >= first_col) & (cols < w - edge)), np.flatnonzero(cols >= w - edge)
+    pix = np.stack([np.concatenate([rng.choice(pool, SPARSE_PIXELS, replace=False), last]) for _ in range(b)])
+    cot = np.zeros((b, h * w), np.float32)
+    np.put_along_axis(cot, pix, rng.normal(size=pix.shape).astype(np.float32), axis=1)
+    return torch.from_numpy(cot.reshape(shape)).to(dev), torch.from_numpy(pix).to(dev)
+
+
+def light_terms(depth, mask, light, t_star, cot, pix, cfg, chunk=1024):
+    """(B, 3) float64: per image, the sum over the pixels `pix` (B, k) (every pixel with a nonzero
+    cotangent) of |that pixel's term of d_light| (the plain VJP with the cotangent kept at one
+    pixel at a time, `chunk` pixels a call)."""
+    import torch
+
+    from geomconsistentfr_torch.ops import shadows as S
+
+    b, h, w = depth.shape
+    out = torch.zeros((b, 3), dtype=torch.float64, device=depth.device)
+    for i in range(b):
+        for part in pix[i].split(chunk):
+            k = part.numel()
+            one = torch.zeros((k, h * w), device=depth.device)
+            one[torch.arange(k, device=depth.device), part] = cot[i].reshape(-1)[part]
+            rep = [x[i:i + 1].expand(k, *x.shape[1:]).contiguous() for x in (depth, mask, light, t_star)]
+            _, dl = S.march_vjp(*rep, one.view(k, h, w), cfg)
+            out[i] += dl.abs().double().sum(dim=0)
+    return out
+
+
+def endpoints(xx, yy, lx, ly, cfg, pick=None):
+    """shadows.border_endpoints, with its one data-dependent branch (the exit through a
+    horizontal border, `inter`) and its clamps taken from `pick` where given, as this function
+    returns them -> (ex, ey, pick)."""
+    import torch
+
+    from geomconsistentfr_torch.ops import shadows as S
+
+    left, right = -cfg.half_w, cfg.img_width - cfg.half_w - 1.0
+    bottom, top = 1.0 - cfg.half_h, cfg.half_h
+    slopes = (ly - yy) / (lx - xx + S.EPS)
+    icpt = ly - slopes * lx
+    xv = torch.where(lx < left, left, right)
+    yh = torch.where(ly < bottom, bottom, top)
+    ey_v = slopes * xv + icpt
+    ex_h = (yh - icpt) / (slopes + S.EPS)
+    zx_mid, zy_mid = (lx >= left) & (lx <= right), (ly >= bottom) & (ly <= top)
+    inter = (ex_h >= left) & (ex_h <= right) if pick is None else pick[0]
+    inside = zx_mid & zy_mid
+    ex = torch.where(inside, lx, torch.where(zy_mid, xv, torch.where(zx_mid | inter, ex_h, xv)))
+    ey = torch.where(inside, ly, torch.where(zy_mid | ~(zx_mid | inter), ey_v, yh))
+    if pick is None:
+        pick = (inter, ex < left, ex > right, ey < bottom, ey > top)
+    ex = torch.where(pick[1], left, torch.where(pick[2], right, ex))
+    ey = torch.where(pick[3], bottom, torch.where(pick[4], top, ey))
+    return ex, ey, pick
+
+
+def light_grad_f64(depth, mask, light, t_star, cot, cfg):
+    """(B, 3) float64: the plain VJP's d_light (shadows.march_vjp: the one-hot veto, the cull) in
+    float64 arithmetic, with every discrete choice (the endpoint's branch and clamps, the four
+    taps, the veto) taken from its float32 evaluation: the gradient that both float32 versions
+    approximate, apart from them only by rounding."""
+    import torch
+
+    from geomconsistentfr_torch.ops import shadows as S
+
+    b, h, w = depth.shape
+    hw, hh = cfg.half_w, cfg.half_h
+    xx, yy = S.pixel_grid_centered(h, w, device=depth.device)
+    ex, ey, pick = endpoints(xx, yy, light[:, 0].view(b, 1, 1), light[:, 1].view(b, 1, 1), cfg)
+    want = S.border_endpoints(xx, yy, light[:, 0].view(b, 1, 1), light[:, 1].view(b, 1, 1), cfg)
+    check(torch.equal(ex, want[0]) and torch.equal(ey, want[1]), "march", "endpoints() is not border_endpoints")
+    sx, sy = S._fma(t_star, ex - xx, xx), S._fma(t_star, ey - yy, yy)
+    xt, yt = sx + hw - S.EPS, (hh - sy) - S.EPS
+    x0, x1, y0, y1 = xt.floor(), xt.ceil(), yt.floor(), yt.ceil()
+    on = S._gather((mask != 0).float().reshape(b, -1), hh - torch.round(sy), torch.round(sx) + hw, h, w) != 0
+    if cfg.shadow_mask_cull:
+        on &= S._live_pixels(mask, cfg)
+    dep = depth.double().reshape(b, -1)
+    d_ul, d_ur, d_ll, d_lr = (S._gather(dep, y, x, h, w) for y, x in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)))
+
+    xx, yy, d0, t = xx.double(), yy.double(), depth.double(), t_star.double()
+    lp = light.double().requires_grad_()
+    lx, ly, lz = (lp[:, i].view(b, 1, 1) for i in range(3))
+    ex, ey, _ = endpoints(xx, yy, lx, ly, cfg, pick)
+    xt, yt = t * (ex - xx) + xx + hw - S.EPS, (hh - (t * (ey - yy) + yy)) - S.EPS
+    iu = d_ul * (x1 - xt) + d_ur * (xt - x0)  # at an integer x (x0 == x1) 0, as in float32
+    il = d_ll * (x1 - xt) + d_lr * (xt - x0)
+    ba = ((xt - hw) - xx, (hh - yt) - yy, iu * (y1 - yt) + il * (yt - y0) - d0)
+    bc = (lx - xx, ly - yy, lz - d0)
+    n2 = ((ba[1] * bc[2] - ba[2] * bc[1]) ** 2 + (ba[2] * bc[0] - ba[0] * bc[2]) ** 2
+          + (ba[0] * bc[1] - ba[1] * bc[0]) ** 2)
+    dist = torch.sqrt(n2 + S.EPS) / torch.sqrt(bc[0] ** 2 + bc[1] ** 2 + bc[2] ** 2 + S.EPS)
+    (grad,) = torch.autograd.grad((dist * torch.where(on, cot.double(), 0.0)).sum(), lp)
+    return grad
+
+
+def march_admitted(batch, dev, worst, grad_err, held) -> dict:
+    """Each kernel at the sizes and tables RenderConfig admits beyond the presets', all four
+    vetoes, against its plain version: the staging, K1, K2 (and its winners), K3 around a t_map
+    and around K2's index bit for bit, march_grad at GRAD_BARS through autograd; the draft march
+    at 240x240 (a 60x60 low-resolution march); a t grid to 1.02 at 256x256 (the clamped taps)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.ops import shadows as S
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    cot_rng = np.random.default_rng(1)
+    shapes = {name: admitted_inputs(batch, dev, h, w) for name, (h, w, _) in ADMITTED_SHAPES.items()}
+    shapes["t_to_1.02"] = admitted_inputs(batch, dev, 256, 256)
+    runs = {}
+    for name, (depth, mask, light) in shapes.items():
+        h, w = depth.shape[1:]
+        chunk = ADMITTED_SHAPES.get(name, (0, 0, 32))[2]
+        grid = dict(num_sample_points=200, t_stop=1.025) if name == "t_to_1.02" else {}
+        base = C.apply_precision_tier(C.preset_single_image(), "strict").render
+        for veto in VETOES:
+            cfg = dataclasses.replace(base, img_height=h, img_width=w, shadow_col_chunk=chunk, shadow_mask_gather=veto,
+                                      shadow_bias_gate="inside_image", shadow_refine_halfwidth=4, **grid)
+            tag = f"{name}/{veto}"
+            check(staged_equal(K._stage(depth, mask, light, cfg, flags=True), S.stage_inputs(depth, mask, light, cfg)),
+                  "march", f"stage {tag}")
+            worst["march"] = max(worst["march"], check_equal(K.ray_march_min_distance_cuda(depth, mask, light, cfg),
+                                                             S.ray_march_min_distance_batch(depth, mask, light, cfg),
+                                                             "march", f"K1 {tag}"))
+            got_d, got_t = K.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
+            want_d, want_t = S.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
+            worst["march_argmin"] = max(worst["march_argmin"], check_equal(got_d, want_d, "march", f"K2 {tag}"))
+            check_tstar(got_t, want_t, "march", f"K2 {tag}")
+            got = K.refine_min_distance_cuda(depth, mask, light, want_t, cfg)
+            want = S.refine_min_distance_batch(depth, mask, light, want_t, cfg)
+            worst["refine"] = max(worst["refine"], check_equal(got, want, "march", f"K3 {tag}"))
+            ts, _ = K._ts_for(dev, cfg)
+            _, idx = S.ray_march_argmin_batch(depth, mask, light, cfg, ts)
+            by_idx = K.refine_around_argmin_cuda(depth, mask, light, idx, ts, cfg)
+            check(torch_equal_bits(by_idx, S.refine_min_distance_batch(depth, mask, light, ts[idx.long()], cfg)),
+                  "march", f"K3 {tag}: the index form differs from its plain version")
+            # march_grad through autograd: d_depth at its bar on every pixel with a cotangent;
+            # d_light against the sum of those pixels' |terms| (at these sizes an image's light
+            # gradient sums terms that cancel, as tests/test_torch_cuda.py's
+            # test_k5_backward_in_one_process describes): its largest entry (image, component) off
+            # a float64 evaluation (light_grad_f64) no more than twice the plain version's largest,
+            # plus 1e-5; and up to W = 2048 within 1e-5 of the plain version's. At 8x4096 the two
+            # float32 versions part from float64, and from each other, by up to some 4e-3 of the
+            # terms, on either side, most where a far light stands over a pixel column, there the
+            # plain one (autograd through the endpoint) the farther (PERF.md §6). On a cotangent
+            # of SPARSE_PIXELS pixels an image; at W above 2048 those lie where the clamped taps
+            # differ from the quad's, from column 2048 on with every pixel of the last 32
+            # columns, and a dense cotangent on three images follows.
+            def hold(gd, gm, gl, gt, cot, pix, what):
+                d, lp = gd.clone().requires_grad_(), gl.clone().requires_grad_()
+                (K.ray_march_min_distance_cuda(d, gm, lp, cfg) * cot).sum().backward()
+                want_dd, want_dl = S.march_vjp(gd, gm, gl, gt, cot, cfg)
+                dd = (d.grad - want_dd).abs().max().item()
+                dd_rel = dd / max(want_dd.abs().max().item(), 1e-30)
+                check(dd_rel <= GRAD_BARS["d_depth_rel_to_max"], "march", f"march_grad {tag} {what}: d_depth {dd_rel} of max")
+                for key, v in zip(grad_err, (dd, dd_rel)):
+                    grad_err[key] = max(grad_err[key], v)
+                terms = light_terms(gd, gm, gl, gt, cot, pix, cfg).clamp_min(1e-30)
+                got, plain, f64 = lp.grad.double(), want_dl.double(), light_grad_f64(gd, gm, gl, gt, cot, cfg)
+                rel = {k: (a - b).abs() / terms for k, (a, b) in dict(
+                    kernel_vs_plain=(got, plain), kernel_vs_float64=(got, f64), plain_vs_float64=(plain, f64)).items()}
+                reading = {k: v.max().item() for k, v in rel.items()}
+                grad_err.setdefault(f"d_light_rel_to_terms_{what}", {})[tag] = reading
+                check(reading["kernel_vs_float64"] <= 2 * reading["plain_vs_float64"] + 1e-5
+                      and (wide or reading["kernel_vs_plain"] <= 1e-5), "march",
+                      f"march_grad {tag} {what}: d_light {reading} of the sum of its |terms|")
+
+            wide = w > K.QUAD_MAX
+            hold(depth, mask, light, got_t, *sparse_cotangent(depth.shape, cot_rng, dev, *((K.QUAD_MAX, 32) if wide else ())),
+                 "sparse")
+            if wide:
+                cot = torch.from_numpy(cot_rng.normal(size=(3, h, w)).astype(np.float32)).to(dev)
+                hold(*(x[:3].contiguous() for x in (depth, mask, light, got_t)), cot,
+                     torch.arange(h * w, device=dev).expand(3, -1), "dense")
+            form = f"{name} (clamped taps)" if K._ts_for(dev, cfg)[1] else name
+            for kernel in ("march", "march_argmin", "refine", "march_grad"):
+                held(kernel, veto, form)
+            torch.cuda.synchronize()
+            runs[name] = runs.get(name, 0) + 1
+    # The draft march at 240x240: a 60x60 low-resolution march under the row cull.
+    depth, mask, light = shapes["240x240_col48"]
+    for veto in VETOES:
+        cfg = dataclasses.replace(C.apply_precision_tier(C.preset_single_image(), "draft").render, img_height=240,
+                                  img_width=240, shadow_col_chunk=0, shadow_mask_gather=veto, shadow_step_pack=1)
+        tag = f"draft 240x240/{veto}"
+        check(staged_equal(K._stage(depth, mask, light, cfg, draft=True, flags=True),
+                           S.stage_inputs(depth, mask, light, cfg)), "march", f"stage {tag}")
+        m_depth, m_mask, m_light, m_cfg = S.scale_march_inputs(depth, mask, light, cfg)
+        _, want_t = S.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+        want = S.refine_min_distance_batch(depth, mask, light, S.upsample_tstar_nn(want_t, cfg), cfg)
+        worst["refine"] = max(worst["refine"], check_equal(K.draft_march(depth, mask, light, cfg), want, "march", tag))
+        held("march_argmin", veto, "60x60 (draft at 240x240)")
+        held("refine", veto, "240x240 (draft)")
+        runs["draft_240"] = runs.get("draft_240", 0) + 1
+    return runs
 
 
 def golden_args(fx, transfer, dev):
@@ -2403,9 +2696,134 @@ def phase_launch(files, tmp: Path, serve_load: dict) -> dict:
          servers=servers)
     return launches
 
+# The render fields each tier sets (config.apply_precision_tier), which a
+# --config file without --precision carries itself.
+TIER_RENDER_FIELDS = ("shadow_matmul_precision", "shadow_resolution_scale", "shadow_refine_halfwidth",
+                      "shadow_lowres_t_stride", "shadow_step_pack", "shadow_mask_cull", "shadow_col_chunk")
+ADMITTED_SIZE = 240  # a size RenderConfig admits whose march the presets never run (the draft's is 60x60)
+
+
+def admitted_runs() -> dict:
+    """tag -> (the --config file's contents, its preset, the CLI's other flags): `cli relight
+    --config` at 240x240 with each tier's fields in the file (chunk 48; the draft's 0, so its
+    low-resolution march is 60x60), `cli relight --precision fast --config` with the 'hat' and
+    'hat_y' vetoes at 256x256, and one `cli train --precision fast` step at batch 3."""
+    from geomconsistentfr_torch import config as C
+
+    runs = {}
+    for tier in ("strict", "high", "fast", "draft"):
+        cfg = C.apply_precision_tier(C.preset_single_image(), tier)
+        render = {f: getattr(cfg.render, f) for f in TIER_RENDER_FIELDS}
+        render.update(img_height=ADMITTED_SIZE, img_width=ADMITTED_SIZE, shadow_col_chunk=0 if tier == "draft" else 48)
+        runs[f"relight_{ADMITTED_SIZE}_{tier}"] = ({"model": {"compute_dtype": cfg.model.compute_dtype},
+                                                    "render": render}, "single_image", ())
+    for veto in ("hat", "hat_y"):
+        runs[f"relight_fast_{veto}"] = ({"render": {"shadow_mask_gather": veto}}, "single_image", ("--precision", "fast"))
+    runs["train_fast"] = ({"train": {"batch_size": 3, "batches_per_epoch": 1}}, "target_lighting_train",
+                          ("--precision", "fast"))
+    return runs
+
+
+def phase_admitted(files, tmp: Path) -> dict:
+    """The slice of the surface at what RenderConfig admits beyond the presets (admitted_runs), each
+    command in a process of its own, all started at once: each relight's six PNGs byte-equal to
+    Relighter.forward_visuals at batch 1 in this process and its launches those of its march, the
+    train step's losses within FAST_LOSS_REL of the same step here; img/s of Relighter.forward at
+    batch 64 and of the train step here."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.data.celebahq import SyntheticFaceData
+    from geomconsistentfr_torch.infer import load_relighter
+    from geomconsistentfr_torch.lighting_presets import DEFAULT_AMBIENT, LIGHT_PRESETS
+    from geomconsistentfr_torch.ops import shadows as S
+    from geomconsistentfr_torch.train import Trainer
+    from geomconsistentfr_torch.utils.io import read_image, read_mask
+
+    started = time.perf_counter()
+    pth, image, mask = files["pth"], files["transfer_00104"], files["transfer_00104_mask"]
+    runs, procs = admitted_runs(), {}
+    for tag, (body, preset, flags) in runs.items():
+        path = tmp / f"{tag}.json"
+        path.write_text(json.dumps(body))
+        if tag == "train_fast":
+            args = ("train", "--config", path, *flags, "--data", "synthetic", "--synthetic-samples", 3, "--epochs", 1,
+                    "--out", tmp / tag)
+        else:
+            args = ("relight", "--checkpoint", pth, "--config", path, *flags, "--image", image, "--mask", mask,
+                    "--light-preset", "multipie_14", "--out", tmp / tag)
+        report = tmp / f"{tag}.run.json"
+        out, err = open(tmp / f"{tag}.stdout", "w+"), open(tmp / f"{tag}.stderr", "w+")
+        procs[tag] = (subprocess.Popen(module_cmd(report, "geomconsistentfr_torch.cli", *args), cwd=ROOT,
+                                       env=module_env(), stdout=out, stderr=err, text=True), report, out, err)
+    results = {}
+    for tag, (proc, report, out, err) in procs.items():
+        try:
+            proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        check(proc.returncode == 0, "admitted", f"{tag}: the cli exited {proc.returncode}: {stderr[-3000:]}")
+        rep = json.loads(report.read_text())
+        results[tag] = dict(stdout=stdout, launches=rep["launches"], run_s=rep["t_end"] - rep["t_ready"])
+
+    light = np.asarray([LIGHT_PRESETS["multipie_14"]], np.float32)
+    ambient = np.asarray([DEFAULT_AMBIENT], np.float32)
+    launches, rows = counts(), {}
+    for tag, (body, preset, flags) in runs.items():
+        r = results[tag]
+        add_launches(launches, r["launches"])
+        cfg = C.load_config(str(tmp / f"{tag}.json"), preset=preset)
+        if flags:
+            cfg = C.apply_precision_tier(cfg, flags[1])
+        veto = S.resolve_mask_gather(cfg.render)
+        if tag == "train_fast":
+            check(veto == "bilinear", "admitted", f"{tag}: the veto is {veto}")
+            check(r["launches"] == counts(stage=1, march_argmin=1, march_grad=1), "admitted",
+                  f"{tag} launched {r['launches']}")
+            trainer = Trainer(cfg, SyntheticFaceData(num_samples=3, size=cfg.render.img_height),
+                              workdir=str(tmp / f"{tag}_here"))
+            state, here = trainer.run_epoch(trainer.init_or_resume(), 0)
+            got = last_json(r["stdout"])
+            rel = max(abs(got[k] - here[k]) / max(abs(here[k]), 1e-12) for k in here if k not in ("epoch", "seconds"))
+            check(rel <= FAST_LOSS_REL, "admitted", f"{tag}: the CLI's losses are {rel:.3g} from this process's")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run_epoch(state, 1)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            rows[tag] = dict(veto=veto, launches=r["launches"], loss_rel_to_here=rel, step_ms=step_s * 1e3,
+                             img_per_s=cfg.train.batch_size / step_s, run_s=r["run_s"])
+            continue
+        size = cfg.render.img_height
+        want_launches = (counts(stage=1, march_argmin=1, refine=1) if cfg.render.shadow_resolution_scale > 1
+                         else counts(stage=1, march=1))
+        check(r["launches"] == want_launches, "admitted", f"{tag} launched {r['launches']}, expected {want_launches}")
+        rl = load_relighter(pth, cfg=cfg)
+        img, msk = read_image(image, size), read_mask(mask, size)
+        pack = rl.forward_visuals(img[None], msk[None], light, ambient)[0].cpu().numpy()
+        pack_files_equal(last_json(r["stdout"])["outputs"], pack, "admitted", tag)
+        imgs, msks, lights = (torch.from_numpy(np.repeat(x[None] if x is not light else x, 64, 0)).cuda()
+                              for x in (img, msk, light))
+        ms = cuda_time_ms(lambda: rl.forward(imgs, msks, lights), 4, windows=3)
+        rows[tag] = dict(size=size, veto=veto, chunk=cfg.render.shadow_col_chunk,
+                         march=f"{size // cfg.render.shadow_resolution_scale}^2", launches=r["launches"],
+                         forward_ms_64=ms, img_per_s=64 / (ms / 1e3), run_s=r["run_s"])
+        del rl
+        torch.cuda.empty_cache()
+    emit("admitted", ok=True, runs=rows, launches=launches, seconds=time.perf_counter() - started)
+    return launches
+
+
 def phase_surface(goldens, e2e: dict) -> dict:
-    """The cli, bench, serve, eval, train_cli, lpips, crop, visualize_lighting, orbax and launch
-    phases, in a temporary directory; their launches summed."""
+    """The cli, admitted, bench, serve, eval, train_cli, lpips, crop, visualize_lighting, orbax and
+    launch phases, in a temporary directory; their launches summed."""
     import tempfile
 
     launches = counts()
@@ -2413,6 +2831,7 @@ def phase_surface(goldens, e2e: dict) -> dict:
         tmp = Path(d)
         files = surface_files(goldens, tmp)
         add_launches(launches, phase_cli(files, tmp))
+        add_launches(launches, phase_admitted(files, tmp))
         add_launches(launches, phase_bench(tmp, e2e))
         serve_launches, serve_load = phase_serve(files, tmp)
         add_launches(launches, serve_launches)
@@ -2436,6 +2855,10 @@ def phase_surface(goldens, e2e: dict) -> dict:
 # alone when the images move by one ulp. 1.7e-3 (G) and 1.3e-5 (D) were
 # measured on an H100.
 TRAIN_BARS = {"loss_rel": 1e-4, "g_grad_norm_rel": 1e-2, "d_grad_norm_rel": 1e-3}
+# A bfloat16 CNN's losses from two processes (the fast tier's train step): one
+# bfloat16 ulp, 2^-8, of their size. cuDNN picks its algorithms in each
+# process, and at bfloat16 they round apart by a fraction of that.
+FAST_LOSS_REL = 2.0 ** -8
 TRAIN_STEP_LAUNCHES = counts(stage=1, march_argmin=1, march_grad=1)
 
 
@@ -2574,8 +2997,8 @@ def phase_train(dev, seed=0, steps=6):
             out = render(net.albedo, net.depth, net.lighting, mask, rcfg)
         depth = out.depth.contiguous()
         light_pt = (rcfg.light_distance * out.unit_light_direction).contiguous()
-        ts = K._ts_for(dev, rcfg)
-        _, idx, staged = K._launch_argmin(depth, mask, light_pt, ts, rcfg)
+        ts, clamp = K._ts_for(dev, rcfg)
+        _, idx, staged = K._launch_argmin(depth, mask, light_pt, ts, rcfg, clamp=clamp)
         cot = torch.randn(depth.shape, device=dev, generator=torch.Generator(dev).manual_seed(seed))
 
         def cnn():
@@ -2754,11 +3177,11 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
     n = dict(K.LAUNCHES)
     check(n == GRID_STEP_LAUNCHES, "parallel", f"K5 forward and backward launched {n}")
     check(collectives.calls == K5_COLLECTIVES, "parallel", f"K5 issued {collectives.calls} collectives")
-    ts_full = K._ts_for(dev, cfg)
-    full, full_idx, _ = K._launch_argmin(depth, mask, light, ts_full, cfg)
+    ts_full, clamp = K._ts_for(dev, cfg)
+    full, full_idx, _ = K._launch_argmin(depth, mask, light, ts_full, cfg, clamp=clamp)
     check(torch.equal(out.detach(), full), "parallel", "K5: distances differ from K2 on the full grid")
-    local_min, local_idx, _ = K._launch_argmin(depth, mask, light, ts_local, cfg)
-    key, _ = K._march_key(depth, mask, light, ts_local, cfg)
+    local_min, local_idx, _ = K._launch_argmin(depth, mask, light, ts_local, cfg, clamp=clamp)
+    key, _ = K._march_key(depth, mask, light, ts_local, cfg, clamp=clamp)
     check(torch.equal(key, S.pack_march_key(local_min, ts_local[local_idx.long()])), "parallel",
           "K2's key form differs from its packed index form")
     reduced = M.all_min(key, group)
@@ -2791,7 +3214,7 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
     on = torch.nonzero(mask[0].reshape(-1)).view(-1)
     pick = on[torch.randperm(on.numel(), generator=torch.Generator().manual_seed(seed))[:64].to(dev)]
     rep_d, rep_m, rep_l = (x[:1].expand(64, *x.shape[1:]).contiguous() for x in (depth, mask, light))
-    _, rep_idx, rep_staged = K._launch_argmin(rep_d, rep_m, rep_l, ts_full, cfg)
+    _, rep_idx, rep_staged = K._launch_argmin(rep_d, rep_m, rep_l, ts_full, cfg, clamp=clamp)
     one_hot = torch.zeros_like(rep_d)
     one_hot.view(64, -1)[torch.arange(64, device=dev), pick] = cot[0].reshape(-1)[pick]
     by_idx = K.march_grad_cuda(rep_d, rep_m, rep_l, rep_idx, ts_full, one_hot, cfg, rep_staged)
@@ -2811,7 +3234,7 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
         return S.unpack_march_key(M.all_min(S.pack_march_key(p_min, ts_local[p_idx.long()]), group))
 
     plain_ms = cuda_time_ms(plain_k5, 2)
-    t_key = M.all_min(K._march_key(td, tm, tl, ts_local, cfg)[0], group)
+    t_key = M.all_min(K._march_key(td, tm, tl, ts_local, cfg, clamp=clamp)[0], group)
     unpack = dict(ms=cuda_time_ms(lambda: K.unpack_march_key(t_key), 20, windows=5),
                   kernel_ms=kernel_device_ms(lambda: K.unpack_march_key(t_key), name="unpack_key_kernel"),
                   plain_ms=cuda_time_ms(lambda: S.unpack_march_key(t_key), 20, windows=5),
@@ -2864,6 +3287,14 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
         json.dump(res, f)
 
 
+def grid_table(K, dev, cfg) -> tuple:
+    """(the config's t table on dev, the keywords K's launches take with it): a tree with the
+    clamped taps returns the table's clamp beside it, which its launches require; an earlier
+    tree returns the table alone, and its launches take no such keyword."""
+    got = K._ts_for(dev, cfg)
+    return (got[0], dict(clamp=got[1])) if isinstance(got, tuple) else (got, {})
+
+
 def time_k5(K, td, tm, tl, tc, cfg, ts_local, group) -> dict:
     """K5 on this rank at (td, tm, tl), through what this tree and its parent share: the forward
     (CUDA events), K2 on the slice with its staging (slice_ms) and the kernel alone (kernel_ms,
@@ -2882,9 +3313,10 @@ def time_k5(K, td, tm, tl, tc, cfg, ts_local, group) -> dict:
         forward_ms = cuda_time_ms(forward, 10, windows=5)
         with CollectiveCounter() as collectives:
             forward()
+        _, kw = grid_table(K, td.device, cfg)  # K5 takes every rank's slice with the grid's taps
         if hasattr(K, "_march_key"):
             def on_slice():
-                return K._march_key(td, tm, tl, ts_local, cfg)
+                return K._march_key(td, tm, tl, ts_local, cfg, **kw)
 
             key, staged = on_slice()
 
@@ -2894,10 +3326,10 @@ def time_k5(K, td, tm, tl, tc, cfg, ts_local, group) -> dict:
             _, t_star = combine()
 
             def backward():
-                return K._march_grad(tl, None, None, tc, staged, cfg, t_map=t_star)
+                return K._march_grad(tl, None, None, tc, staged, cfg, t_map=t_star, **kw)
         else:
             def on_slice():
-                return K._launch_argmin(td, tm, tl, ts_local, cfg)
+                return K._launch_argmin(td, tm, tl, ts_local, cfg, **kw)
 
             local_min, local_idx, staged = on_slice()
 
@@ -2907,7 +3339,7 @@ def time_k5(K, td, tm, tl, tc, cfg, ts_local, group) -> dict:
             _, idx, table = combine()
 
             def backward():
-                return K._march_grad(tl, idx, table, tc, staged, cfg)
+                return K._march_grad(tl, idx, table, tc, staged, cfg, **kw)
         one = torch.zeros(1, dtype=torch.int64, device=td.device)
         return dict(ms=forward_ms, slice_ms=cuda_time_ms(on_slice, 20, windows=5), kernel_ms=kernel_device_ms(on_slice),
                     combine_ms=cuda_time_ms(combine, 10, windows=5), backward_ms=cuda_time_ms(backward, 20, windows=5),
@@ -3116,8 +3548,8 @@ def phase_timing(goldens, dev, batch=64):
     # K3 as the draft path runs it: around K2's int32 index (64, 64, 64) into
     # its table, with no upsampled t* map; bit-equal to the t_map form too.
     sc = cfg.shadow_resolution_scale
-    table = K._ts_for(dev, m_cfg)
-    _, idx, _ = K._argmin(m_depth, m_mask, m_light, table, m_cfg)
+    table, clamp = K._ts_for(dev, m_cfg)
+    _, idx, _ = K._argmin(m_depth, m_mask, m_light, table, m_cfg, clamp=clamp)
     t_map = S.upsample_tstar_nn(table[idx.long()], cfg)
     got = K.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg)
     want = S.refine_min_distance_batch(depth, mask, light, t_map, cfg)
@@ -3195,10 +3627,10 @@ def phase_timing(goldens, dev, batch=64):
     # (the intercept is its fixed cost, the slope its cost a pixel), with a
     # seeded random cotangent; beside it the floor no launch goes under, a
     # one-element fill's device time.
-    ts = K._ts_for(dev, cfg)
+    ts, clamp = K._ts_for(dev, cfg)
     for b in (3, batch):
         td, tm, tl = depth[:b].contiguous(), mask[:b].contiguous(), light[:b].contiguous()
-        _, idx, staged = K._launch_argmin(td, tm, tl, ts, cfg)
+        _, idx, staged = K._launch_argmin(td, tm, tl, ts, cfg, clamp=clamp)
         t_star = ts[idx.long()]
         cot = torch.randn((b, h, w), generator=torch.Generator().manual_seed(2)).to(dev)
         grad_fn = functools.partial(K.march_grad_cuda, td, tm, tl, idx, ts, cot, cfg, staged)
@@ -3213,11 +3645,10 @@ def phase_timing(goldens, dev, batch=64):
         check(len(activities) == 2 * 5, "timing", f"five march_grad_cuda calls ran {activities}: one zero fill and the kernel each")
         # The work this run's data needs: pixels whose winner is on the face and
         # whose cotangent is nonzero differentiate, vetoed winners stop early.
-        vetoed = S.sample_distance_at_batch(td, tm, tl, t_star, cfg) >= 1e5
+        vetoed = S.sample_distance_at_batch(td, tm, tl, t_star, cfg, veto="onehot") >= 1e5
         n_grad = int((~vetoed & (cot != 0)).sum().item())
         n_vetoed = int(vetoed.sum().item())
-        bilinear = GRAD_OPS["bilinear_extra"] if S.resolve_mask_gather(cfg) == "bilinear" else 0
-        ops = (n_grad * (GRAD_OPS["grad"] + bilinear) + n_vetoed * (GRAD_OPS["vetoed"] + bilinear)
+        ops = (n_grad * GRAD_OPS["grad"] + n_vetoed * GRAD_OPS["vetoed"]
                + (b * h * w - n_grad - n_vetoed) * GRAD_OPS["other"])
         nbytes = 4 * (5 * b * h * w + 6 * b + s)  # depth, mask, idx, cotangent, d_depth; light, d_light; ts
         key = "train_grad" if b == 3 else f"train_grad_{b}"
@@ -3232,7 +3663,83 @@ def phase_timing(goldens, dev, batch=64):
     rows["train_grad"]["launch_floor_ms"] = device_busy_ms(lambda: torch.zeros(1, device=dev), 20)
     emit("timing", ok=True, kernel="launch_floor", what="a one-element fill (torch.zeros(1))",
          device_ms=rows["train_grad"]["launch_floor_ms"])
+    rows["forms"] = time_forms(depth, mask, light, dev)
     return rows
+
+
+def time_forms(depth, mask, light, dev) -> dict:
+    """Each kernel's time beside the main paths' in the forms RenderConfig admits beyond the
+    presets': the 'hat' and 'hat_y' vetoes at the main paths' shapes, 240x240 (the draft march
+    60x60), 8x4096 (the clamped taps); a time a launch of the wrapper (CUDA events) and of the
+    kernel alone (torch.profiler), on the timing inputs cut to each size. Held against the plain
+    versions in phase march; the outputs are checked here only to be finite or the sentinel."""
+    import dataclasses
+
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.ops import shadows as S
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    batch = depth.shape[0]
+
+    def cut(h, w):
+        if w > depth.shape[2]:
+            reps = w // depth.shape[2]
+            return [torch.cat([torch.roll(x, i, 0)[:, 120:120 + h] for i in range(reps)], dim=2).contiguous()
+                    for x in (depth, mask)] + [light]
+        y0 = (depth.shape[1] - h) // 2
+        return [x[:, y0:y0 + h, y0:y0 + w].contiguous() for x in (depth, mask)] + [light]
+
+    def form_ms(fn, name):
+        out = fn()
+        first = out[0] if isinstance(out, tuple) else out
+        check(bool(torch.isfinite(first).all()), "timing", f"{name}: not finite")
+        return dict(ms=cuda_time_ms(fn, 10, warmup=2, windows=3),
+                    kernel_ms=kernel_device_ms(fn, iters=10, name=name, readings=1))
+
+    sizes = {"256x256": (256, 256, None), "240x240": (240, 240, 48), "8x4096": (8, 4096, 0)}
+    forms = {k: {} for k in KERNELS[:4]}
+    for size, (h, w, chunk) in sizes.items():
+        d, m, lp = cut(h, w) if size != "256x256" else (depth, mask, light)
+        for veto in (("hat", "hat_y") if size == "256x256" else ("auto",)):
+            label = f"{veto} {size}" if veto != "auto" else size
+            over = dict(img_height=h, img_width=w, shadow_mask_gather=veto)
+            if chunk is not None:
+                over["shadow_col_chunk"] = chunk
+            strict = dataclasses.replace(C.apply_precision_tier(C.preset_single_image(), "fast" if veto != "auto"
+                                                                else "strict").render, **over)
+            forms["march"][f"{label} (64)"] = form_ms(lambda: K.ray_march_min_distance_cuda(d, m, lp, strict),
+                                                      "march_kernel<0")
+            draft = dataclasses.replace(C.apply_precision_tier(C.preset_single_image(), "draft").render, **over,
+                                        shadow_step_pack=1)
+            if size != "8x4096":
+                draft = dataclasses.replace(draft, shadow_col_chunk=0 if size == "240x240" else 64)
+                md, mm, ml, mc = S.scale_march_inputs(d, m, lp, draft)
+                forms["march_argmin"][f"draft {label} (64, {md.shape[1]}^2, {mc.num_sample_points})"] = form_ms(
+                    lambda: K.ray_march_min_distance_cuda(md, mm, ml, mc, return_argmin_t=True), "march_kernel<1")
+                table, clamp = K._ts_for(dev, mc)
+                _, idx, _ = K._argmin(md, mm, ml, table, mc, clamp=clamp)
+                forms["refine"][f"draft {label} (64, 8)"] = form_ms(
+                    lambda: K.refine_around_argmin_cuda(d, m, lp, idx, table, draft), "march_kernel<2")
+            else:
+                t_map = torch.full_like(d, 0.5)
+                forms["refine"][f"{label} (64, 8, around a t_map)"] = form_ms(
+                    lambda: K.refine_min_distance_cuda(d, m, lp, t_map, dataclasses.replace(strict, shadow_refine_halfwidth=4)),
+                    "march_kernel<2")
+            tcfg = dataclasses.replace(C.preset_target_lighting_train().render, **over)
+            td, tm, tl = (x[:3].contiguous() for x in (d, m, lp))
+            ts, clamp = K._ts_for(dev, tcfg)
+            if size == "8x4096":
+                forms["march_argmin"][f"training {label} (3, 160)"] = form_ms(
+                    lambda: K.ray_march_min_distance_cuda(td, tm, tl, tcfg, return_argmin_t=True), "march_kernel<1")
+            _, idx, staged = K._launch_argmin(td, tm, tl, ts, tcfg, clamp=clamp)
+            cot = torch.randn(td.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+            forms["march_grad"][f"after a {label} forward (3)"] = form_ms(
+                lambda: K.march_grad_cuda(td, tm, tl, idx, ts, cot, tcfg, staged), "march_grad_kernel")
+            del staged
+    emit("timing", ok=True, kernel="forms", forms=forms)
+    return forms
 
 
 def compare_timing(goldens, dev, batch=64) -> dict:
@@ -3311,8 +3818,8 @@ def compare_timing(goldens, dev, batch=64) -> dict:
     # march_grad through its wrapper, as a caller outside autograd calls it:
     # the host's checks and the fill around the kernel. A tree whose kernel
     # reads the forward's staged quad takes it as the last argument.
-    ts = K._ts_for(dev, tcfg)
-    _, idx3, *staged3 = K._launch_argmin(td, tm, tl, ts, tcfg)
+    ts, kw = grid_table(K, dev, tcfg)
+    _, idx3, *staged3 = K._launch_argmin(td, tm, tl, ts, tcfg, **kw)
     cot3 = torch.randn(td.shape, device=dev, generator=torch.Generator(dev).manual_seed(3))
     def wrapper():
         return K.march_grad_cuda(td, tm, tl, idx3, ts, cot3, tcfg, *staged3)
@@ -3321,7 +3828,7 @@ def compare_timing(goldens, dev, batch=64) -> dict:
     rows["K4_wrapper_b3"]["vs_fill"] = paired_host_ms(wrapper, lambda: torch.zeros(1, device=dev))
     if hasattr(K, "_march_grad"):
         rows["K4_wrapper_b3"]["vs_unchecked"] = paired_host_ms(
-            wrapper, lambda: K._march_grad(tl, idx3, ts, cot3, staged3[0], tcfg))
+            wrapper, lambda: K._march_grad(tl, idx3, ts, cot3, staged3[0], tcfg, **kw))
     for b in (3, batch):
         d, lp = depth[:b].clone().requires_grad_(), light[:b].clone().requires_grad_()
         out = K.ray_march_min_distance_cuda(d, mask[:b].contiguous(), lp, tcfg)
@@ -3507,10 +4014,10 @@ def main() -> int:
         check(sorted(sass) == sorted(COMPILED), "build", f"cuobjdump showed {sorted(sass)}, expected {sorted(COMPILED)}")
         emit("build", ok=True, seconds=seconds, kernels=list(COMPILED), ptxas=regs, sass=sass,
              loop_conversions={k: sum(lp[op] for lp in v["loops"] for op in ("F2I", "I2F", "FRND"))
-                               for k, v in sass.items()})
+                               for k, v in sass.items() if not k.endswith(".clamp")})
 
         goldens = load_goldens()
-        march_err = phase_march(goldens, dev)
+        march_err, march_ran = phase_march(goldens, dev)
         phase_golden(goldens, dev)
         launches, e2e, e2e_err = phase_e2e(goldens, dev)
         phase_cudnn(goldens, dev)
@@ -3548,7 +4055,8 @@ def main() -> int:
             max_abs_err=max_err,
             ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-            kernel_ms=t["kernel_device_ms"],
+            kernel_ms=t["kernel_device_ms"], vetoes=march_ran[name]["vetoes"], forms=march_ran[name]["forms"],
+            forms_ms=timing["forms"][name],
         )
         if name == "march_argmin":
             k2, st = timing["train_argmin"], timing["draft_stage"]

@@ -98,12 +98,15 @@ class RenderConfig:
     shadow_slab_interleave: bool = False
     shadow_step_pack: int = 1
 
-    # Mask veto per march sample:
+    # Mask veto per march sample (the march's backward vetoes its winning
+    # sample one-hot whatever this says, as the JAX package's custom VJP does):
     #   'onehot'   the face indicator at the banker's-rounded sample position
     #              (the reference's own veto);
     #   'bilinear' bilinear interpolation of the 0/1 indicator at the clipped
     #              -1e-4-shifted position, thresholded at > 0.5 (fast tier);
-    #   'hat', 'hat_y' TPU-only variants of the JAX kernel (not ported);
+    #   'hat'      the banker's-rounded row, along it the two columns' hat
+    #              weights at the clipped shifted x, thresholded at > 0.5;
+    #   'hat_y'    the banker's-rounded column, the two rows' hat weights;
     #   'auto'     'onehot' for 'highest'/'high' precision, else 'bilinear'.
     shadow_mask_gather: str = "auto"
 

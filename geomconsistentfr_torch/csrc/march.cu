@@ -104,14 +104,36 @@
 //    The bilinear veto's taps are the
 //    quad's wherever xt, yt >= 0; in [-1e-4, 0) its second column (row) is 1
 //    where the quad's is 0, and that tap's weight is exactly 0. So strict
-//    reads 4 taps a sample instead of 5, fast 4 instead of 8.
+//    reads 4 taps a sample instead of 5, fast 4 instead of 8. The 'hat' veto
+//    takes the one-hot veto's row, dy as above, and along it the bilinear
+//    veto's two columns with their hat weights ux0, ux1; 'hat_y' the one-hot
+//    veto's column, dx, and the two rows with uy0, uy1. Each of their taps
+//    is a corner of the quad for the two reasons above, the [-1e-4, 0) band
+//    included: there the clipped floor is 0 where the quad's is -1, the
+//    quad's first column (row) is the pad, which holds column (row) 0, under
+//    the weight 1 of the clipped tap 0, and its second the image's column
+//    (row) 0 under the weight 0 of the clipped tap 1. So neither loads a tap
+//    of its own either.
 //  * The range. For t in [0, 1] the sample lies on the segment between the
 //    pixel and the clamped endpoint, so xt lies in [-1e-4, W - 1) for W up
-//    to 2048 (the wrapper checks both): the quad's only index outside the
-//    image is -1, which the pad holds, and floor(xt) + 1 <= W - 1. The
-//    kernel clamps every t into [0, 1] as it stages it, so no input reads
-//    out of bounds; the wrapper refuses tables outside [0, 1], so the clamp
-//    changes none.
+//    to 2048: the quad's only index outside the image is -1, which the pad
+//    holds, and floor(xt) + 1 <= W - 1. From W - 1 = 2048 on (H likewise),
+//    W - 1 - 1e-4 rounds to W - 1 in float32, so the quad's second column
+//    would be W, one past the padded plane; and for t outside [0, 1] the
+//    sample leaves the segment, where the reference clamps every tap to the
+//    image (the plain _gather) and clips the veto's rounded index. So the
+//    kernels have a second form, kClamp, that loads each tap at its own
+//    clamped index, as the plain version gathers it, and selects nothing
+//    from a quad. The wrapper launches it where the table (or the refine's
+//    t range, or march_grad's t) leaves [0, 1] or H or W exceeds 2048; the
+//    preset tables at the preset sizes never take it. The quad form clamps
+//    every t into [0, 1] as it stages it, so no input reads out of bounds
+//    whatever it is given; where the wrapper picks it, the clamp changes
+//    none.
+//  * Tails. H and W need only be even, as RenderConfig asks: the grid
+//    rounds both up, every store and the cull's reads are guarded by the
+//    pixel's bounds, and a last row group of fewer than 8 rows is a cull
+//    unit of its own (the JAX package pads it with rows off the face).
 //  * The cull is in the kernel. K2 and the draft path's K3 read one byte per
 //    cull unit (8 rows x col_chunk, or the whole row group for the row
 //    cull) that stage_kernel wrote; K1 and K3 around a t_map read the
@@ -180,10 +202,12 @@ static_assert(kSplitLanes == 1 || kSplitLanes == 2 || kSplitLanes == 4 || kSplit
               "K2's lanes per pixel: a power of two that divides a warp's 32 columns");
 
 enum Form : int { kMin = 0, kArgmin = 1, kRefine = 2 };
+// The mask veto (ops/shadows.py VETOES, in this order).
+enum Veto : int { kOnehot = 0, kBilinear = 1, kHat = 2, kHatY = 3 };
 
 struct MarchParams {
   int batch, height, width, n_ts;
-  int bilinear;                 // 0: one-hot veto, 1: bilinear veto
+  int veto;                     // enum Veto (the kOnehot instantiations run kBilinear too)
   int cull;                     // 1: skip pixels whose 8-row x col_chunk unit holds no face
   int col_chunk;                // cull unit width in pixels
   int gate_on;
@@ -191,6 +215,7 @@ struct MarchParams {
   int chunk_shift, scale_shift; // log2 of col_chunk and centre_scale, -1 if not a power of two
   float lo_x, hi_x, lo_y, hi_y, gate_bias;
   float t_lo, t_hi;             // K3: the full t grid's first and last offsets
+  int row_groups;               // ceil(H / 8): the cull units' rows
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -274,13 +299,65 @@ __device__ __forceinline__ float init_pixel(Pixel& q, Endpoint& e, const float2*
 // that the march and march_grad share.
 struct Taps {
   float xt, yt, x0, y0, x1, y1;  // shifted coordinates, their floors and ceils
-  unsigned bxi, byi, cxi, cyi;   // the floor (b) and ceil (c) rounding adds' bits
+  unsigned bxi, byi, cxi, cyi;   // the floor (b) and ceil (c) rounding adds' bits (the quad form)
+  int ix0, ix1, iy0, iy1;        // the clamped floor and ceil taps (the clamped form)
   float2 q00, q01, q10, q11;     // (depth, mask) at rows floor(yt) + (0, 1), columns floor(xt) + (0, 1)
   bool face;                     // the veto passes
 };
 
+// The face indicator's threshold under the hat weights u0, u1 of two taps
+// whose (depth, mask) are a, b: the 0/1 indicator times a weight >= 0 is a
+// select. A tie (u0 = u1 = 0.5) passes only with both taps on the face.
+__device__ __forceinline__ bool hat_face(float2 a, float2 b, float u0, float u1) {
+  return ((a.y != 0.0f ? u0 : 0.0f) + (b.y != 0.0f ? u1 : 0.0f)) > 0.5f;
+}
+
+// The clamped form of sample_taps (kClamp, the header's range): each tap at
+// its own index clamped to the image, loaded on its own, as the plain
+// _Scene.sample_n2 gathers it; floor, ceil and rint on the conversion unit.
+template <int kVeto>
+__device__ __forceinline__ void clamped_taps(Taps& s, const float2* __restrict__ img, unsigned wp, float wm1,
+                                             float hm1, const Pixel& q, float sx, float sy) {
+  const int wl = (int)wm1, hl = (int)hm1;
+  const auto at = [&](int iy, int ix) { return __ldg(img + (size_t)(iy + 1) * wp + (ix + 1)); };
+  s.x0 = floorf(s.xt);
+  s.x1 = ceilf(s.xt);
+  s.y0 = floorf(s.yt);
+  s.y1 = ceilf(s.yt);
+  s.ix0 = (int)clampf(s.x0, 0.0f, wm1);
+  s.ix1 = (int)clampf(s.x1, 0.0f, wm1);
+  s.iy0 = (int)clampf(s.y0, 0.0f, hm1);
+  s.iy1 = (int)clampf(s.y1, 0.0f, hm1);
+  s.q00 = at(s.iy0, s.ix0);
+  s.q01 = at(s.iy0, s.ix1);
+  s.q10 = at(s.iy1, s.ix0);
+  s.q11 = at(s.iy1, s.ix1);
+  // The banker's-rounded column and row, clipped.
+  const int vx = (int)clampf(rintf(sx) + q.half_w, 0.0f, wm1);
+  const int vy = (int)clampf(q.half_h - rintf(sy), 0.0f, hm1);
+  if constexpr (kVeto == kOnehot) {
+    s.face = at(vy, vx).y != 0.0f;
+  } else {
+    const float xtc = clampf(s.xt, 0.0f, wm1), ytc = clampf(s.yt, 0.0f, hm1);
+    const float fx0 = floorf(xtc), fy0 = floorf(ytc);
+    const int cx0 = (int)fx0, cy0 = (int)fy0, cx1 = min(cx0 + 1, wl), cy1 = min(cy0 + 1, hl);
+    const float ux0 = 1.0f - (xtc - fx0), ux1 = 1.0f - ((fx0 + 1.0f) - xtc);
+    const float uy0 = 1.0f - (ytc - fy0), uy1 = 1.0f - ((fy0 + 1.0f) - ytc);
+    if constexpr (kVeto == kHat) {
+      s.face = hat_face(at(vy, cx0), at(vy, cx1), ux0, ux1);
+    } else if constexpr (kVeto == kHatY) {
+      s.face = hat_face(at(cy0, vx), at(cy1, vx), uy0, uy1);
+    } else {
+      const float2 m00 = at(cy0, cx0), m01 = at(cy0, cx1), m10 = at(cy1, cx0), m11 = at(cy1, cx1);
+      const float vtop = (m00.y != 0.0f ? ux0 : 0.0f) + (m01.y != 0.0f ? ux1 : 0.0f);
+      const float vbot = (m10.y != 0.0f ? ux0 : 0.0f) + (m11.y != 0.0f ? ux1 : 0.0f);
+      s.face = (vtop * uy0 + vbot * uy1) > 0.5f;
+    }
+  }
+}
+
 // img is the image's padded plane: (H + 1) x (W + 1) float2, wp = W + 1.
-template <bool kBilinear>
+template <int kVeto, bool kClamp>
 __device__ __forceinline__ Taps sample_taps(const float2* __restrict__ img, unsigned wp, float wm1, float hm1,
                                             const Pixel& q, float t) {
   Taps s;
@@ -288,6 +365,10 @@ __device__ __forceinline__ Taps sample_taps(const float2* __restrict__ img, unsi
   const float sy = __fmaf_rn(t, q.diff_y, q.yy);
   s.xt = (sx + q.half_w) - kEps;
   s.yt = (q.half_h - sy) - kEps;
+  if constexpr (kClamp) {
+    clamped_taps<kVeto>(s, img, wp, wm1, hm1, q, sx, sy);
+    return s;
+  }
 
   // floor and ceil on the float32 pipe, the quad's indices on the integer pipe.
   const float bx0 = __fadd_rd(s.xt, kRound), by0 = __fadd_rd(s.yt, kRound);
@@ -309,37 +390,49 @@ __device__ __forceinline__ Taps sample_taps(const float2* __restrict__ img, unsi
   s.q10 = __ldg(p1);
   s.q11 = __ldg(p1 + 1);
 
-  if constexpr (!kBilinear) {
-    // The mask at (H/2 - rint(sy), rint(sx) + W/2), a corner of the quad: its
-    // offsets from the quad's first corner, dx = vx - floor(xt) and
-    // dy = vy - floor(yt), are 0 or 1 (the header says why), so it is selected
-    // from the quad with no load of its own.
+  // The one-hot veto's tap (H/2 - rint(sy), rint(sx) + W/2), a corner of
+  // the quad: its offsets from the quad's first corner, dx = vx - floor(xt)
+  // and dy = vy - floor(yt), are 0 or 1 (the header says why). 'hat' reads
+  // its row, 'hat_y' its column.
+  unsigned dx = 0, dy = 0;
+  if constexpr (kVeto != kBilinear) {
     const unsigned rxi = __float_as_uint(__fadd_rn(sx, kRound));
     const unsigned ryi = __float_as_uint(__fadd_rn(sy, kRound));
-    const unsigned dx = rxi - s.bxi + q.half_w_i, dy = q.dy_bias - ryi - s.byi;
+    dx = rxi - s.bxi + q.half_w_i;
+    dy = q.dy_bias - ryi - s.byi;
+  }
+  if constexpr (kVeto == kOnehot) {
+    // Selected from the quad with no load of its own.
     s.face = (dy ? (dx ? s.q11.y : s.q10.y) : (dx ? s.q01.y : s.q00.y)) != 0.0f;
   } else {
-    // The bilinear face indicator at the clipped position, thresholded at 0.5.
+    // The hat weights of the clipped position's two taps on each axis.
     // floor(clip(xt)) is max(floor(xt), 0) on [-1e-4, W - 1); the 0/1
     // indicator times a weight >= 0 is a select.
     const float xtc = clampf(s.xt, 0.0f, wm1), ytc = clampf(s.yt, 0.0f, hm1);
     const float vx0 = fmaxf(s.x0, 0.0f), vy0 = fmaxf(s.y0, 0.0f);
     const float ux0 = 1.0f - (xtc - vx0), ux1 = 1.0f - ((vx0 + 1.0f) - xtc);
     const float uy0 = 1.0f - (ytc - vy0), uy1 = 1.0f - ((vy0 + 1.0f) - ytc);
-    const float vtop = (s.q00.y != 0.0f ? ux0 : 0.0f) + (s.q01.y != 0.0f ? ux1 : 0.0f);
-    const float vbot = (s.q10.y != 0.0f ? ux0 : 0.0f) + (s.q11.y != 0.0f ? ux1 : 0.0f);
-    s.face = (vtop * uy0 + vbot * uy1) > 0.5f;
+    if constexpr (kVeto == kHat) {  // the rounded row's two columns
+      s.face = dy ? hat_face(s.q10, s.q11, ux0, ux1) : hat_face(s.q00, s.q01, ux0, ux1);
+    } else if constexpr (kVeto == kHatY) {  // the rounded column's two rows
+      s.face = dx ? hat_face(s.q01, s.q11, uy0, uy1) : hat_face(s.q00, s.q10, uy0, uy1);
+    } else {
+      // The bilinear face indicator at the clipped position, thresholded at 0.5.
+      const float vtop = (s.q00.y != 0.0f ? ux0 : 0.0f) + (s.q01.y != 0.0f ? ux1 : 0.0f);
+      const float vbot = (s.q10.y != 0.0f ? ux0 : 0.0f) + (s.q11.y != 0.0f ? ux1 : 0.0f);
+      s.face = (vtop * uy0 + vbot * uy1) > 0.5f;
+    }
   }
   return s;
 }
 
 // The cross-product norm^2 of one sample at offset t, or 1e30 where the veto
-// rejects it: _Scene.sample_n2 of ops/shadows.py, for t in [0, 1].
-template <bool kBilinear>
+// rejects it: _Scene.sample_n2 of ops/shadows.py.
+template <int kVeto, bool kClamp>
 __device__ __forceinline__ float sample_n2(const float2* __restrict__ img, unsigned wp,
                                            float wm1, float hm1, const Pixel& q,
                                            float t) {
-  const Taps s = sample_taps<kBilinear>(img, wp, wm1, hm1, q, t);
+  const Taps s = sample_taps<kVeto, kClamp>(img, wp, wm1, hm1, q, t);
   const float wx0 = s.x1 - s.xt, wx1 = s.xt - s.x0;
   const float iu = s.q00.x * wx0 + s.q01.x * wx1;
   const float il = s.q10.x * wx0 + s.q11.x * wx1;
@@ -360,22 +453,23 @@ __device__ __forceinline__ float sample_n2(const float2* __restrict__ img, unsig
 // would hold it (bias included), as an order-preserving int32: its float
 // bits, -0 taken as +0, and where negative (a negative shadow_bias can make
 // min_d + bias < 0) its 31 low bits flipped, so a more negative float maps
-// to a smaller int. The low word is the winning t's float bits, -0 taken as
-// +0: the wrapper keeps t in [0, 1], where the bits order as the values do.
-// So the signed int64 MIN of a pixel's keys over the ranks is the global
+// to a smaller int. The low word is the winning t's the same way, -0 taken as
+// +0, its sign bit then flipped, so that it orders as an unsigned word (a
+// table may hold t < 0). So the signed int64 MIN of a pixel's keys over the ranks is the global
 // minimum distance and, among the ranks that reach it, the smallest t: the
 // JAX package's two pmins (shadows_pallas.py:851-855). ops/shadows.py
 // pack_march_key is its plain version, unpack_march_key unpack_key_kernel's.
 __device__ __forceinline__ long long pack_key(float d, float t) {
   int hi = d == 0.0f ? 0 : __float_as_int(d);
   hi = hi < 0 ? hi ^ 0x7fffffff : hi;
-  const unsigned lo = t == 0.0f ? 0u : __float_as_uint(t);
-  return (long long)(((unsigned long long)(unsigned)hi << 32) | lo);
+  int lo = t == 0.0f ? 0 : __float_as_int(t);
+  lo = lo < 0 ? lo ^ 0x7fffffff : lo;
+  return (long long)(((unsigned long long)(unsigned)hi << 32) | ((unsigned)lo ^ 0x80000000u));
 }
 
 // The min (K1, K3) or first argmin (K2) of sample_n2 over samples begin,
 // begin + kStep, ... < n of the staged table.
-template <int kForm, bool kBilinear, int kStep>
+template <int kForm, int kVeto, bool kClamp, int kStep>
 __device__ __forceinline__ void march_samples(const float2* __restrict__ img, unsigned wp,
                                               float wm1, float hm1, const Pixel& q,
                                               const float* s_ts, int begin, int n, float t_centre,
@@ -385,7 +479,7 @@ __device__ __forceinline__ void march_samples(const float2* __restrict__ img, un
   for (int s = begin; s < n; s += kStep) {
     float t = s_ts[s];
     if constexpr (kForm == kRefine) t = clampf(t_centre + t, t_lo, t_hi);
-    const float v = sample_n2<kBilinear>(img, wp, wm1, hm1, q, t);
+    const float v = sample_n2<kVeto, kClamp>(img, wp, wm1, hm1, q, t);
     if constexpr (kForm == kArgmin) {
       if (v < best) {
         best = v;
@@ -408,8 +502,13 @@ __device__ __forceinline__ void march_samples(const float2* __restrict__ img, un
 // and idx (both then unused). Unused pointers may be null.
 // K1 and K2 hold 4 blocks an SM (64 registers); K3, whose 8-sample loop gains
 // less from registers than from blocks, 5. With kLanes threads a pixel (K2
-// only) a block is 8 rows x 32 / kLanes columns.
-template <int kForm, int kLanes>
+// only) a block is 8 rows x 32 / kLanes columns. Each instantiation holds one
+// form of the taps (kClamp: the header's range) and one veto, except that the
+// one-hot instantiation also holds the bilinear veto's loop and picks it from
+// p.veto: the presets' two vetoes in one function keep their loops' code.
+// Compiled alone, the one-hot loop took 305 instructions against 301 and K1
+// strict ran 1% slower on an H100 (PERF.md §6).
+template <int kForm, int kLanes, int kVeto, bool kClamp>
 __global__ void __launch_bounds__(kThreads, kForm == kRefine ? 5 : 4)
 march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
              const uint8_t* __restrict__ flags, const float* __restrict__ light,
@@ -463,7 +562,7 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
   if (p.cull) {
     const int chunk = p.col_chunk, shift = p.chunk_shift;
     if (flags != nullptr) {
-      live = inb && flags[((size_t)b * (h / kBlockRows) + blockIdx.y) * div_by(w, chunk, shift) +
+      live = inb && flags[((size_t)b * p.row_groups + blockIdx.y) * div_by(w, chunk, shift) +
                           div_by(col, chunk, shift)] != 0;
       any_live = __syncthreads_or(live);
     } else {
@@ -495,7 +594,7 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
     return;
   }
   for (int i = tid; i < p.n_ts; i += kThreads) {
-    s_ts[i] = kForm == kRefine ? ts[i] : clampf(ts[i], 0.0f, 1.0f);
+    s_ts[i] = kForm == kRefine || kClamp ? ts[i] : clampf(ts[i], 0.0f, 1.0f);
   }
   __syncthreads();
   if (!live) {
@@ -523,14 +622,14 @@ march_kernel(const float2* __restrict__ dm, const float* __restrict__ mask,
       t_centre = t_map[o];
     }
   }
-  const float t_lo = fmaxf(p.t_lo, 0.0f), t_hi = fminf(p.t_hi, 1.0f);
+  const float t_lo = kClamp ? p.t_lo : fmaxf(p.t_lo, 0.0f), t_hi = kClamp ? p.t_hi : fminf(p.t_hi, 1.0f);
   const float wm1 = (float)(w - 1), hm1 = (float)(h - 1);
-  if (p.bilinear) {
-    march_samples<kForm, true, kLanes>(img, wp, wm1, hm1, q, s_ts, begin, p.n_ts, t_centre, t_lo, t_hi, best,
-                                       best_s);
+  if (kVeto == kOnehot && p.veto == kBilinear) {
+    march_samples<kForm, kBilinear, kClamp, kLanes>(img, wp, wm1, hm1, q, s_ts, begin, p.n_ts, t_centre, t_lo, t_hi,
+                                                    best, best_s);
   } else {
-    march_samples<kForm, false, kLanes>(img, wp, wm1, hm1, q, s_ts, begin, p.n_ts, t_centre, t_lo, t_hi, best,
-                                        best_s);
+    march_samples<kForm, kVeto, kClamp, kLanes>(img, wp, wm1, hm1, q, s_ts, begin, p.n_ts, t_centre, t_lo, t_hi,
+                                                best, best_s);
   }
   if constexpr (kLanes > 1) {
     // The lanes' first winners: the smaller norm^2, on a tie the smaller
@@ -571,8 +670,10 @@ unpack_key_kernel(const long long* __restrict__ key, float* __restrict__ out, fl
   const unsigned long long k = (unsigned long long)key[i];
   int hi = (int)(unsigned)(k >> 32);
   hi = hi < 0 ? hi ^ 0x7fffffff : hi;
+  int lo = (int)((unsigned)k ^ 0x80000000u);
+  lo = lo < 0 ? lo ^ 0x7fffffff : lo;
   out[i] = __int_as_float(hi);
-  t_star[i] = __uint_as_float((unsigned)k);
+  t_star[i] = __int_as_float(lo);
 }
 
 // The kernels' input staging, once per march (the draft tier's one pass for
@@ -598,7 +699,8 @@ unpack_key_kernel(const long long* __restrict__ key, float* __restrict__ out, fl
 //  * light_out (s > 1, may be null): the light point scaled for the pooled
 //    grid, (lx / s - off, ly / s + off, lz / s), off = (s - 1) / (2s).
 // A block is 32 x 8 threads: threadIdx.y is the band's row, threadIdx.x
-// strides its columns, so no thread divides an index; each block row of s
+// strides its columns, so no thread divides an index; the last band may
+// hold fewer than 8 rows of the march's grid (and so of whole cull units); each block row of s
 // pixels arrives in one vector load (float4 at the draft tier's s = 4). The
 // full-resolution quad is a second pass over the band with consecutive
 // threads on consecutive pixels, so its stores coalesce (written from the
@@ -611,6 +713,7 @@ unpack_key_kernel(const long long* __restrict__ key, float* __restrict__ out, fl
 struct StageParams {
   int height, width, scale, chunk, full_chunk;
   int chunk_shift, full_shift;  // log2 of the chunks, -1 if not a power of two
+  int low_groups, full_groups;  // ceil(H / s / 8), ceil(H / 8): the cull units' rows at each resolution
 };
 
 // s floats from a 4s-byte-aligned address: one vector load.
@@ -638,6 +741,7 @@ __device__ __forceinline__ void stage_band(const float* __restrict__ dimg, const
   const int w = p.width, ws = w / S;
   const int band = blockIdx.x, r = band * kBlockRows + threadIdx.y;
   constexpr float ss = (float)(S * S);
+  if (r >= p.height / S) return;  // the last band's rows past the grid's
   for (int c = threadIdx.x; c < ws; c += kBlockCols) {
     float cnt = 0.0f, fsum = 0.0f, tot = 0.0f;
 #pragma unroll
@@ -675,7 +779,7 @@ __device__ __forceinline__ void stage_full(const float* __restrict__ dimg, const
                                            float2* __restrict__ fimg, int* s_full, int full_per_row,
                                            const StageParams& p) {
   const int w = p.width, rows = kBlockRows * p.scale, y0 = blockIdx.x * rows;
-  for (int ry = threadIdx.y; ry < rows; ry += kBlockRows) {
+  for (int ry = threadIdx.y; ry < rows && y0 + ry < p.height; ry += kBlockRows) {
     const int y = y0 + ry;
     for (int x = threadIdx.x; x < w; x += kBlockCols) {
       const float d = __ldg(dimg + (size_t)y * w + x);
@@ -732,11 +836,13 @@ stage_kernel(const float* __restrict__ depth, const float* __restrict__ mask,
   if (fimg != nullptr || full_per_row != 0) stage_full(dimg, mimg, fimg, s_flag + n_low, full_per_row, p);
   __syncthreads();
   for (int i = tid; i < n_low; i += kThreads) {
-    flags[((size_t)b * (hs / kBlockRows) + band) * n_low + i] = (uint8_t)s_flag[i];
+    flags[((size_t)b * p.low_groups + band) * n_low + i] = (uint8_t)s_flag[i];
   }
   for (int i = tid; i < n_full; i += kThreads) {
     const int g = i / full_per_row, u = i - g * full_per_row;
-    full_flags[((size_t)b * (h / kBlockRows) + band * s + g) * full_per_row + u] = (uint8_t)s_flag[n_low + i];
+    if (band * s + g < p.full_groups) {  // the last band's row groups past the image's
+      full_flags[((size_t)b * p.full_groups + band * s + g) * full_per_row + u] = (uint8_t)s_flag[n_low + i];
+    }
   }
 }
 
@@ -761,8 +867,12 @@ stage_kernel(const float* __restrict__ depth, const float* __restrict__ mask,
 // It reads the forward's own input: the padded, interleaved quad K2's
 // staging wrote (RayMarchMinDistance keeps it), and its cull flags. The
 // sample's endpoint, coordinates, tap quad and veto come from the march's
-// own code (init_pixel, sample_taps), so the backward vetoes exactly the
-// samples the forward vetoed. One difference is the reference's: where xt
+// own code (init_pixel, sample_taps). Its veto is the one-hot veto whatever
+// veto the forward marched under, as the JAX package's backward evaluates the
+// winner (shadows_pallas.py:786-799: `sample_distance_at_matmul`, whose veto
+// is the banker's-rounded one-hot, shadows.py:257-259). Where the forward's
+// table, and so t*, leaves [0, 1] or H or W exceeds 2048, it takes the
+// clamped taps (kClamp, the header's range). One difference is the reference's: where xt
 // (yt) is an integer, its ceil tap is its floor tap. The forward's weights
 // of the quad's second column (row) are then exactly 0, so it adds +-0, but
 // the position term below differentiates the weights, and there the
@@ -796,20 +906,20 @@ constexpr int kGradRows = 8, kGradCols = 32;
 
 struct GradParams {
   int batch, height, width;
-  int bilinear;                 // 0: one-hot veto, 1: bilinear veto
+  int row_groups;               // ceil(H / 8): the cull units' rows
   int col_chunk, chunk_shift;   // the cull unit's width (flags given) and its log2, or -1
 };
 
 // One pixel's gradient: adds its depth contributions to dgrad and returns its
 // light gradient in (gl_x, gl_y, gl_z). Returns early where there is none.
-template <bool kBilinear>
+template <bool kClamp>
 __device__ __forceinline__ void pixel_grad(
     const float2* __restrict__ img, float* __restrict__ dgrad, float lx, float ly, float lz, float t,
     float g, int row, int col, int h, int w, float& gl_x, float& gl_y, float& gl_z) {
   Pixel q;
   Endpoint e;
   const float denom = init_pixel(q, e, img, row, col, h, w, lx, ly, lz);
-  const Taps s = sample_taps<kBilinear>(img, w + 1, (float)(w - 1), (float)(h - 1), q, t);
+  const Taps s = sample_taps<kOnehot, kClamp>(img, w + 1, (float)(w - 1), (float)(h - 1), q, t);
   if (!s.face) return;
 
   // The reference's taps: on an integer axis the ceil tap is the floor tap.
@@ -822,9 +932,15 @@ __device__ __forceinline__ void pixel_grad(
   const float iu = d_ul * wx0 + d_ur * wx1;
   const float il = d_ll * wx0 + d_lr * wx1;
   const float d_interp = iu * wy0 + il * wy1;
-  // Their (H, W) addresses: floor clamped to 0 (it is >= -1), ceil in range.
-  const int ix0 = max((int)(s.bxi - (unsigned)kRoundBits), 0), ix1 = (int)(s.cxi - (unsigned)kRoundBits);
-  const int iy0 = max((int)(s.byi - (unsigned)kRoundBits), 0), iy1 = (int)(s.cyi - (unsigned)kRoundBits);
+  // Their (H, W) addresses: in the quad form the floor clamped to 0 (it is
+  // >= -1) and the ceil in range; the clamped form's own.
+  int ix0 = s.ix0, ix1 = s.ix1, iy0 = s.iy0, iy1 = s.iy1;
+  if constexpr (!kClamp) {
+    ix0 = max((int)(s.bxi - (unsigned)kRoundBits), 0);
+    ix1 = (int)(s.cxi - (unsigned)kRoundBits);
+    iy0 = max((int)(s.byi - (unsigned)kRoundBits), 0);
+    iy1 = (int)(s.cyi - (unsigned)kRoundBits);
+  }
 
   const float ba_x = (s.xt - q.half_w) - q.xx;
   const float ba_y = (q.half_h - s.yt) - q.yy;
@@ -863,22 +979,30 @@ __device__ __forceinline__ void pixel_grad(
   const float g_ey = -(t * g_yt);  // yt = half_h - sy - ...
 
   // d(ex, ey)/d(lx, ly) along the branch taken; zero where the clamp binds.
+  // With den = lx - xx + eps and se = slope + eps, the exact derivatives of
+  // the endpoint's arithmetic are
+  //   d ex_h / d ly = -(ex_h - xx + eps) / (den se),  d ey_v / d ly = (xv - xx + eps) / den,
+  // and d/d lx = -slope d/d ly for each; ex_h - xx + eps is
+  // ((yh - yy) - eps (xx - eps)) / se. No term cancels. The chain rule's own
+  // form, -(d icpt + ex_h d slope) / se, subtracts two terms of order
+  // |slope lx| where the light stands over the pixel's column (|lx - xx| <
+  // 1, |slope| large), and there loses most of a light term's digits
+  // (PERF.md §6).
   const float left = -q.half_w, right = (float)w - q.half_w - 1.0f;
   const float bottom = 1.0f - q.half_h, top = q.half_h;
-  const float ds_lx = -e.slope / e.den, ds_ly = 1.0f / e.den;
-  const float di_lx = -(ds_lx * lx) - e.slope, di_ly = 1.0f - ds_ly * lx;
   float jxx = 0.0f, jxy = 0.0f, jyx = 0.0f, jyy = 0.0f;
   if (e.inside) {
     jxx = 1.0f;
     jyy = 1.0f;
   } else {
     if (!e.zy_mid && (e.zx_mid || e.inter)) {  // ex = ex_h
-      jxx = -(di_lx + e.ex_h * ds_lx) / e.se;
-      jxy = -(di_ly + e.ex_h * ds_ly) / e.se;
+      const float yh = ly < bottom ? bottom : top;
+      jxy = -(((yh - q.yy) - kEps * (q.xx - kEps)) / e.se) / (e.den * e.se);
+      jxx = -e.slope * jxy;
     }
     if (e.zy_mid || (!e.zx_mid && !e.inter)) {  // ey = ey_v
-      jyx = ds_lx * e.xv + di_lx;
-      jyy = ds_ly * e.xv + di_ly;
+      jyy = ((e.xv - q.xx) + kEps) / e.den;
+      jyx = -e.slope * jyy;
     }
   }
   if (!(e.ex_raw >= left && e.ex_raw <= right)) jxx = jxy = 0.0f;
@@ -894,6 +1018,7 @@ __device__ __forceinline__ void pixel_grad(
 // where t_map is given, each pixel's winning t itself (K5's backward, from
 // unpack_key_kernel: the same float as ts[idx]); g: the cotangent of the
 // march's output. d_depth and d_light arrive zeroed.
+template <bool kClamp>
 __global__ void __launch_bounds__(kGradRows * kGradCols)
 march_grad_kernel(const float2* __restrict__ dm, const uint8_t* __restrict__ flags,
                   const float* __restrict__ light, const float* __restrict__ ts,
@@ -912,7 +1037,7 @@ march_grad_kernel(const float2* __restrict__ dm, const uint8_t* __restrict__ fla
     bool on = gv != 0.0f;
     if (on && flags != nullptr) {
       const int chunk = p.col_chunk, shift = p.chunk_shift;
-      on = flags[((size_t)b * (h / kGradRows) + row / kGradRows) * div_by(w, chunk, shift) +
+      on = flags[((size_t)b * p.row_groups + row / kGradRows) * div_by(w, chunk, shift) +
                  div_by(col, chunk, shift)] != 0;
     }
     if (on) {
@@ -920,11 +1045,7 @@ march_grad_kernel(const float2* __restrict__ dm, const uint8_t* __restrict__ fla
       const float t = t_map != nullptr ? t_map[o] : ts[idx[o]];
       float* __restrict__ dgrad = d_depth + (size_t)b * plane;
       const float lx = light[3 * b + 0], ly = light[3 * b + 1], lz = light[3 * b + 2];
-      if (p.bilinear) {
-        pixel_grad<true>(img, dgrad, lx, ly, lz, t, gv, row, col, h, w, gl_x, gl_y, gl_z);
-      } else {
-        pixel_grad<false>(img, dgrad, lx, ly, lz, t, gv, row, col, h, w, gl_x, gl_y, gl_z);
-      }
+      pixel_grad<kClamp>(img, dgrad, lx, ly, lz, t, gv, row, col, h, w, gl_x, gl_y, gl_z);
     }
   }
 
@@ -960,68 +1081,110 @@ static int log2_or_minus1(int v) {
 // Plain C entry points (bound with ctypes). Each launches on `stream` and
 // returns cudaGetLastError() so that the caller can raise on a refused launch.
 
+static int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
 // The staging (stage_kernel): `quad` (B, H/s + 1, W/s + 1, 2) float32, and
-// where not null `full` (B, H + 1, W + 1, 2), `flags` (B, H/s/8, W/s/chunk),
-// `full_flags` (B, H/8, W/full_chunk) uint8 and `light_out` (B, 3). s is 1,
-// 2 or 4, H/s a multiple of 8.
+// where not null `full` (B, H + 1, W + 1, 2), `flags` (B, ceil(H/s/8),
+// W/s/chunk), `full_flags` (B, ceil(H/8), W/full_chunk) uint8 and
+// `light_out` (B, 3). s is 1, 2 or 4 and divides H and W.
 extern "C" int gcfr_stage_launch(
     const float* depth, const float* mask, const float* light, float* quad, float* full,
     uint8_t* flags, uint8_t* full_flags, float* light_out, int batch, int height, int width,
     int scale, int chunk, int full_chunk, void* stream) {
   if (scale != 1 && scale != 2 && scale != 4) return (int)cudaErrorInvalidValue;
-  StageParams p{height, width, scale, chunk, full_chunk, log2_or_minus1(chunk), log2_or_minus1(full_chunk)};
+  const int bands = ceil_div(height / scale, kBlockRows);
+  StageParams p{height, width, scale, chunk, full_chunk, log2_or_minus1(chunk), log2_or_minus1(full_chunk),
+                bands, ceil_div(height, kBlockRows)};
   const int n_units = (flags != nullptr ? width / scale / chunk : 0) +
                       (full_flags != nullptr ? scale * (width / full_chunk) : 0);
-  stage_kernel<<<dim3(height / scale / kBlockRows, batch), dim3(kBlockCols, kBlockRows), (size_t)n_units * sizeof(int),
+  stage_kernel<<<dim3(bands, batch), dim3(kBlockCols, kBlockRows), (size_t)n_units * sizeof(int),
                  (cudaStream_t)stream>>>(depth, mask, light, reinterpret_cast<float2*>(quad),
                                          reinterpret_cast<float2*>(full), flags, full_flags, light_out, p);
   return (int)cudaGetLastError();
 }
 
-// The march: `form` is K1 (0), K2 (1) or K3 (2); `staged` the quad
-// stage_kernel wrote; `flags` its cull flags, or null for the in-kernel scan
-// of `mask`; `key` (K2 only, may be null) its key form, in place of out and
-// idx.
+// One march launch's arguments, for the dispatch over the instantiations.
+struct MarchLaunch {
+  dim3 grid, block;
+  size_t smem;
+  cudaStream_t stream;
+  const float2* dm;
+  const float* mask;
+  const uint8_t* flags;
+  const float *light, *ts, *t_map;
+  const int32_t* centre_idx;
+  const float* centre_ts;
+  float* out;
+  int32_t* idx;
+  long long* key;
+  MarchParams p;
+};
+
+template <int kForm, int kLanes, int kVeto>
+static void launch_march(const MarchLaunch& a, bool clamp) {
+  if (clamp) {
+    march_kernel<kForm, kLanes, kVeto, true><<<a.grid, a.block, a.smem, a.stream>>>(
+        a.dm, a.mask, a.flags, a.light, a.ts, a.t_map, a.centre_idx, a.centre_ts, a.out, a.idx, a.key, a.p);
+  } else {
+    march_kernel<kForm, kLanes, kVeto, false><<<a.grid, a.block, a.smem, a.stream>>>(
+        a.dm, a.mask, a.flags, a.light, a.ts, a.t_map, a.centre_idx, a.centre_ts, a.out, a.idx, a.key, a.p);
+  }
+}
+
+template <int kForm, int kLanes>
+static int launch_veto(const MarchLaunch& a, int veto, bool clamp) {
+  switch (veto) {
+    case kOnehot:
+    case kBilinear:
+      launch_march<kForm, kLanes, kOnehot>(a, clamp);
+      return 0;
+    case kHat:
+      launch_march<kForm, kLanes, kHat>(a, clamp);
+      return 0;
+    case kHatY:
+      launch_march<kForm, kLanes, kHatY>(a, clamp);
+      return 0;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The march: `form` is K1 (0), K2 (1) or K3 (2); `veto` enum Veto; `clamp`
+// the clamped taps (the header's range); `staged` the quad stage_kernel
+// wrote; `flags` its cull flags, or null for the in-kernel scan of `mask`;
+// `key` (K2 only, may be null) its key form, in place of out and idx.
 extern "C" int gcfr_march_launch(
     int form, const float* staged, const float* mask, const uint8_t* flags,
     const float* light, const float* ts,
     const float* t_map, const int32_t* centre_idx, const float* centre_ts,
     float* out, int32_t* idx, long long* key, int batch, int height, int width, int n_ts,
-    int bilinear, int cull, int col_chunk, int gate_on, int centre_scale,
+    int veto, int clamp, int cull, int col_chunk, int gate_on, int centre_scale,
     int centre_n, float lo_x, float hi_x, float lo_y, float hi_y,
     float gate_bias, float t_lo, float t_hi, void* stream) {
-  MarchParams p{batch, height, width, n_ts, bilinear, cull, col_chunk, gate_on,
+  MarchParams p{batch, height, width, n_ts, veto, cull, col_chunk, gate_on,
                 centre_scale, centre_n, log2_or_minus1(col_chunk),
                 log2_or_minus1(centre_scale), lo_x, hi_x, lo_y, hi_y, gate_bias,
-                t_lo, t_hi};
+                t_lo, t_hi, ceil_div(height, kBlockRows)};
   if (key != nullptr && (form != kArgmin || n_ts < 1)) return (int)cudaErrorInvalidValue;
-  dim3 block(kBlockCols, kBlockRows);
   const bool split = form == kArgmin && n_ts >= kSplitFrom;
-  dim3 grid((width * (split ? kSplitLanes : 1) + kBlockCols - 1) / kBlockCols,
-            (height + kBlockRows - 1) / kBlockRows, batch);
-  const size_t smem = (size_t)n_ts * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float2* dm2 = reinterpret_cast<const float2*>(staged);
+  const MarchLaunch a{dim3(ceil_div(width * (split ? kSplitLanes : 1), kBlockCols), ceil_div(height, kBlockRows), batch),
+                      dim3(kBlockCols, kBlockRows), (size_t)n_ts * sizeof(float), (cudaStream_t)stream,
+                      reinterpret_cast<const float2*>(staged), mask, flags, light, ts, t_map, centre_idx, centre_ts,
+                      out, idx, key, p};
+  int err;
   switch (form) {
     case kMin:
-      march_kernel<kMin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, key, p);
+      err = launch_veto<kMin, 1>(a, veto, clamp != 0);
       break;
     case kArgmin:
-      if (split) {
-        march_kernel<kArgmin, kSplitLanes><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx,
-                                                                      centre_ts, out, idx, key, p);
-      } else {
-        march_kernel<kArgmin, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts,
-                                                            out, idx, key, p);
-      }
+      err = split ? launch_veto<kArgmin, kSplitLanes>(a, veto, clamp != 0) : launch_veto<kArgmin, 1>(a, veto, clamp != 0);
       break;
     case kRefine:
-      march_kernel<kRefine, 1><<<grid, block, smem, st>>>(dm2, mask, flags, light, ts, t_map, centre_idx, centre_ts, out, idx, key, p);
+      err = launch_veto<kRefine, 1>(a, veto, clamp != 0);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      err = (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // The unpack (unpack_key_kernel) of n reduced keys into out and t_star.
@@ -1034,17 +1197,22 @@ extern "C" int gcfr_unpack_key_launch(const long long* key, float* out, float* t
 
 // K4's backward (march_grad) on the forward's staged quad and flags (null
 // without the cull), at ts[idx], or at t_map where it is not null (then idx
-// and ts may be null); d_depth (B, H, W) and d_light (B, 3) must be zeroed by
-// the caller.
+// and ts may be null); `clamp` the clamped taps (the header's range);
+// d_depth (B, H, W) and d_light (B, 3) must be zeroed by the caller.
 extern "C" int gcfr_march_grad_launch(
     const float* staged, const uint8_t* flags, const float* light, const float* ts,
     const int32_t* idx, const float* t_map, const float* g, float* d_depth, float* d_light, int batch, int height,
-    int width, int bilinear, int col_chunk, void* stream) {
-  GradParams p{batch, height, width, bilinear, col_chunk, log2_or_minus1(col_chunk)};
+    int width, int clamp, int col_chunk, void* stream) {
+  GradParams p{batch, height, width, ceil_div(height, kGradRows), col_chunk, log2_or_minus1(col_chunk)};
   dim3 block(kGradCols, kGradRows);
-  dim3 grid((width + kGradCols - 1) / kGradCols,
-            (height + kGradRows - 1) / kGradRows, batch);
-  march_grad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float2*>(staged), flags, light, ts, idx, t_map, g, d_depth, d_light, p);
+  dim3 grid(ceil_div(width, kGradCols), ceil_div(height, kGradRows), batch);
+  const float2* dm = reinterpret_cast<const float2*>(staged);
+  if (clamp) {
+    march_grad_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(dm, flags, light, ts, idx, t_map, g, d_depth,
+                                                                      d_light, p);
+  } else {
+    march_grad_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(dm, flags, light, ts, idx, t_map, g, d_depth,
+                                                                       d_light, p);
+  }
   return (int)cudaGetLastError();
 }

@@ -44,12 +44,20 @@ Reference quirks kept as spec (reference test_relight_single_image.py):
   * off-face samples contribute distance 1e6 (:488-490);
   * an optional +5.0 bias when the light xy is inside a gate region (:495-496).
 
-The mask veto has two forms (RenderConfig.shadow_mask_gather):
+The mask veto has four forms (RenderConfig.shadow_mask_gather):
   * 'onehot': the face indicator at the banker's-rounded sample position
     (:449-454) -- torch.round rounds half to even, like the reference;
   * 'bilinear' (fast and draft tiers): the bilinear interpolation of the 0/1
-    indicator at the clipped shifted position, thresholded at > 0.5. In the
-    JAX package only the Pallas kernel has it (shadows_pallas.py:481-496).
+    indicator at the clipped shifted position, thresholded at > 0.5;
+  * 'hat': the banker's-rounded row, and along it the two columns' hat
+    weights at the clipped shifted x, summed over the face taps and
+    thresholded at > 0.5 (a tie passes only with both taps on the face);
+  * 'hat_y': the same with the axes swapped: the banker's-rounded column and
+    the two rows' hat weights at the clipped shifted y.
+In the JAX package only the Pallas kernel has the last three
+(shadows_pallas.py:443-496). The march's backward (`march_vjp`) vetoes its
+winning sample one-hot whatever the forward's veto, as the JAX package's
+custom VJP does (`_vjp_bwd`, shadows_pallas.py:776-808).
 
 The draft tier (RenderConfig.shadow_resolution_scale > 1) marches at reduced
 resolution under the scene-scaling identity (JAX package shadows.py:527-551):
@@ -105,16 +113,16 @@ def sharded_sample_ts(cfg: RenderConfig, n_shards: int) -> np.ndarray:
     return ts
 
 
+# The vetoes, in the order of their code in csrc/march.cu (enum Veto).
+VETOES = ("onehot", "bilinear", "hat", "hat_y")
+
+
 def resolve_mask_gather(cfg: RenderConfig) -> str:
-    """'onehot' or 'bilinear': the veto this config asks for ('auto' resolved)."""
+    """One of VETOES: the veto this config asks for ('auto' resolved)."""
     mode = cfg.shadow_mask_gather
     if mode == "auto":
         mode = "bilinear" if cfg.shadow_matmul_precision == "default" else "onehot"
-    if mode in ("hat", "hat_y"):
-        raise NotImplementedError(
-            f"shadow_mask_gather={mode!r} is a TPU-only variant of the JAX kernel"
-        )
-    if mode not in ("onehot", "bilinear"):
+    if mode not in VETOES:
         raise ValueError(f"unknown shadow_mask_gather: {mode!r}")
     return mode
 
@@ -181,23 +189,29 @@ def border_endpoints(xx, yy, light_x, light_y, cfg: RenderConfig):
 
 
 def cull_live_blocks(mask: torch.Tensor, col_chunk: int) -> torch.Tensor:
-    """(B, H, W) mask -> (B, H/8, W/C) bool: the 8-row x C-column block holds face.
+    """(B, H, W) mask -> (B, ceil(H/8), W/C) bool: the 8-row x C-column block holds face.
 
-    Blocks are fixed and aligned (shadows.py:306-341 of the JAX package);
-    C = W gives the row cull. H must be a multiple of 8 here.
+    Blocks are fixed and aligned (shadows.py:306-341 of the JAX package):
+    C = min(col_chunk, W), which must divide W, and C = W gives the row
+    cull. A last row group of fewer than 8 rows is padded with rows off the
+    face, as JAX's is.
     """
     b, h, w = mask.shape
-    if h % 8 or w % col_chunk:
-        raise ValueError(f"cull blocks need H % 8 == 0 and W % C == 0; got {h}x{w}, C={col_chunk}")
-    on = (mask != 0).view(b, h // 8, 8, w // col_chunk, col_chunk)
-    return on.any(dim=4).any(dim=2)
+    c = min(col_chunk, w)
+    if w % c:
+        raise ValueError(f"cull blocks need W % C == 0; got W={w}, C={c}")
+    on = mask != 0
+    pad = -h % 8
+    if pad:
+        on = torch.cat([on, on.new_zeros((b, pad, w))], dim=1)
+    return on.view(b, -1, 8, w // c, c).any(dim=4).any(dim=2)
 
 
 def _live_pixels(mask: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """(B, H, W) bool liveness under the configured cull granularity."""
     c = effective_col_chunk(cfg)
     blocks = cull_live_blocks(mask, c)
-    return blocks.repeat_interleave(8, dim=1).repeat_interleave(c, dim=2)
+    return blocks.repeat_interleave(8, dim=1)[:, :mask.shape[1]].repeat_interleave(c, dim=2)
 
 
 def _gather(flat: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -225,12 +239,15 @@ class _Scene:
     any length fits between batch and rows.
     """
 
-    def __init__(self, depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tensor, cfg: RenderConfig):
+    def __init__(self, depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tensor, cfg: RenderConfig,
+                 veto: Optional[str] = None):
         b, h, w = depth.shape
         if (h, w) != (cfg.img_height, cfg.img_width):
             raise ValueError(f"depth {tuple(depth.shape)} does not match the config's {cfg.img_height}x{cfg.img_width}")
+        if veto is not None and veto not in VETOES:
+            raise ValueError(f"unknown veto: {veto!r}")
         self.cfg, self.h, self.w = cfg, h, w
-        self.veto = resolve_mask_gather(cfg)
+        self.veto = veto or resolve_mask_gather(cfg)
         depth = depth.float()
         self.xx, self.yy = pixel_grid_centered(h, w, device=depth.device)
         lx = light_point[:, 0].float().view(b, 1, 1)
@@ -259,21 +276,30 @@ class _Scene:
         yt = (half_h - sy) - EPS
 
         ind = self.ind_flat
-        if self.veto == "onehot":
-            on = _gather(ind, half_h - torch.round(sy), torch.round(sx) + half_w, h, w) != 0
+        veto = self.veto
+        if veto != "bilinear":  # the banker's-rounded row and column (the gather clamps them)
+            ry = half_h - torch.round(sy)
+            rx = torch.round(sx) + half_w
+        if veto == "onehot":
+            on = _gather(ind, ry, rx, h, w) != 0
         else:
             xtc = torch.clamp(xt, 0.0, w - 1.0)
             ytc = torch.clamp(yt, 0.0, h - 1.0)
             vx0 = torch.floor(xtc)
             vy0 = torch.floor(ytc)
             # Hat weights max(0, 1 - |tap - coord|) of the two taps.
-            wx0 = 1.0 - (xtc - vx0)
-            wx1 = 1.0 - ((vx0 + 1.0) - xtc)
-            wy0 = 1.0 - (ytc - vy0)
-            wy1 = 1.0 - ((vy0 + 1.0) - ytc)
-            top = _gather(ind, vy0, vx0, h, w) * wx0 + _gather(ind, vy0, vx0 + 1.0, h, w) * wx1
-            bot = _gather(ind, vy0 + 1.0, vx0, h, w) * wx0 + _gather(ind, vy0 + 1.0, vx0 + 1.0, h, w) * wx1
-            on = (top * wy0 + bot * wy1) > 0.5
+            ux0 = 1.0 - (xtc - vx0)
+            ux1 = 1.0 - ((vx0 + 1.0) - xtc)
+            uy0 = 1.0 - (ytc - vy0)
+            uy1 = 1.0 - ((vy0 + 1.0) - ytc)
+            if veto == "hat":  # the rounded row's two columns
+                on = (_gather(ind, ry, vx0, h, w) * ux0 + _gather(ind, ry, vx0 + 1.0, h, w) * ux1) > 0.5
+            elif veto == "hat_y":  # the rounded column's two rows
+                on = (_gather(ind, vy0, rx, h, w) * uy0 + _gather(ind, vy0 + 1.0, rx, h, w) * uy1) > 0.5
+            else:
+                top = _gather(ind, vy0, vx0, h, w) * ux0 + _gather(ind, vy0, vx0 + 1.0, h, w) * ux1
+                bot = _gather(ind, vy0 + 1.0, vx0, h, w) * ux0 + _gather(ind, vy0 + 1.0, vx0 + 1.0, h, w) * ux1
+                on = (top * uy0 + bot * uy1) > 0.5
 
         x0 = torch.floor(xt)
         x1 = torch.ceil(xt)
@@ -390,27 +416,31 @@ def _order_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
+_SIGN = -0x80000000  # the int32 sign bit
+
+
 def pack_march_key(min_d: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(distance, t) float32 -> int64 keys whose signed order is (distance, t)'s lexicographic order.
 
     The high word is the distance's order-preserving int32 (-0 taken as +0,
-    so that the two compare equal), the low word t's float bits (-0 taken as
-    +0; t lies in [0, 1], where the bits order as the values). So the MIN of
-    a pixel's keys over the ranks of a sample-sharded march is the global
-    minimum distance and, among the ranks that reach it, the smallest t: the
-    JAX package's two pmins (shadows_pallas.py:851-855). K2's key form
-    (csrc/march.cu pack_key) writes the same words.
+    so that the two compare equal), the low word t's, its sign bit flipped
+    so that the word orders as an unsigned one (a table may hold t < 0). So
+    the MIN of a pixel's keys over the ranks of a sample-sharded march is
+    the global minimum distance and, among the ranks that reach it, the
+    smallest t: the JAX package's two pmins (shadows_pallas.py:851-855). K2's
+    key form (csrc/march.cu pack_key) writes the same words.
     """
     d = torch.where(min_d == 0, 0.0, min_d.float())
     t = torch.where(t == 0, 0.0, t.float())
     hi = _order_bits(d.view(torch.int32)).long()
-    return (hi << 32) | (t.view(torch.int32).long() & _LOW_WORD)
+    lo = _order_bits(t.view(torch.int32)) ^ _SIGN
+    return (hi << 32) | (lo.long() & _LOW_WORD)
 
 
 def unpack_march_key(key: torch.Tensor) -> tuple:
     """pack_march_key's inverse: int64 keys -> (distances, t), float32, bit for bit."""
     d = _order_bits((key >> 32).to(torch.int32)).view(torch.float32)
-    t = (key & _LOW_WORD).to(torch.int32).view(torch.float32)
+    t = _order_bits((key & _LOW_WORD).to(torch.int32) ^ _SIGN).view(torch.float32)
     return d, t
 
 
@@ -437,14 +467,16 @@ def ray_march_min_distance_lights(depth, mask, light_points, cfg: RenderConfig) 
     return shadows_cuda.ray_march_min_distance_cuda(depth, mask, light_points.float().contiguous(), cfg)
 
 
-def sample_distance_at_batch(depth, mask, light_point, t_map, cfg: RenderConfig) -> torch.Tensor:
+def sample_distance_at_batch(depth, mask, light_point, t_map, cfg: RenderConfig,
+                            veto: Optional[str] = None) -> torch.Tensor:
     """Point-to-line distance of each pixel's depth sample at its own offset.
 
     (B, H, W) depth, mask and t_map, (B, 3) light points -> (B, H, W)
-    distances, 1e6 where the configured veto rejects the sample; no gate
-    bias, no cull. Differentiable in depth and light_point.
+    distances, 1e6 where the veto (one of VETOES; by default the config's)
+    rejects the sample; no gate bias, no cull. Differentiable in depth and
+    light_point.
     """
-    scene = _Scene(depth, mask, light_point, cfg)
+    scene = _Scene(depth, mask, light_point, cfg, veto)
     return scene.distance(scene.sample_n2(t_map.float()[:, None])[:, 0])
 
 
@@ -461,17 +493,20 @@ def march_vjp(depth, mask, light_point, t_star, grad, cfg: RenderConfig):
     torch.autograd.grad of sample_distance_at_batch at t* (the JAX package's
     `_vjp_bwd`, shadows_pallas.py:776-808, in its gather form). It runs
     through the border endpoints into the light point, and through BC and
-    the denominator into the pixel's own depth. A vetoed sample reads the
-    constant 1e6 and gets no gradient; nor does a culled pixel, whose output
-    is the constant sentinel; the gate bias is a constant too. The mask gets
-    no gradient. `grad` is the (B, H, W) cotangent of the march's output.
+    the denominator into the pixel's own depth. The winning sample is vetoed
+    one-hot whatever veto the forward marched under, as `_vjp_bwd` vetoes it
+    (its evaluator `sample_distance_at_matmul`, shadows.py:257-259 of the
+    JAX package). A vetoed sample reads the constant 1e6 and gets no
+    gradient; nor does a culled pixel, whose output is the constant
+    sentinel; the gate bias is a constant too. The mask gets no gradient.
+    `grad` is the (B, H, W) cotangent of the march's output.
     """
     if cfg.shadow_mask_cull:
         grad = torch.where(_live_pixels(mask, cfg), grad, 0.0)
     with torch.enable_grad():
         d = depth.detach().float().requires_grad_()
         lp = light_point.detach().float().requires_grad_()
-        dist = sample_distance_at_batch(d, mask, lp, t_star, cfg)
+        dist = sample_distance_at_batch(d, mask, lp, t_star, cfg, veto="onehot")
         return torch.autograd.grad(dist, (d, lp), grad)
 
 
@@ -552,10 +587,10 @@ class Staged(NamedTuple):
 
     quad: (B, H/s + 1, W/s + 1, 2) float32, the march's depth and 0/1 mask
     (pooled at s > 1) interleaved and padded with a replicated first row and
-    column; flags: uint8 (B, H/s/8, W/s/C) cull units of the march's grid
-    holding face, or None; at s > 1 also full: the same padding at full
+    column; flags: uint8 (B, ceil(H/s/8), W/s/C) cull units of the march's
+    grid holding face, or None; at s > 1 also full: the same padding at full
     resolution (the refine's input), full_flags: its cull units
-    (B, H/8, W/C_full) or None, light: the scaled light (B, 3). s is
+    (B, ceil(H/8), W/C_full) or None, light: the scaled light (B, 3). s is
     cfg.shadow_resolution_scale; C and C_full the cull chunks of the scaled
     and the full config.
     """
@@ -643,7 +678,7 @@ def refine_min_distance_batch(
     (B, H, W) depth, mask and t_map, (B, 3) light points -> (B, H, W): the min
     over `offsets` (default refine_offsets(cfg)) of the distance at
     clip(t_map + offset, t_lo, t_hi), capped at the 1e6 sentinel, with the
-    cull and gate of the march. Both vetoes, as the configuration resolves.
+    cull and gate of the march. Any veto, as the configuration resolves.
     """
     scene = _Scene(depth, mask, light_point, cfg)
     b, h, w = depth.shape

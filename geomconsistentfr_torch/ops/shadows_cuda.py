@@ -23,9 +23,14 @@ K1-K3 read depth and mask interleaved and padded, (B, H + 1, W + 1, 2),
 which a staging launch writes first (csrc/march.cu stage_kernel, counted as
 'stage', into tensors the wrapper allocates; `shadows.stage_inputs` is its
 plain version). K2 and the draft path's K3 cull from the flags the staging
-writes, K1 and K3 around a t_map from the mask inside the kernel. The
-sample offsets t they march must lie in [0, 1] (checked on the host; see
-csrc/march.cu), H and W at most 2048.
+writes, K1 and K3 around a t_map from the mask inside the kernel. Each
+kernel is compiled for every veto (`shadows.VETOES`; one function holds the
+one-hot and the bilinear veto) and for each form of its taps: where the
+offsets t leave [0, 1] or H or W exceeds QUAD_MAX,
+the wrapper launches the clamped form, whose taps are clamped to the image
+one by one as the plain version's are (csrc/march.cu, the range); the
+preset tables at the preset sizes take the quad form. H and W need only be
+those RenderConfig admits.
 
 `RayMarchMinDistance` is the differentiable march K4 (the JAX package's
 `ray_march_min_distance_pallas_vjp`): its forward is K2, its backward
@@ -66,6 +71,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,9 +94,11 @@ LAUNCHES = {"stage": 0, "march": 0, "march_argmin": 0, "refine": 0, "march_grad"
 
 # The kernel's `form` argument (csrc/march.cu, enum Form).
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
+# The largest H and W of the kernels' quad form (csrc/march.cu, the range).
+QUAD_MAX = 2048
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_c_int] + [_c_void_p] * 11 + [_c_int] * 10 + [_c_float] * 7 + [_c_void_p]
+_ARGTYPES = [_c_int] + [_c_void_p] * 11 + [_c_int] * 11 + [_c_float] * 7 + [_c_void_p]
 _STAGE_ARGTYPES = [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p]
 _GRAD_ARGTYPES = [_c_void_p] * 9 + [_c_int] * 5 + [_c_void_p]
 _UNPACK_ARGTYPES = [_c_void_p] * 3 + [ctypes.c_longlong, _c_void_p]
@@ -140,18 +148,45 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_t_range(lo: float, hi: float, what: str) -> None:
-    """The kernels march t in [0, 1], between the pixel and the border (csrc/march.cu)."""
-    if not (0.0 <= lo and hi <= 1.0):
-        raise ValueError(f"{what} must lie in [0, 1], got [{lo}, {hi}]")
+def _in_unit(lo: float, hi: float) -> bool:
+    """Offsets from lo to hi lie in [0, 1], between the pixel and the border (False for a NaN)."""
+    return 0.0 <= lo and hi <= 1.0
+
+
+def _clamp(h: int, w: int, in_unit: bool) -> bool:
+    """The kernels' clamped taps: where t leaves [0, 1] or H or W exceeds QUAD_MAX (csrc/march.cu, the range)."""
+    return not in_unit or max(h, w) > QUAD_MAX
+
+
+@functools.lru_cache(maxsize=16)
+def _grid(t_start: float, t_stop: float, t_step: float, n: int) -> tuple:
+    """(the config's float32 t table on the host, its least and greatest offset)."""
+    ts = shadows.sample_ts(RenderConfig(t_start=t_start, t_stop=t_stop, t_step=t_step, num_sample_points=n))
+    ts = ts.astype(np.float32)
+    return ts, float(ts.min()), float(ts.max())
+
+
+def _grid_of(cfg: RenderConfig) -> tuple:
+    return _grid(cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
+
+
+def _grid_clamp(cfg: RenderConfig) -> bool:
+    """Whether the kernels take the config's own grid with clamped taps (known on the host)."""
+    _, lo, hi = _grid_of(cfg)
+    return _clamp(cfg.img_height, cfg.img_width, _in_unit(lo, hi))
 
 
 @functools.lru_cache(maxsize=16)
 def _ts_on(device: torch.device, t_start: float, t_stop: float, t_step: float, n: int) -> torch.Tensor:
-    cfg = RenderConfig(t_start=t_start, t_stop=t_stop, t_step=t_step, num_sample_points=n)
-    ts = shadows.sample_ts(cfg).astype(np.float32)
-    _check_t_range(float(ts.min()), float(ts.max()), "the sample offsets")
-    return torch.as_tensor(ts, device=device)
+    return torch.as_tensor(_grid(t_start, t_stop, t_step, n)[0], device=device)
+
+
+def _range(ts: torch.Tensor) -> tuple:
+    """(least, greatest) of a 1-D table, (inf, -inf) when empty; on a CUDA tensor this waits for the card."""
+    if not ts.numel():
+        return float("inf"), float("-inf")
+    lo, hi = ts.aminmax()
+    return lo.item(), hi.item()
 
 
 @functools.lru_cache(maxsize=16)
@@ -177,14 +212,12 @@ def needs_grad(depth: torch.Tensor, light_point: torch.Tensor) -> bool:
 
 
 def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> None:
-    """Device, the config's shape, float32, contiguous."""
+    """Device, the config's shape (which RenderConfig has checked), float32, contiguous."""
     if depth.device.type != "cuda":
         raise ValueError(f"the {what} kernel runs on CUDA tensors, got {depth.device}")
     b, h, w = depth.shape
     if (h, w) != (cfg.img_height, cfg.img_width):
         raise ValueError(f"depth {tuple(depth.shape)} does not match the config's {cfg.img_height}x{cfg.img_width}")
-    if h % 8 or w % 32 or h > 2048 or w > 2048:
-        raise ValueError(f"the {what} kernel needs H % 8 == 0, W % 32 == 0 and both <= 2048; got {h}x{w}")
     _check("depth", depth, (b, h, w), depth.device)
     _check("mask", mask, (b, h, w), depth.device)
     _check("light_point", light_point, (b, 3), depth.device)
@@ -210,8 +243,8 @@ def _stage(depth, mask, light_point, cfg: RenderConfig, draft: bool = False, fla
     b, h, w = depth.shape
     dev = depth.device
     s = cfg.shadow_resolution_scale if draft else 1
-    if h % s or w % s or (h // s) % 8:
-        raise ValueError(f"the staging needs H and W divisible by the scale {s} and H/{s} % 8 == 0; got {h}x{w}")
+    if h % s or w % s:
+        raise ValueError(f"the staging needs H and W divisible by the scale {s}; got {h}x{w}")
     m_cfg = shadows.scaled_render_cfg(cfg) if s > 1 else cfg
     cull = flags and cfg.shadow_mask_cull
     chunk, full_chunk = shadows.effective_col_chunk(m_cfg), shadows.effective_col_chunk(cfg)
@@ -220,10 +253,10 @@ def _stage(depth, mask, light_point, cfg: RenderConfig, draft: bool = False, fla
     if depth.data_ptr() % 16 or mask.data_ptr() % 16:
         raise ValueError("the staging reads depth and mask in 16-byte vectors: they must be 16-byte aligned")
     quad = torch.empty((b, h // s + 1, w // s + 1, 2), dtype=torch.float32, device=dev)
-    live = torch.empty((b, h // s // 8, w // s // chunk), dtype=torch.uint8, device=dev) if cull else None
+    live = torch.empty((b, -(-h // s // 8), w // s // chunk), dtype=torch.uint8, device=dev) if cull else None
     full_res = full_res and s > 1
     full = torch.empty((b, h + 1, w + 1, 2), dtype=torch.float32, device=dev) if full_res else None
-    full_live = torch.empty((b, h // 8, w // full_chunk), dtype=torch.uint8, device=dev) if cull and full_res else None
+    full_live = torch.empty((b, -(-h // 8), w // full_chunk), dtype=torch.uint8, device=dev) if cull and full_res else None
     light = torch.empty((b, 3), dtype=torch.float32, device=dev) if s > 1 else None
     with torch.cuda.device(dev):
         err = _library().gcfr_stage_launch(
@@ -252,20 +285,22 @@ def pool_march_inputs(depth, mask, light_point, cfg: RenderConfig):
 
 
 def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: RenderConfig, t_map=None, centre=None,
-            idx=None, key=None, count_as=None):
+            idx=None, key=None, count_as=None, clamp: Optional[bool] = None):
     """Launch one form of the march kernel on a staged quad, on the current stream; (B, H, W)
     distances, or with `key` (K2's key form) the int64 keys it wrote.
 
     staged: the quad and flags of the march's grid (staged.quad, .flags);
     without flags the kernel culls from `mask`, which may be None where the
     config does not cull. K3's centre is `t_map`, or `centre` = (K2's int32
-    index (B, H/s, W/s), the float32 table it indexes). The launch counts
-    under `count_as`, by default the form's own name.
+    index (B, H/s, W/s), the float32 table it indexes). clamp: K1 and K2
+    take `ts` with clamped taps, as _ts_for tells with the table (_clamp);
+    K3's t range is the config's, so its launch tells that itself. The
+    launch counts under `count_as`, by default the form's own name.
     """
     quad, flags = staged.quad, staged.flags
     b, h, w = quad.shape[0], quad.shape[1] - 1, quad.shape[2] - 1
     dev = quad.device
-    bilinear = shadows.resolve_mask_gather(cfg) == "bilinear"
+    veto = shadows.VETOES.index(shadows.resolve_mask_gather(cfg))
     chunk = shadows.effective_col_chunk(cfg)
     if cfg.shadow_mask_cull and w % chunk:
         raise ValueError(f"cull blocks need W % C == 0; got W={w}, C={chunk}")
@@ -275,6 +310,10 @@ def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: Ren
     gate_on = bounds is not None
     lo_x, hi_x, lo_y, hi_y = bounds if gate_on else (0.0, 0.0, 0.0, 0.0)
     t_lo, t_hi = shadows.refine_t_range(cfg) if kernel == "refine" else (0.0, 0.0)
+    if kernel == "refine":
+        clamp = _clamp(h, w, _in_unit(t_lo, t_hi))
+    elif clamp is None:
+        raise TypeError(f"the {kernel} launch needs the clamp that _ts_for gives with its table")
     centre_idx, centre_ts = centre if centre is not None else (None, None)
 
     out = torch.empty((b, h, w), dtype=torch.float32, device=dev) if key is None else None
@@ -283,7 +322,7 @@ def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: Ren
             _FORMS[kernel], quad.data_ptr(), _ptr(mask), _ptr(flags), light_point.data_ptr(),
             ts.data_ptr(), _ptr(t_map),
             _ptr(centre_idx), _ptr(centre_ts), _ptr(out), _ptr(idx), _ptr(key),
-            b, h, w, ts.numel(), int(bilinear), int(cfg.shadow_mask_cull), chunk, int(gate_on),
+            b, h, w, ts.numel(), veto, int(clamp), int(cfg.shadow_mask_cull), chunk, int(gate_on),
             cfg.shadow_resolution_scale, 0 if centre_ts is None else centre_ts.numel(),
             lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, _stream(dev),
         )
@@ -320,43 +359,57 @@ def ray_march_min_distance_cuda(
     if depth.device.type == "cpu":
         return shadows.ray_march_min_distance_batch(depth, mask, light_point, cfg, ts, return_argmin_t)
     _check_inputs(depth, mask, light_point, cfg, "march")
-    ts = _ts_for(depth.device, cfg, ts)
+    ts, clamp = _ts_for(depth.device, cfg, ts)
     if not return_argmin_t:
-        return _launch("march", _stage(depth, mask, light_point, cfg), mask, light_point, ts, cfg)
-    out, idx, _ = _launch_argmin(depth, mask, light_point, ts, cfg)
+        return _launch("march", _stage(depth, mask, light_point, cfg), mask, light_point, ts, cfg, clamp=clamp)
+    out, idx, _ = _launch_argmin(depth, mask, light_point, ts, cfg, clamp=clamp)
     # The index addresses the same float32 table the kernel read (shadows_pallas.py:1152-1154).
     return out, ts[idx.long()]
 
 
-def _ts_for(dev: torch.device, cfg: RenderConfig, ts=None) -> torch.Tensor:
-    """The float32 t table on `dev`: the config's grid, or the given offsets (checked to lie in [0, 1])."""
+def _ts_for(dev: torch.device, cfg: RenderConfig, ts=None) -> tuple:
+    """(the float32 t table on `dev`, whether the kernels take it with clamped taps at the
+    config's size (_clamp)): the config's grid (its range known on the host), or the given
+    offsets (read back once to tell)."""
     if ts is None:
-        return _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points)
+        if dev.type == "cuda" and dev.index is None:  # one table for "cuda" and "cuda:<current>"
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return _ts_on(dev, cfg.t_start, cfg.t_stop, cfg.t_step, cfg.num_sample_points), _grid_clamp(cfg)
     ts = torch.as_tensor(ts, dtype=torch.float32).reshape(-1)
-    if ts.numel():
-        lo, hi = ts.aminmax()  # on a CUDA tensor this waits for the card
-        _check_t_range(lo.item(), hi.item(), "the sample offsets")
-    return ts.to(dev).contiguous()
+    return ts.to(dev).contiguous(), _clamp(cfg.img_height, cfg.img_width, _in_unit(*_range(ts)))
 
 
-def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
+def _grid_slice(dev: torch.device, cfg: RenderConfig, ts) -> tuple:
+    """_ts_for for a rank's slice of the config's grid, where t* may be any rank's offset: the
+    slice on `dev` and the grid's own clamp, which holds for every rank's offsets because each
+    rank refuses a slice outside the grid's range (read back once)."""
+    ts = torch.as_tensor(ts, dtype=torch.float32).reshape(-1)
+    _, lo, hi = _grid_of(cfg)
+    s_lo, s_hi = _range(ts)
+    if not (lo <= s_lo and s_hi <= hi):
+        raise ValueError(f"the slice's offsets [{s_lo}, {s_hi}] leave the grid's range [{lo}, {hi}]")
+    return ts.to(dev).contiguous(), _grid_clamp(cfg)
+
+
+def _launch_argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None, *, clamp: bool):
     """K2 after its staging (with the cull's flags): (min distances, int32 index of each pixel's
-    first winning sample in ts, the shadows.Staged input it read)."""
+    first winning sample in ts, the shadows.Staged input it read). clamp: _ts_for's, with ts."""
     staged = _stage(depth, mask, light_point, cfg, flags=True)
     idx = torch.empty(depth.shape, dtype=torch.int32, device=depth.device)
-    return _launch("march_argmin", staged, None, light_point, ts, cfg, idx=idx, count_as=count_as), idx, staged
+    out = _launch("march_argmin", staged, None, light_point, ts, cfg, idx=idx, count_as=count_as, clamp=clamp)
+    return out, idx, staged
 
 
-def _argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
+def _argmin(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None, *, clamp: bool):
     """(min distances, int32 first-winner index into ts, the staged input or None): K2 on CUDA
     tensors, its plain version on the CPU (which stages nothing)."""
     if depth.device.type == "cpu":
         return (*shadows.ray_march_argmin_batch(depth, mask, light_point, cfg, ts), None)
     _check_inputs(depth, mask, light_point, cfg, "march")
-    return _launch_argmin(depth, mask, light_point, ts, cfg, count_as)
+    return _launch_argmin(depth, mask, light_point, ts, cfg, count_as, clamp=clamp)
 
 
-def _march_key(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
+def _march_key(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None, *, clamp: bool):
     """(int64 keys (B, H, W), the staged input or None): each pixel's (min distance, first winning
     t in ts) packed as shadows.pack_march_key packs them. On CUDA tensors K2's key form after its
     staging; on the CPU the plain argmin march and pack_march_key (no staging)."""
@@ -368,7 +421,8 @@ def _march_key(depth, mask, light_point, ts, cfg: RenderConfig, count_as=None):
         raise ValueError("the key form needs at least one sample offset")
     staged = _stage(depth, mask, light_point, cfg, flags=True)
     key = torch.empty(depth.shape, dtype=torch.int64, device=depth.device)
-    return _launch("march_argmin", staged, None, light_point, ts, cfg, key=key, count_as=count_as), staged
+    return _launch("march_argmin", staged, None, light_point, ts, cfg, key=key, count_as=count_as,
+                   clamp=clamp), staged
 
 
 def unpack_march_key(key: torch.Tensor) -> tuple:
@@ -406,9 +460,10 @@ def _check_grad_inputs(depth, mask, light_point, grad, cfg: RenderConfig, staged
         raise ValueError("march_grad reads the forward's staged input: pass the shadows.Staged K2 read")
     _check("the staged quad", staged.quad, (b, h + 1, w + 1, 2), dev)
     chunk = shadows.effective_col_chunk(cfg)
+    units = (b, -(-h // 8), w // chunk)
     if cfg.shadow_mask_cull and (staged.flags is None or staged.flags.dtype != torch.uint8
-                                 or tuple(staged.flags.shape) != (b, h // 8, w // chunk) or staged.flags.device != dev):
-        raise ValueError(f"the cull needs the staging's uint8 flags of shape {(b, h // 8, w // chunk)}")
+                                 or tuple(staged.flags.shape) != units or staged.flags.device != dev):
+        raise ValueError(f"the cull needs the staging's uint8 flags of shape {units}")
     return grad
 
 
@@ -420,7 +475,9 @@ def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig, 
     (B, H, W) cotangent of the march's output. On CUDA tensors the kernel
     reads the forward's input, `staged` (the shadows.Staged that K2 read:
     its quad, and its cull flags where the config culls), not depth and
-    mask; one zero fill makes both gradients (two views of one buffer).
+    mask; one zero fill makes both gradients (two views of one buffer). A
+    table other than the config's own grid is read back once, to choose the
+    kernel's taps (_ts_for).
     """
     if depth.device.type == "cpu":
         return shadows.march_vjp(depth, mask, light_point, ts[idx.long()], grad, cfg)
@@ -429,7 +486,10 @@ def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig, 
     if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h, w) or not idx.is_contiguous() or idx.device != depth.device:
         raise ValueError("idx must be a contiguous int32 (B, H, W) tensor on the depth's device")
     _check("ts", ts, (ts.numel(),), depth.device)
-    return _march_grad(light_point, idx, ts, grad, staged, cfg)
+    grid, clamp = _ts_for(depth.device, cfg)
+    if ts is not grid:
+        clamp = _ts_for(depth.device, cfg, ts)[1]
+    return _march_grad(light_point, idx, ts, grad, staged, cfg, clamp=clamp)
 
 
 def march_grad_at_cuda(depth, mask, light_point, t_star, grad, cfg: RenderConfig, staged=None):
@@ -441,15 +501,15 @@ def march_grad_at_cuda(depth, mask, light_point, t_star, grad, cfg: RenderConfig
         return shadows.march_vjp(depth, mask, light_point, t_star, grad, cfg)
     grad = _check_grad_inputs(depth, mask, light_point, grad, cfg, staged)
     _check("t_star", t_star, tuple(depth.shape), depth.device)
-    lo, hi = t_star.aminmax()  # the kernel's taps stay in the image for t in [0, 1]; this waits for the card
-    _check_t_range(lo.item(), hi.item(), "t_star")
-    return _march_grad(light_point, None, None, grad, staged, cfg, t_map=t_star)
+    clamp = _ts_for(depth.device, cfg, t_star)[1]  # the kernel's taps; this waits for the card
+    return _march_grad(light_point, None, None, grad, staged, cfg, t_map=t_star, clamp=clamp)
 
 
-def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderConfig, t_map=None):
+def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderConfig, t_map=None, *,
+                clamp: bool):
     """The march_grad launch on tensors already checked: the forward's own (the
     autograd backward's), or march_grad_cuda's; grad contiguous. At ts[idx], or
-    at t_map where given."""
+    at t_map where given; clamp: _ts_for's, for a table that holds those t."""
     b, h, w = grad.shape
     dev = grad.device
     grads = torch.zeros(b * h * w + 3 * b, dtype=torch.float32, device=dev)
@@ -457,8 +517,7 @@ def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderC
         err = _library().gcfr_march_grad_launch(
             staged.quad.data_ptr(), _ptr(staged.flags if cfg.shadow_mask_cull else None), light_point.data_ptr(),
             _ptr(ts), _ptr(idx), _ptr(t_map), grad.data_ptr(), grads.data_ptr(), grads.data_ptr() + 4 * b * h * w,
-            b, h, w, int(shadows.resolve_mask_gather(cfg) == "bilinear"), shadows.effective_col_chunk(cfg),
-            _stream(dev),
+            b, h, w, int(clamp), shadows.effective_col_chunk(cfg), _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"march_grad kernel launch failed: CUDA error {err}")
@@ -466,10 +525,11 @@ def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderC
     return grads.as_strided((b, h, w), (h * w, w, 1)), grads.as_strided((b, 3), (3, 1), b * h * w)
 
 
-def _save_forward(ctx, depth, mask, light_point, winner, staged) -> None:
-    """Keep what march_grad reads: the winners (K2's index, or K5's t map), and on the card the
-    staged quad and flags (not copies: K2's input)."""
+def _save_forward(ctx, depth, mask, light_point, winner, staged, clamp: bool) -> None:
+    """Keep what march_grad reads: the winners (K2's index, or K5's t map), the clamp of a table
+    that holds their t, and on the card the staged quad and flags (not copies: K2's input)."""
     quad, flags = (staged.quad, staged.flags) if staged is not None else (None, None)
+    ctx.clamp = clamp
     ctx.save_for_backward(depth, mask, light_point, winner, quad, flags)
 
 
@@ -484,7 +544,8 @@ def _backward(ctx, grad, ts=None):
     if grad.dtype != torch.float32 or grad.shape != winner.shape:
         raise ValueError(f"march_grad needs a float32 {tuple(winner.shape)} cotangent, got {grad.dtype} "
                          f"{tuple(grad.shape)}")
-    return _march_grad(light_point, idx, ts, grad.contiguous(), shadows.Staged(quad, flags), ctx.cfg, t_map=t_map)
+    return _march_grad(light_point, idx, ts, grad.contiguous(), shadows.Staged(quad, flags), ctx.cfg, t_map=t_map,
+                       clamp=ctx.clamp)
 
 
 class RayMarchMinDistance(torch.autograd.Function):
@@ -503,9 +564,10 @@ class RayMarchMinDistance(torch.autograd.Function):
     def forward(ctx, depth, mask, light_point, cfg: RenderConfig):
         if cfg.shadow_resolution_scale != 1:
             raise NotImplementedError("the draft tier's march has no gradient: it serves only")
-        ctx.cfg, ctx.ts = cfg, _ts_for(depth.device, cfg)
-        out, idx, staged = _argmin(depth, mask, light_point, ctx.ts, cfg)
-        _save_forward(ctx, depth, mask, light_point, idx, staged)
+        ctx.cfg = cfg
+        ctx.ts, clamp = _ts_for(depth.device, cfg)
+        out, idx, staged = _argmin(depth, mask, light_point, ctx.ts, cfg, clamp=clamp)
+        _save_forward(ctx, depth, mask, light_point, idx, staged, clamp)
         return out
 
     @staticmethod
@@ -528,10 +590,10 @@ def sharded_march(depth, mask, light_point, cfg: RenderConfig, ts_local, group, 
         if return_argmin_t:
             raise NotImplementedError("the differentiable march returns distances only")
         return RayMarchMinDistanceSP.apply(depth, mask, light_point, cfg, ts_local, group)
-    ts_local = _ts_for(depth.device, cfg, ts_local)
     if not return_argmin_t:
         return all_min(ray_march_min_distance_cuda(depth, mask, light_point, cfg, ts_local), group)
-    key, _ = _march_key(depth, mask, light_point, ts_local, cfg)
+    ts_local, clamp = _ts_for(depth.device, cfg, ts_local)
+    key, _ = _march_key(depth, mask, light_point, ts_local, cfg, clamp=clamp)
     return _combine(key, group)
 
 
@@ -549,7 +611,9 @@ class RayMarchMinDistanceSP(torch.autograd.Function):
     ranks, which is why the train step averages gradients over every rank.
     On CPU tensors: the plain argmin march on the slice,
     shadows.pack_march_key, the same MIN over gloo, shadows.unpack_march_key
-    and shadows.march_vjp.
+    and shadows.march_vjp. With a group, each rank refuses a slice that
+    leaves the config's grid's range (_grid_slice), so that the grid's taps
+    hold for every rank's t*.
     """
 
     @staticmethod
@@ -557,10 +621,12 @@ class RayMarchMinDistanceSP(torch.autograd.Function):
         if cfg.shadow_resolution_scale != 1:
             raise NotImplementedError("the draft tier's march has no gradient: it serves only")
         ctx.cfg = cfg
-        ts_local = _ts_for(depth.device, cfg, ts_local)
-        key, staged = _march_key(depth, mask, light_point, ts_local, cfg, count_as="march_sp")
+        # One shard: t* is an offset of ts_local. With a group, of any rank's slice.
+        table = _ts_for if group is None else _grid_slice
+        ts_local, clamp = table(depth.device, cfg, ts_local)
+        key, staged = _march_key(depth, mask, light_point, ts_local, cfg, count_as="march_sp", clamp=clamp)
         out, t_star = _combine(key, group)
-        _save_forward(ctx, depth, mask, light_point, t_star, staged)
+        _save_forward(ctx, depth, mask, light_point, t_star, staged, clamp)
         return out
 
     @staticmethod
@@ -594,8 +660,7 @@ def refine_min_distance_cuda(
 
 
 def _refine_offsets(dev: torch.device, cfg: RenderConfig, offsets=None) -> torch.Tensor:
-    """K3's window offsets on `dev`; its t range, the config's grid, checked to lie in [0, 1]."""
-    _check_t_range(*shadows.refine_t_range(cfg), "the refine's t range")
+    """K3's window offsets on `dev`."""
     if offsets is None:
         return _offsets_on(dev, cfg.shadow_refine_halfwidth, cfg.t_step)
     return torch.as_tensor(offsets, dtype=torch.float32, device=dev).reshape(-1).contiguous()
@@ -653,7 +718,7 @@ def draft_march(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tens
     if needs_grad(depth, light_point):
         raise NotImplementedError("the draft tier's march has no gradient: it serves only")
     m_cfg = shadows.scaled_render_cfg(cfg)
-    ts = _ts_for(depth.device, m_cfg)
+    ts, clamp = _ts_for(depth.device, m_cfg)
     if depth.device.type == "cpu":
         m_depth, m_mask, m_light, _ = shadows.scale_march_inputs(depth, mask, light_point, cfg)
         _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, ts)
@@ -661,10 +726,8 @@ def draft_march(depth: torch.Tensor, mask: torch.Tensor, light_point: torch.Tens
     _check_inputs(depth, mask, light_point, cfg, "draft march")
     b, h, w = depth.shape
     s = cfg.shadow_resolution_scale
-    if h % s or w % s or (h // s) % 8 or (w // s) % 32:
-        raise ValueError(f"the draft march needs H/{s} % 8 == 0 and W/{s} % 32 == 0; got {h}x{w}")
     staged = _stage(depth, mask, light_point, cfg, draft=True, flags=True)
     idx = torch.empty((b, h // s, w // s), dtype=torch.int32, device=depth.device)
-    _launch("march_argmin", staged, None, staged.light, ts, m_cfg, idx=idx)
+    _launch("march_argmin", staged, None, staged.light, ts, m_cfg, idx=idx, clamp=clamp)
     full = shadows.Staged(staged.full, staged.full_flags)
     return _launch("refine", full, None, light_point, _refine_offsets(depth.device, cfg), cfg, centre=(idx, ts))

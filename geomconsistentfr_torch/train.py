@@ -313,10 +313,11 @@ class Trainer:
 
     cfg.train.data_residency: 'stream' uploads each step's batch; 'device'
     keeps the whole set on the device (DeviceResidentBatches) and raises
-    where it cannot: more than one rank (each rank would hold the whole set;
-    the JAX package streams there silently), a provider without whole-set
-    access, or a set above cfg.train.device_data_budget_mb; 'auto' is
-    'device' where it can be, else 'stream'. With `profile` every epoch
+    where a provider has no whole-set access or a set is above
+    cfg.train.device_data_budget_mb; 'auto' is 'device' where it can be,
+    else 'stream'. A mesh of several ranks streams under every setting, as
+    the JAX package's Trainer does (each rank would hold the whole set to
+    use a slice of each batch). With `profile` every epoch
     runs inside utils.profiling.trace into <workdir>/profile.
     """
 
@@ -333,9 +334,6 @@ class Trainer:
         residency = self.cfg.train.data_residency
         if residency not in ("auto", "device", "stream"):
             raise ValueError(f"data_residency must be 'auto', 'device' or 'stream', not {residency!r}")
-        if residency == "device" and mesh is not None and mesh.size > 1:
-            raise ValueError(f"data_residency='device' keeps the set on one device; this mesh has {mesh.size} "
-                             "ranks (use 'stream' or 'auto')")
         self.profile = profile
         self._resident_cache = _UNSET
         self.mesh = mesh

@@ -35,6 +35,7 @@ pytestmark = pytest.mark.cuda
 SMALL = dict(img_height=64, img_width=64, num_sample_points=32, t_start=0.025, t_stop=0.185)
 DRAFT = dict(SMALL, shadow_resolution_scale=2, shadow_refine_halfwidth=4, shadow_lowres_t_stride=2)
 CULLS = dict(argvalues=[0, 64, 32, 16], ids=["cull_off", "cull_row", "cull_col32", "cull_col16"])
+VETOES = list(shadows.VETOES)  # onehot, bilinear, hat, hat_y
 LIGHTS = np.asarray(
     [[1203.9, 1605.2, 3475.3], [-2407.8, 401.3, 3170.3], [5.0, -3.0, 20.0], [600.0, -300.0, 3000.0]],
     np.float32,
@@ -76,7 +77,7 @@ def counts(**n):
 
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
 @pytest.mark.parametrize("cull", **CULLS)
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_kernel_matches_plain(dev, veto, cull, gate):
     depth, mask, light = scene(dev)
     cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_bias_gate=gate,
@@ -90,7 +91,7 @@ def test_kernel_matches_plain(dev, veto, cull, gate):
 
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
 @pytest.mark.parametrize("cull", [0, 64, 16], ids=["cull_off", "cull_row", "cull_col16"])
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_argmin_kernel_matches_plain(dev, veto, cull, gate):
     depth, mask, light = scene(dev, seed=2)
     cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_bias_gate=gate,
@@ -120,7 +121,7 @@ def test_argmin_kernel_on_pooled_inputs_and_ts_slice(dev):
 
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
 @pytest.mark.parametrize("cull", **CULLS)
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_refine_kernel_matches_plain(dev, veto, cull, gate):
     depth, mask, light = scene(dev, seed=4)
     cfg = RenderConfig(**DRAFT, shadow_mask_gather=veto, shadow_bias_gate=gate,
@@ -222,9 +223,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map[:2].contiguous(), cfg)
     with pytest.raises(ValueError):
         shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map.cpu(), cfg)
-    with pytest.raises(ValueError):
-        shadows_cuda.refine_min_distance_cuda(depth[:, :, :48].contiguous(), mask[:, :, :48].contiguous(), light,
-                                              t_map[:, :, :48].contiguous(), dataclasses.replace(cfg, img_width=48))
     with pytest.raises(NotImplementedError):
         shadows_cuda.ray_march_min_distance_cuda(depth.clone().requires_grad_(), mask, light,
                                                  dataclasses.replace(cfg, shadow_resolution_scale=2))
@@ -261,7 +259,7 @@ def assert_grads_close(got_d, got_l, want_d, want_l):
 
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
 @pytest.mark.parametrize("cull", [0, 64, 16], ids=["cull_off", "cull_row", "cull_col16"])
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_march_grad_matches_plain_vjp(dev, veto, cull, gate):
     depth, mask, _ = scene(dev, seed=6)
     light = torch.from_numpy(GRAD_LIGHTS).to(dev)
@@ -464,7 +462,7 @@ def assert_bits_equal(got, want):
 
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
 @pytest.mark.parametrize("cull", **CULLS)
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_kernels_bit_equal_on_edge_scenes(dev, veto, cull, gate):
     depth, mask, light = edge_scene(dev)
     kw = dict(shadow_mask_gather=veto, shadow_bias_gate=gate, shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
@@ -480,7 +478,7 @@ def test_kernels_bit_equal_on_edge_scenes(dev, veto, cull, gate):
 
     dcfg = RenderConfig(**DRAFT, **kw)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, dcfg)
-    table = shadows_cuda._ts_for(dev, m_cfg)
+    table, _ = shadows_cuda._ts_for(dev, m_cfg)
     _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
     t_map = shadows.upsample_tstar_nn(table[idx.long()], dcfg)
     want = shadows.refine_min_distance_batch(depth, mask, light, t_map, dcfg)
@@ -495,8 +493,8 @@ def test_refine_index_form_is_the_t_map_form(dev):
     depth, mask, light = scene(dev, seed=12)
     cfg = RenderConfig(**DRAFT, shadow_mask_gather="bilinear", shadow_mask_cull=True, shadow_col_chunk=64)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
-    table = shadows_cuda._ts_for(dev, m_cfg)
-    _, idx, _ = shadows_cuda._argmin(m_depth, m_mask, m_light, table, m_cfg)
+    table, clamp = shadows_cuda._ts_for(dev, m_cfg)
+    _, idx, _ = shadows_cuda._argmin(m_depth, m_mask, m_light, table, m_cfg, clamp=clamp)
     t_map = shadows.upsample_tstar_nn(table[idx.long()], cfg)
     before = dict(shadows_cuda.LAUNCHES)
     for offsets in (None, shadows.refine_offsets(cfg)[1:6]):
@@ -508,8 +506,10 @@ def test_refine_index_form_is_the_t_map_form(dev):
         shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx.long(), table, cfg)
     with pytest.raises(ValueError):
         shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx[:, :16].contiguous(), table, cfg)
-    with pytest.raises(ValueError):
-        shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, RenderConfig(**SMALL), np.float32([0.2, 1.01]))
+    # A table past 1: the clamped taps, bit-equal to the plain march (tests below hold them more widely).
+    past = np.float32([0.2, 1.01])
+    assert_bits_equal(shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, RenderConfig(**SMALL), past),
+                      shadows.ray_march_min_distance_batch(depth, mask, light, RenderConfig(**SMALL), past))
 
 
 def test_draft_render_reads_k2s_index_directly(dev, monkeypatch):
@@ -580,7 +580,7 @@ def test_staging_is_bit_equal_to_its_plain_version(dev, scale, cull):
 
 
 @pytest.mark.parametrize("cull", [False, True], ids=["cull_off", "cull_on"])
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 @pytest.mark.parametrize("shape", ["draft", "training"])
 def test_k2_on_the_staged_input_is_bit_equal(dev, shape, veto, cull):
     """K2 as the main paths run it: at draft (64 images of 256^2 pooled 4x4,
@@ -605,21 +605,21 @@ def test_k2_on_the_staged_input_is_bit_equal(dev, shape, veto, cull):
     cfg = dataclasses.replace(base, shadow_mask_gather=veto, shadow_mask_cull=cull, shadow_step_pack=1)
     if shape == "draft":
         m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
-        ts = shadows_cuda._ts_for(dev, m_cfg)
+        ts, clamp = shadows_cuda._ts_for(dev, m_cfg)
         staged = shadows_cuda._stage(depth, mask, light, cfg, draft=True, flags=True)
         idx = torch.empty(m_depth.shape, dtype=torch.int32, device=dev)
-        got = shadows_cuda._launch("march_argmin", staged, None, staged.light, ts, m_cfg, idx=idx)
+        got = shadows_cuda._launch("march_argmin", staged, None, staged.light, ts, m_cfg, idx=idx, clamp=clamp)
     else:
         m_depth, m_mask, m_light, m_cfg = depth, mask, light, cfg
-        ts = shadows_cuda._ts_for(dev, cfg)
-        got, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+        ts, clamp = shadows_cuda._ts_for(dev, cfg)
+        got, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg, clamp=clamp)
     want, want_idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, ts)
     assert_bits_equal(got, want)
     assert torch.equal(idx, want_idx)
 
 
 @pytest.mark.parametrize("cull", [16, 32, 64], ids=["cull_col16", "cull_col32", "cull_row"])
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_refine_reading_flags_equals_refine_scanning_the_mask(dev, veto, cull):
     """K3 on the staging pass's full-resolution quad and flags (the draft
     path) equals K3 that scans the mask itself (refine_around_argmin_cuda),
@@ -627,7 +627,7 @@ def test_refine_reading_flags_equals_refine_scanning_the_mask(dev, veto, cull):
     depth, mask, light = edge_scene(dev, seed=15)
     cfg = RenderConfig(**DRAFT, shadow_mask_gather=veto, shadow_mask_cull=True, shadow_col_chunk=cull)
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
-    table = shadows_cuda._ts_for(dev, m_cfg)
+    table, _ = shadows_cuda._ts_for(dev, m_cfg)
     _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
     staged = shadows_cuda._stage(depth, mask, light, cfg, draft=True, flags=True)
     full = shadows.Staged(staged.full, staged.full_flags)
@@ -659,7 +659,7 @@ def test_draft_march_runs_three_kernels(dev):
 
 
 @pytest.mark.parametrize("cull", [0, 64, 16], ids=["cull_off", "cull_row", "cull_col16"])
-@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
+@pytest.mark.parametrize("veto", VETOES)
 def test_march_grad_on_edge_scenes(dev, veto, cull):
     """march_grad on the forward's quad at the plain VJP's bars, on the edge
     scenes: lights on the image border and at integer points inside it (the
@@ -679,8 +679,8 @@ def test_march_grad_on_edge_scenes(dev, veto, cull):
     assert_grads_close(d.grad, lp.grad, want_d, want_l)
     for i in (3, 5):
         assert not d.grad[i].any() and not lp.grad[i].any()
-    ts = shadows_cuda._ts_for(dev, cfg)
-    _, idx, staged = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+    ts, clamp = shadows_cuda._ts_for(dev, cfg)
+    _, idx, staged = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg, clamp=clamp)
     names = device_activities(lambda: shadows_cuda.march_grad_cuda(depth, mask, light, idx, ts, g, cfg, staged), 2)
     assert len(names) == 2 * 5 and sum("march_grad_kernel" in n for n in names) == 5, names
     with pytest.raises(ValueError):
@@ -759,11 +759,11 @@ def test_k2_key_form_is_the_packed_index_form(dev, samples, cull, bias):
     cfg = RenderConfig(**dict(SMALL, num_sample_points=samples, **KEY_GRIDS[samples]),
                        shadow_bias_gate="inside_image", shadow_bias=bias, shadow_mask_cull=cull > 0,
                        shadow_col_chunk=cull)
-    ts = shadows_cuda._ts_for(dev, cfg)
-    assert ts.numel() == samples
-    out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
+    ts, clamp = shadows_cuda._ts_for(dev, cfg)
+    assert ts.numel() == samples and not clamp
+    out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg, clamp=clamp)
     before = dict(shadows_cuda.LAUNCHES)
-    key, staged = shadows_cuda._march_key(depth, mask, light, ts, cfg)
+    key, staged = shadows_cuda._march_key(depth, mask, light, ts, cfg, clamp=clamp)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march_argmin=1)
     assert key.dtype == torch.int64 and key.shape == out.shape and staged.quad.shape == (6, 65, 65, 2)
@@ -782,9 +782,9 @@ def test_unpack_kernel_is_its_plain_version(dev):
     depth, mask, light = edge_scene(dev, seed=24)
     cfg = RenderConfig(**SMALL, shadow_bias_gate="inside_image", shadow_bias=-20.0, shadow_mask_cull=True,
                        shadow_col_chunk=32)
-    ts = shadows_cuda._ts_for(dev, cfg)
-    out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg)
-    key, _ = shadows_cuda._march_key(depth, mask, light, ts, cfg)
+    ts, clamp = shadows_cuda._ts_for(dev, cfg)
+    out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg, clamp=clamp)
+    key, _ = shadows_cuda._march_key(depth, mask, light, ts, cfg, clamp=clamp)
     words = torch.from_numpy(np.random.default_rng(25).integers(-2 ** 63, 2 ** 63 - 1, size=5001,
                                                                  dtype=np.int64)).to(dev)
     before = dict(shadows_cuda.LAUNCHES)
@@ -810,7 +810,7 @@ def test_march_grad_t_map_form_is_the_index_form(dev):
     depth, mask, _ = scene(dev, seed=26)
     light = torch.from_numpy(GRAD_LIGHTS).to(dev)
     cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
-    ts = shadows_cuda._ts_for(dev, cfg)
+    ts, clamp = shadows_cuda._ts_for(dev, cfg)
     rng = np.random.default_rng(27)
     src, pix = [], []
     for i in range(4):
@@ -819,7 +819,7 @@ def test_march_grad_t_map_form_is_the_index_form(dev):
         pix += list(rng.choice(on, 16, replace=False))
     src = torch.tensor(src, device=dev)
     d, m, lp = (x.index_select(0, src).contiguous() for x in (depth, mask, light))
-    _, idx, staged = shadows_cuda._launch_argmin(d, m, lp, ts, cfg)
+    _, idx, staged = shadows_cuda._launch_argmin(d, m, lp, ts, cfg, clamp=clamp)
     g = torch.zeros_like(d)
     g.view(64, -1)[torch.arange(64, device=dev), torch.tensor(pix, device=dev)] = torch.from_numpy(
         rng.normal(size=64).astype(np.float32)).to(dev)
@@ -834,8 +834,16 @@ def test_march_grad_t_map_form_is_the_index_form(dev):
     dense = torch.from_numpy(rng.normal(size=tuple(d.shape)).astype(np.float32)).to(dev)
     assert_grads_close(*shadows_cuda.march_grad_at_cuda(d, m, lp, ts[idx.long()], dense, cfg, staged),
                        *shadows_cuda.march_grad_cuda(d, m, lp, idx, ts, dense, cfg, staged))
-    with pytest.raises(ValueError):
-        shadows_cuda.march_grad_at_cuda(d, m, lp, ts[idx.long()] + 2.0, g, cfg, staged)
+    # t* past 1 (the clamped taps): the plain VJP at the same t, d_light within 1e-5 of the sum of
+    # its pixels' |terms| (a sample outside the image sums terms that cancel), on 8 of the images.
+    past = (ts[idx.long()] + 0.5)[:8].contiguous()
+    d8, m8, lp8, dense8 = (x[:8].contiguous() for x in (d, m, lp, dense))
+    staged8 = shadows_cuda._stage(d8, m8, lp8, cfg, flags=True)
+    got_d, got_l = shadows_cuda.march_grad_at_cuda(d8, m8, lp8, past, dense8, cfg, staged8)
+    want_d, want_l = shadows.march_vjp(d8, m8, lp8, past, dense8, cfg)
+    assert (got_d - want_d).abs().max().item() <= 1e-4 * want_d.abs().max().item()
+    terms = light_grad_terms(d8, m8, lp8, past, dense8, cfg)
+    assert bool(((got_l - want_l).abs().double() <= 1e-5 * terms).all()), (got_l - want_l, terms)
 
 
 def test_march_over_lights_on_the_card(dev):
@@ -850,6 +858,136 @@ def test_march_over_lights_on_the_card(dev):
     n = light.shape[0]
     assert_bits_equal(got, shadows.ray_march_min_distance_batch(depth[:1].expand(n, 64, 64).contiguous(),
                                                                  mask[:1].expand(n, 64, 64).contiguous(), light, cfg))
+
+
+# ---------------------------------------------------------------------------
+# The sizes and t tables RenderConfig admits beyond the presets': rows that
+# no 8-row group fills, columns that no 32-column block fills, cull chunks
+# that are no power of two, W above 2048, tables past [0, 1].
+# ---------------------------------------------------------------------------
+
+ADMITTED = {"60x60_row": (60, 60, 0), "240x240_col48": (240, 240, 48), "8x4096_row": (8, 4096, 0),
+            "40x72_col24": (40, 72, 24), "36x48_col16": (36, 48, 16)}
+
+
+def sized_scene(dev, h, w, b=3, seed=30):
+    """Cosine terrain with noise, an oval face with holes (and one image with none), lights far,
+    inside the image and on its border."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    depth = (rng.normal(size=(b, h, w)) * 5 + 30 * np.cos(xx / 9.0) * np.sin(yy / 7.0)).astype(np.float32)
+    face = ((xx - 0.47 * w) / (0.35 * w)) ** 2 + ((yy - 0.53 * h) / (0.45 * h)) ** 2 <= 1.0
+    mask = (face & (rng.uniform(size=(b, h, w)) > 0.05)).astype(np.float32)
+    mask[b - 1] = 0.0
+    light = np.asarray([[1203.9, 1605.2, 3475.3], [0.37 * w / 4, -0.29 * h / 4, 20.0],
+                        [-w / 2.0, 0.6 * h / 4, 30.0]], np.float32)[:b]
+    return [torch.from_numpy(a).to(dev) for a in (depth, mask, light)]
+
+
+def sized_cfg(h, w, chunk, veto, **kw):
+    return RenderConfig(img_height=h, img_width=w, num_sample_points=32, t_start=0.025, t_stop=0.185,
+                        shadow_mask_gather=veto, shadow_mask_cull=True, shadow_col_chunk=chunk,
+                        shadow_bias_gate="inside_image", shadow_refine_halfwidth=4, **kw)
+
+
+@pytest.mark.parametrize("veto", VETOES)
+@pytest.mark.parametrize("shape", list(ADMITTED))
+def test_kernels_at_the_sizes_the_config_admits(dev, shape, veto):
+    """The staging, K1, K2 (distances and winners), K3 around a t_map and
+    around K2's index, bit-equal to their plain versions; march_grad at the
+    plain VJP's d_depth bar, its d_light within 1e-5 of the sum of its
+    pixels' |terms| (test_k5_backward_in_one_process says why). 8x4096
+    takes the clamped taps (W > 2048)."""
+    h, w, chunk = ADMITTED[shape]
+    depth, mask, light = sized_scene(dev, h, w)
+    cfg = sized_cfg(h, w, chunk, veto)
+    staged = shadows_cuda._stage(depth, mask, light, cfg, flags=True)
+    want = shadows.stage_inputs(depth, mask, light, cfg)
+    assert staged.flags.shape == (3, -(-h // 8), w // shadows.effective_col_chunk(cfg))
+    assert torch.equal(staged.quad, want.quad) and torch.equal(staged.flags, want.flags)
+    assert_bits_equal(shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg),
+                      shadows.ray_march_min_distance_batch(depth, mask, light, cfg))
+    got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
+    want_d, want_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
+    assert_bits_equal(got_d, want_d)
+    assert torch.equal(got_t, want_t)
+    assert_bits_equal(shadows_cuda.refine_min_distance_cuda(depth, mask, light, want_t, cfg),
+                      shadows.refine_min_distance_batch(depth, mask, light, want_t, cfg))
+    ts, _ = shadows_cuda._ts_for(dev, cfg)
+    _, idx = shadows.ray_march_argmin_batch(depth, mask, light, cfg, ts)
+    assert_bits_equal(shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, ts,
+                                                             dataclasses.replace(cfg, shadow_resolution_scale=1)),
+                      shadows.refine_min_distance_batch(depth, mask, light, ts[idx.long()], cfg))
+    g = torch.from_numpy(np.random.default_rng(31).normal(size=tuple(depth.shape)).astype(np.float32)).to(dev)
+    d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    (shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg) * g).sum().backward()
+    want_dd, want_dl = shadows.march_vjp(depth, mask, light, want_t, g, cfg)
+    assert (d.grad - want_dd).abs().max().item() <= 1e-4 * want_dd.abs().max().item()
+    terms = light_grad_terms(depth, mask, light, want_t, g, cfg)
+    assert bool(((lp.grad - want_dl).abs().double() <= 1e-5 * terms).all()), (lp.grad - want_dl, terms)
+
+
+@pytest.mark.parametrize("veto", VETOES)
+@pytest.mark.parametrize("size, chunk", [(240, 0), (240, 80), (120, 0)], ids=["240_row", "240_col80", "120_row"])
+def test_draft_march_at_the_sizes_the_config_admits(dev, size, chunk, veto):
+    """The draft march (staging, K2, K3) where H/4 is no multiple of 8
+    (240: a 60x60 low-resolution march, under the row cull there, and at
+    full resolution the row cull or 80-column units; 120: 30x30), bit-equal
+    to the plain draft path, its staging to the plain staging."""
+    from geomconsistentfr_torch.config import apply_precision_tier, preset_single_image
+
+    depth, mask, light = sized_scene(dev, size, size, seed=32)
+    cfg = dataclasses.replace(apply_precision_tier(preset_single_image(), "draft").render, img_height=size,
+                              img_width=size, shadow_col_chunk=chunk, shadow_mask_gather=veto, shadow_step_pack=1)
+    got = shadows_cuda._stage(depth, mask, light, cfg, draft=True, flags=True)
+    want = shadows.stage_inputs(depth, mask, light, cfg)
+    for field in shadows.Staged._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        assert (g is None and w is None) or torch.equal(g, w), field
+    m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
+    _, t_star = shadows.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
+    assert_bits_equal(shadows_cuda.draft_march(depth, mask, light, cfg),
+                      shadows.refine_min_distance_batch(depth, mask, light, shadows.upsample_tstar_nn(t_star, cfg), cfg))
+
+
+@pytest.mark.parametrize("veto", VETOES)
+def test_tables_outside_the_unit_interval(dev, veto):
+    """A t grid to 1.02 (200 samples: K2 on two lanes), a given table from
+    -0.05, and the refine's t range past 1: the clamped taps, bit-equal to
+    the plain versions; march_grad at the plain VJP's bars through autograd;
+    K2's key form on the negative table packs the plain keys, and their MIN
+    over two slices unpacks to the full table's winners."""
+    depth, mask, light = sized_scene(dev, 64, 64, seed=33)
+    cfg = RenderConfig(img_height=64, img_width=64, num_sample_points=200, t_stop=1.025, shadow_mask_gather=veto,
+                       shadow_mask_cull=True, shadow_col_chunk=16, shadow_resolution_scale=1,
+                       shadow_refine_halfwidth=4)
+    ts, clamp = shadows_cuda._ts_for(dev, cfg)
+    assert float(ts.max()) > 1.0 and clamp
+    below = np.linspace(-0.05, 0.3, 24).astype(np.float32)
+    for table in (None, below):
+        assert_bits_equal(shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, table),
+                          shadows.ray_march_min_distance_batch(depth, mask, light, cfg, table))
+        got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, table, return_argmin_t=True)
+        want_d, want_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, table, return_argmin_t=True)
+        assert_bits_equal(got_d, want_d)
+        assert torch.equal(got_t, want_t)
+    t_map = torch.full_like(depth, 1.01)
+    assert_bits_equal(shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg),
+                      shadows.refine_min_distance_batch(depth, mask, light, t_map, cfg))
+    g = torch.from_numpy(np.random.default_rng(34).normal(size=tuple(depth.shape)).astype(np.float32)).to(dev)
+    d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
+    (shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg) * g).sum().backward()
+    _, t_star = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, return_argmin_t=True)
+    assert_grads_close(d.grad, lp.grad, *shadows.march_vjp(depth, mask, light, t_star, g, cfg))
+    table = torch.from_numpy(below).to(dev)
+    keys = [shadows_cuda._march_key(depth, mask, light, half, cfg, clamp=True)[0] for half in table.view(2, -1)]
+    for key, half in zip(keys, table.view(2, -1)):
+        d_, i_ = shadows.ray_march_argmin_batch(depth, mask, light, cfg, half)
+        assert torch.equal(key, shadows.pack_march_key(d_, half[i_.long()]))
+    got_d, got_t = shadows_cuda.unpack_march_key(torch.minimum(*keys))
+    full_d, full_t = shadows.ray_march_min_distance_batch(depth, mask, light, cfg, below, return_argmin_t=True)
+    assert_bits_equal(got_d, full_d)
+    assert (got_t == full_t).float().mean().item() >= 0.9999
 
 
 @pytest.mark.parametrize("tier", ["strict", "fast"])

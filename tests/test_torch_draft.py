@@ -341,7 +341,10 @@ def test_plain_refine_offsets_override_matches_jax():
     assert_march_close(got, want)
 
 
-BILINEAR = dict(shadow_matmul_precision="highest", shadow_mask_gather="bilinear")
+# The vetoes only the Pallas kernel has (shadows_pallas.py:443-496), by the two variants
+# of the comparisons below; the bilinear cases keep the variant's name alone.
+PALLAS_CASES = [(v, c) for v in ("bilinear", "hat", "hat_y") for c in ("plain", "cull_col16_wide")]
+PALLAS_IDS = [c if v == "bilinear" else f"{v}-{c}" for v, c in PALLAS_CASES]
 
 
 def zero_weight_corners(depth, mask, lights, cfg, t):
@@ -362,11 +365,12 @@ def zero_weight_corners(depth, mask, lights, cfg, t):
     return corners
 
 
-@pytest.mark.parametrize("variant", ["plain", "cull_col16_wide"])
-def test_bilinear_argmin_matches_pallas_interpret(variant):
+@pytest.mark.parametrize("veto, variant", PALLAS_CASES, ids=PALLAS_IDS)
+def test_bilinear_argmin_matches_pallas_interpret(veto, variant):
     depth, mask, lights = scene(seed=9)
     mask[3, :16] = 0.0
-    jcfg, tcfg = cfgs(img_height=64, img_width=64, **GRID, **BILINEAR, **VARIANTS[variant])
+    jcfg, tcfg = cfgs(img_height=64, img_width=64, **GRID, **VARIANTS[variant],
+                      shadow_matmul_precision="highest", shadow_mask_gather=veto)
     want_d, want_t = JSP.ray_march_min_distance_pallas(
         jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights), jcfg, interpret=True, return_argmin_t=True)
     got_d, got_t = TS.ray_march_min_distance_batch(*T(depth, mask, lights), tcfg, return_argmin_t=True)
@@ -377,10 +381,10 @@ def test_bilinear_argmin_matches_pallas_interpret(variant):
     assert_tstar_agree(got_t.numpy()[keep], np.asarray(want_t)[keep], got_d, want_d)
 
 
-@pytest.mark.parametrize("variant", ["plain", "cull_col16_wide"])
-def test_bilinear_refine_matches_pallas_interpret(variant):
+@pytest.mark.parametrize("veto, variant", PALLAS_CASES, ids=PALLAS_IDS)
+def test_bilinear_refine_matches_pallas_interpret(veto, variant):
     depth, mask, lights = scene(seed=10)
-    jcfg, tcfg = cfgs(**DRAFT, **BILINEAR, **VARIANTS[variant])
+    jcfg, tcfg = cfgs(**DRAFT, **VARIANTS[variant], shadow_matmul_precision="highest", shadow_mask_gather=veto)
     t_map = draft_t_map(depth, mask, lights, jcfg)
     want = np.asarray(JSP.refine_min_distance_pallas(
         jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights), jnp.asarray(t_map), jcfg, interpret=True))

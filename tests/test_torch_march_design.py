@@ -14,12 +14,17 @@ be checked here, on a numpy / PyTorch transcription of the kernel's steps:
     replicated first row and column (the kernel's input staging), the quad's
     address computed from the rounding adds' bit patterns modulo 2^32, the
     one-hot veto's tap selected from the quad (no load of its own), the
-    bilinear veto's taps the quad's: the kernel's sample evaluator (kernel_sample_n2)
-    equals the plain `_Scene.sample_n2` bit for bit, both vetoes, on rays
-    that hypothesis draws, with lights on the image border, at integer
-    points inside it and far outside, integer spans stepped by t_step 0.005,
-    and t at 0 and 1. The quad's indices stay in the image and the one-hot
-    tap is always one of its corners;
+    bilinear veto's taps the quad's, the 'hat' veto's the one-hot tap's row
+    of the quad and 'hat_y''s its column: the kernel's sample evaluator
+    (kernel_sample_n2) equals the plain `_Scene.sample_n2` bit for bit, all
+    four vetoes, on rays that hypothesis draws, with lights on the image
+    border, at integer points inside it and far outside, integer spans
+    stepped by t_step 0.005 (the rounding's exact halves), t at 0 and 1, and
+    per-pixel t that put the hat weights' coordinate on an exact half (the
+    threshold's tie). The quad's indices stay in the image and the one-hot
+    tap is always one of its corners; for t outside [0, 1], and from
+    W - 1 = 2048 on, they do not, which is where the wrappers launch the
+    kernels' clamped taps;
   * K3 around K2's winners: the centre ts[idx[b, row / s, col / s]] is
     upsample_tstar_nn(ts[idx]); the new wrapper's plain version equals
     refine_min_distance_batch on the upsampled t* bit for bit, and, fed the
@@ -29,12 +34,15 @@ be checked here, on a numpy / PyTorch transcription of the kernel's steps:
     the floor tap where xt or yt is an integer, the atomics' addresses from
     the rounding adds' bits) are the plain march_vjp's taps, indices, veto
     and position term, on hypothesis-drawn rays and at integer coordinates;
+    its derivative of the border endpoint in the light point is float64
+    autograd's within 1e-5, also where a far light stands over a column;
   * K2's lanes: interleaved samples of the table, each lane's strict-< first
     winner, combined on (norm^2, index), give the table's first winner,
     ties included;
   * the in-kernel cull (each 8 x 32 block flags the cull units it meets from
     their mask) equals cull_live_blocks at column chunks 16, 32, 64 and the
-    row.
+    row, and at chunks that are no power of two (24, 40, 48) and heights
+    that are no multiple of 8 (the last row group short).
 """
 
 import dataclasses
@@ -188,24 +196,35 @@ def kernel_taps(scene: TS._Scene, mask: torch.Tensor, t: torch.Tensor) -> dict:
     (d10, m10), (d11, m11) = corner(i00 + wp), corner(i00 + wp + 1)
 
     off_quad = 0
-    if scene.veto == "onehot":
+    zero = torch.zeros(())
+    if scene.veto != "bilinear":
         # dx = vx - floor(xt), dy = vy - floor(yt) from the bits, mod 2^32. The
-        # kernel selects the tap from the quad and has no other load: the
-        # rule needs dx and dy in {0, 1}, which off_quad counts against.
+        # kernel selects the one-hot tap (its row for 'hat', its column for
+        # 'hat_y') from the quad and has no other load: the rule needs dx and
+        # dy in {0, 1}, which off_quad counts against.
         rx, ry = bits(round_add(sx, "nearest")), bits(round_add(sy, "nearest"))
         dx = (rx - bits(bx0) + w // 2) & U32
         dy = ((h // 2 + 2 * ROUND_BITS) - ry - bits(by0)) & U32
         off_quad = int(((dx | dy) > 1).sum())
+    if scene.veto == "onehot":
         face = torch.where(dy != 0, torch.where(dx != 0, m11, m10), torch.where(dx != 0, m01, m00)) != 0
     else:
         xtc, ytc = torch.clamp(xt, 0.0, w - 1.0), torch.clamp(yt, 0.0, h - 1.0)
         vx0, vy0 = torch.clamp(x0, min=0.0), torch.clamp(y0, min=0.0)
         ux0, ux1 = 1.0 - (xtc - vx0), 1.0 - ((vx0 + 1.0) - xtc)
         uy0, uy1 = 1.0 - (ytc - vy0), 1.0 - ((vy0 + 1.0) - ytc)
-        zero = torch.zeros(())
-        vtop = torch.where(m00 != 0, ux0, zero) + torch.where(m01 != 0, ux1, zero)
-        vbot = torch.where(m10 != 0, ux0, zero) + torch.where(m11 != 0, ux1, zero)
-        face = (vtop * uy0 + vbot * uy1) > 0.5
+
+        def hat_face(a, b, u0, u1):  # csrc/march.cu hat_face
+            return (torch.where(a != 0, u0, zero) + torch.where(b != 0, u1, zero)) > 0.5
+
+        if scene.veto == "hat":
+            face = torch.where(dy != 0, hat_face(m10, m11, ux0, ux1), hat_face(m00, m01, ux0, ux1))
+        elif scene.veto == "hat_y":
+            face = torch.where(dx != 0, hat_face(m01, m11, uy0, uy1), hat_face(m00, m10, uy0, uy1))
+        else:
+            vtop = torch.where(m00 != 0, ux0, zero) + torch.where(m01 != 0, ux1, zero)
+            vbot = torch.where(m10 != 0, ux0, zero) + torch.where(m11 != 0, ux1, zero)
+            face = (vtop * uy0 + vbot * uy1) > 0.5
     return dict(xt=xt, yt=yt, x0=x0, y0=y0, x1=x1, y1=y1, bx0=bx0, by0=by0, bx1=bx1, by1=by1,
                 d00=d00, d01=d01, d10=d10, d11=d11, face=face, off_quad=off_quad, in_range=in_range)
 
@@ -261,9 +280,9 @@ def light_points(kind: str, size: int, rng: np.random.Generator) -> np.ndarray:
     return np.stack([xs, ys, rng.uniform(5.0, 60.0, 3)], axis=1).astype(np.float32)
 
 
-@settings(max_examples=30, deadline=None, derandomize=True, database=None)
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
 @given(seed=st.integers(0, 2 ** 16), size=st.sampled_from([32, 64]),
-       kind=st.sampled_from(["border", "inside_integer", "far"]), veto=st.sampled_from(["onehot", "bilinear"]),
+       kind=st.sampled_from(["border", "inside_integer", "far"]), veto=st.sampled_from(TS.VETOES),
        first=st.integers(0, 177), per_pixel=st.booleans())
 def test_quad_and_select_equal_the_direct_taps(seed, size, kind, veto, first, per_pixel):
     rng = np.random.default_rng(seed)
@@ -291,7 +310,7 @@ def test_quad_covers_the_first_column_and_row():
     depth, mask = draw_scene(3, 32)
     for light in ([-16.0, 5.0, 30.0], [3.0, 16.0, 30.0]):  # on the left border / on the top border
         lp = torch.tensor([light] * 3, dtype=torch.float32)
-        for veto in ("onehot", "bilinear"):
+        for veto in TS.VETOES:
             cfg = TC.RenderConfig(img_height=32, img_width=32, shadow_mask_gather=veto)
             scene = TS._Scene(depth, mask, lp, cfg)
             t = torch.from_numpy(TS.sample_ts(cfg).astype(np.float32)).view(1, -1, 1, 1)
@@ -301,6 +320,57 @@ def test_quad_covers_the_first_column_and_row():
             got, off_quad, in_range = kernel_sample_n2(scene, mask, t)
             assert in_range and off_quad == 0
             assert torch.equal(got.view(torch.int32), scene.sample_n2(t).view(torch.int32))
+
+
+@pytest.mark.parametrize("veto", ["hat", "hat_y"])
+def test_hat_vetoes_at_the_thresholds_tie(veto):
+    """Samples whose hat coordinate (xt for 'hat', yt for 'hat_y') is an exact
+    half: the two taps' weights are 0.5 each, so the threshold passes only
+    where both taps are on the face (shadows_pallas.py:443-480). The quad's
+    selection equals the plain veto there, bit for bit."""
+    depth, mask = draw_scene(8, 32)
+    lights = torch.tensor([[3.0, -4.0, 20.0], [2500.0, 1400.0, 3000.0], [-3000.0, -700.0, 2000.0]])
+    cfg = TC.RenderConfig(img_height=32, img_width=32, shadow_mask_gather=veto)
+    scene = TS._Scene(depth, mask, lights, cfg)
+    t = integer_offsets(scene, "x" if veto == "hat" else "y", frac=0.5)
+    got, off_quad, in_range = kernel_sample_n2(scene, mask, t)
+    assert in_range and off_quad == 0
+    assert torch.equal(got.view(torch.int32), scene.sample_n2(t).view(torch.int32))
+    sx, sy = TS._fma(t, scene.diff_x, scene.xx), TS._fma(t, scene.diff_y, scene.yy)
+    coord = sx + cfg.half_w - TS.EPS if veto == "hat" else (cfg.half_h - sy) - TS.EPS
+    tie = coord - torch.floor(coord) == 0.5
+    assert int(tie.sum()) >= 200, int(tie.sum())
+    # At the tie the sample passes exactly where both taps are on the face.
+    ind = (mask != 0).float().reshape(3, -1)
+    lo = torch.floor(coord)
+    if veto == "hat":
+        row = cfg.half_h - torch.round(sy)
+        both = (TS._gather(ind, row, lo, 32, 32) * TS._gather(ind, row, lo + 1, 32, 32)) != 0
+    else:
+        col = torch.round(sx) + cfg.half_w
+        both = (TS._gather(ind, lo, col, 32, 32) * TS._gather(ind, lo + 1, col, 32, 32)) != 0
+    passed = got < TS.OFF_FACE_N2
+    assert torch.equal(passed[tie], both[tie])
+    assert bool((both[tie]).any()) and bool((~both[tie]).any())
+
+
+def test_the_quad_leaves_the_image_only_where_the_wrappers_clamp():
+    """The header's range: for t in [0, 1] and W up to 2048 the quad stays in
+    the padded plane; a table to 1.02, or W - 1 = 2048 and more (where
+    W - 1 - 1e-4 rounds to W - 1), takes it out, and there the wrappers
+    launch the clamped taps (shadows_cuda._clamp)."""
+    depth, mask = draw_scene(9, 32)
+    lights = torch.tensor([[2500.0, 1400.0, 3000.0], [-3000.0, -700.0, 2000.0], [400.0, -3800.0, 1500.0]])
+    cfg = TC.RenderConfig(img_height=32, img_width=32, num_sample_points=200, t_stop=1.025)
+    scene = TS._Scene(depth, mask, lights, cfg)
+    ts, clamp = shadows_cuda._ts_for(torch.device("cpu"), cfg)
+    assert float(ts.max()) > 1.0 and clamp and shadows_cuda._clamp(32, 32, False)
+    assert not kernel_sample_n2(scene, mask, ts.view(1, -1, 1, 1))[2]
+    assert kernel_sample_n2(scene, mask, ts[ts <= 1.0].view(1, -1, 1, 1))[2]
+    wide = torch.zeros((1, 2, 4096)), torch.ones((1, 2, 4096))
+    scene = TS._Scene(*wide, torch.tensor([[3000.0, 0.0, 50.0]]), TC.RenderConfig(img_height=2, img_width=4096))
+    assert not kernel_sample_n2(scene, wide[1], torch.ones((1, 1, 1, 1)))[2]
+    assert shadows_cuda._clamp(2, 4096, True) and not shadows_cuda._clamp(2048, 2048, True)
 
 
 # --------------------------------------------------------------------------- march_grad's taps
@@ -388,16 +458,17 @@ def test_march_grad_taps_are_the_plain_vjps(seed, size, kind, veto, first, per_p
     assert_grad_taps_match(scene, mask, t)
 
 
-def integer_offsets(scene: TS._Scene, axis: str) -> torch.Tensor:
+def integer_offsets(scene: TS._Scene, axis: str, frac: float = 0.0) -> torch.Tensor:
     """A per-pixel t in [0, 1] (B, 1, H, W) that puts xt (or yt) on an integer
-    where one lies within 64 ulps of the solution for the integer nearest the
-    sample at t = 0.5; t = 0.5 elsewhere. The march meets such samples rarely
-    (one winner in ~16k pixels), so the test makes them."""
+    plus `frac` (0 or 0.5) where one lies within 64 ulps of the solution for
+    the one nearest the sample at t = 0.5; t = 0.5 elsewhere. The march meets
+    such samples rarely (one winner in ~16k pixels), so the test makes them."""
     cfg = scene.cfg
     diff, base, half = ((scene.diff_x, scene.xx, cfg.half_w) if axis == "x" else (scene.diff_y, scene.yy, cfg.half_h))
     sign = 1.0 if axis == "x" else -1.0
     mid = sign * TS._fma(torch.full_like(diff, 0.5), diff, base) + half - TS.EPS
-    target = (torch.round(mid).double() - half + TS.EPS) * sign  # the s coordinate that lands on it
+    goal = torch.round(mid - frac) + frac
+    target = (goal.double() - half + TS.EPS) * sign  # the s coordinate that lands on it
     t0 = ((target - base.double()) / diff.double()).clamp(0.0, 1.0).float()
     best = torch.full_like(t0, 0.5)
     cand = t0
@@ -405,7 +476,8 @@ def integer_offsets(scene: TS._Scene, axis: str) -> torch.Tensor:
         for c in (cand, t0 - (cand - t0)):
             c = c.clamp(0.0, 1.0)
             v = sign * TS._fma(c, diff, base) + half - TS.EPS
-            best = torch.where((v == torch.floor(v)) & (best == 0.5), c, best)
+            best = torch.where((v - frac == torch.floor(v - frac)) & (v - torch.floor(v) == frac) & (best == 0.5),
+                               c, best)
         cand = torch.nextafter(cand, torch.tensor(2.0))
     return best
 
@@ -441,6 +513,76 @@ def test_march_grad_takes_the_floor_tap_at_integer_coordinates():
                 if axis == "x":
                     assert bool((got["dx"][on] == 0).all())
                     assert bool((got["quad_dx"][on] != 0).any())  # the quad alone would move the light gradient
+
+
+def kernel_endpoint_jacobian(xx, yy, lx, ly, cfg):
+    """march_grad's d(ex, ey)/d(lx, ly) (pixel_grad in csrc/march.cu), transcribed in float32:
+    (d ex/d lx, d ex/d ly, d ey/d lx, d ey/d ly), each the exact derivative of the endpoint's
+    arithmetic in the form that does not cancel, on the branch the endpoint took, zero where its
+    clamp binds; and the float32 endpoint's (inter, ex_raw, ey_raw)."""
+    eps = TS.EPS
+    left, right = -cfg.half_w, cfg.img_width - cfg.half_w - 1.0
+    bottom, top = 1.0 - cfg.half_h, cfg.half_h
+    den = (lx - xx) + eps
+    slope = (ly - yy) / den
+    icpt = ly - slope * lx
+    zx_neg, zx_pos, zy_neg, zy_pos = lx < left, lx > right, ly < bottom, ly > top
+    zx_mid, zy_mid = ~(zx_neg | zx_pos), ~(zy_neg | zy_pos)
+    xv = torch.where(zx_neg, left, right)
+    yh = torch.where(zy_neg, bottom, top)
+    se = slope + eps
+    ex_h = (yh - icpt) / se
+    inter = (ex_h >= left) & (ex_h <= right)
+    inside = zx_mid & zy_mid
+    ex_raw = torch.where(inside, lx, torch.where(zy_mid, xv, torch.where(zx_mid | inter, ex_h, xv)))
+    ey_raw = torch.where(inside, ly, torch.where(zy_mid | ~(zx_mid | inter), slope * xv + icpt, yh))
+    jxy = -(((yh - yy) - eps * (xx - eps)) / se) / (den * se)
+    jyy = ((xv - xx) + eps) / den
+    on_h = ~inside & ~zy_mid & (zx_mid | inter)
+    on_v = ~inside & (zy_mid | ~(zx_mid | inter))
+    zero = torch.zeros_like(slope)
+    jxx, jxy = torch.where(on_h, -slope * jxy, zero), torch.where(on_h, jxy, zero)
+    jyx, jyy = torch.where(on_v, -slope * jyy, zero), torch.where(on_v, jyy, zero)
+    jxx, jyy = torch.where(inside, 1.0, jxx), torch.where(inside, 1.0, jyy)
+    x_in, y_in = (ex_raw >= left) & (ex_raw <= right), (ey_raw >= bottom) & (ey_raw <= top)
+    return (torch.where(x_in, jxx, 0.0), torch.where(x_in, jxy, 0.0), torch.where(y_in, jyx, 0.0),
+            torch.where(y_in, jyy, 0.0)), (inter, ex_raw, ey_raw)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(seed=st.integers(0, 2 ** 16), kind=st.sampled_from(["over_a_column", "far", "beside", "inside"]))
+def test_march_grad_endpoint_jacobian_is_the_float64_derivative(seed, kind):
+    """march_grad's derivative of the border endpoint in the light point, float32 as the kernel
+    computes it, against float64 autograd of shadows.border_endpoints at 8 x 4096: within 1e-5 of
+    each entry (and 1e-12), with far lights that stand over a pixel column (|lx - xx| < 1, where
+    the chain rule's own form cancels), anywhere, beside the image and inside it. Pixels whose
+    float32 and float64 endpoints take another branch or clamp are left out (at most 1%)."""
+    rng = np.random.default_rng(seed)
+    cfg = TC.RenderConfig(img_height=8, img_width=4096)
+    xx, yy = TS.pixel_grid_centered(8, 4096)
+    b = 4
+    far = rng.uniform(300.0, 4000.0, b) * rng.choice([-1.0, 1.0], b)
+    lx = {"over_a_column": rng.integers(-2048, 2048, b) + rng.choice([0.1, -0.1, 0.5, 1e-3], b)
+                           + rng.uniform(-0.05, 0.05, b),
+          "far": rng.uniform(-4000.0, 4000.0, b), "beside": rng.choice([-1.0, 1.0], b) * rng.uniform(2100, 4000, b),
+          "inside": rng.uniform(-2040.0, 2040.0, b)}[kind]
+    ly = rng.uniform(-3.0, 4.0, b) if kind in ("beside", "inside") else far
+    lx, ly = (torch.from_numpy(a.astype(np.float32)).view(b, 1, 1).expand(b, 8, 4096) for a in (lx, ly))
+    got, (inter, ex_raw, ey_raw) = kernel_endpoint_jacobian(xx, yy, lx, ly, cfg)
+    lx64, ly64 = lx.double().requires_grad_(), ly.double().requires_grad_()
+    ex, ey = TS.border_endpoints(xx.double(), yy.double(), lx64, ly64, cfg)
+    want = [*torch.autograd.grad(ex.sum(), (lx64, ly64), retain_graph=True),
+            *torch.autograd.grad(ey.sum(), (lx64, ly64))]
+    _, (inter64, ex_raw64, ey_raw64) = kernel_endpoint_jacobian(xx.double(), yy.double(), lx64.detach(),
+                                                                ly64.detach(), cfg)
+    left, right = -cfg.half_w, cfg.img_width - cfg.half_w - 1.0
+    bottom, top = 1.0 - cfg.half_h, cfg.half_h
+    same = ((inter == inter64) & (((ex_raw >= left) & (ex_raw <= right)) == ((ex_raw64 >= left) & (ex_raw64 <= right)))
+            & (((ey_raw >= bottom) & (ey_raw <= top)) == ((ey_raw64 >= bottom) & (ey_raw64 <= top))))
+    assert same.float().mean().item() >= 0.99
+    for g, w in zip(got, want):
+        err = (g.double() - w).abs()[same]
+        assert bool((err <= 1e-5 * w.abs()[same] + 1e-12).all()), float((err / w.abs()[same].clamp_min(1e-30)).max())
 
 
 # --------------------------------------------------------------------------- K2's lanes
@@ -614,17 +756,41 @@ def test_refine_around_argmin_matches_jax_draft_refine(variant):
     assert_march_close(got.numpy(), want)
 
 
-def test_wrappers_refuse_tables_outside_the_unit_interval():
+def test_sharded_slices_take_the_grid_clamp_and_launches_need_one():
+    """K5 with a group takes every rank's slice with the config's grid's taps, since t* may be any
+    rank's offset: _grid_slice gives the grid's clamp, also where the slice alone would take the
+    quad's, and refuses a slice outside the grid's range; a K1 or K2 launch given no clamp fails
+    before it reads anything back."""
+    cpu = torch.device("cpu")
+    for cfg in (TC.RenderConfig(**DRAFT), TC.RenderConfig(img_height=32, img_width=32, num_sample_points=200,
+                                                          t_stop=1.025)):
+        grid = TS.sharded_sample_ts(cfg, 2)
+        for part in np.split(grid, 2):
+            ts, clamp = shadows_cuda._grid_slice(cpu, cfg, part)
+            assert torch.equal(ts, torch.from_numpy(part)) and clamp == shadows_cuda._ts_for(cpu, cfg)[1]
+        for outside in (np.array([0.1, 1.5], np.float32), np.array([-0.01, 0.2], np.float32),
+                        np.array([0.1, np.nan], np.float32)):
+            with pytest.raises(ValueError, match="grid's range"):
+                shadows_cuda._grid_slice(cpu, cfg, outside)
+    assert shadows_cuda._grid_slice(cpu, cfg, grid[:8])[1] and not shadows_cuda._ts_for(cpu, cfg, grid[:8])[1]
+    depth, mask, light = draft_scene(23)
+    cfg = TC.RenderConfig(**DRAFT)
+    staged = TS.Staged(torch.zeros((4, 65, 65, 2)), None)
+    with pytest.raises(TypeError, match="clamp"):
+        shadows_cuda._launch("march", staged, mask, light, shadows_cuda._ts_for(cpu, cfg)[0], cfg)
+    with pytest.raises(TypeError):
+        shadows_cuda._launch_argmin(depth, mask, light, shadows_cuda._ts_for(cpu, cfg)[0], cfg)
+
+
+def test_wrappers_tell_tables_outside_the_unit_interval():
+    """A given table is read once: whether it lies in [0, 1] chooses the kernels' taps."""
     depth, mask, light = draft_scene(22)
     cfg = TC.RenderConfig(**DRAFT)
-    with pytest.raises(ValueError):
-        shadows_cuda._ts_for(torch.device("cpu"), cfg, np.array([0.1, 1.5], np.float32))
-    with pytest.raises(ValueError):
-        shadows_cuda._ts_for(torch.device("cpu"), cfg, torch.tensor([-0.01, 0.2]))
-    with pytest.raises(ValueError):
-        shadows_cuda._ts_for(torch.device("cpu"), cfg, torch.tensor([0.1, float("nan")]))
-    ts = shadows_cuda._ts_for(torch.device("cpu"), cfg, torch.tensor([0.0, 0.5, 1.0]))
-    assert ts.dtype == torch.float32 and ts.tolist() == [0.0, 0.5, 1.0]
+    for table in (np.array([0.1, 1.5], np.float32), torch.tensor([-0.01, 0.2]), torch.tensor([0.1, float("nan")])):
+        assert shadows_cuda._ts_for(torch.device("cpu"), cfg, table)[1]
+    ts, clamp = shadows_cuda._ts_for(torch.device("cpu"), cfg, torch.tensor([0.0, 0.5, 1.0]))
+    assert not clamp and ts.dtype == torch.float32 and ts.tolist() == [0.0, 0.5, 1.0]
+    assert not shadows_cuda._ts_for(torch.device("cpu"), cfg)[1]
     with pytest.raises(NotImplementedError):
         shadows_cuda.refine_around_argmin_cuda(depth.clone().requires_grad_(), mask, light,
                                                torch.zeros((4, 16, 16), dtype=torch.int32), ts, cfg)
@@ -642,8 +808,9 @@ def kernel_live(mask: torch.Tensor, chunk: int) -> torch.Tensor:
     """
     b, h, w = mask.shape
     live = torch.zeros((b, h, w), dtype=torch.bool)
-    for g in range(h // BLOCK_ROWS):
-        rows = mask[:, g * BLOCK_ROWS:(g + 1) * BLOCK_ROWS]
+    for g in range(-(-h // BLOCK_ROWS)):
+        # A thread past the last row reads the last row (min(row, h - 1)).
+        rows = mask[:, [min(g * BLOCK_ROWS + y, h - 1) for y in range(BLOCK_ROWS)]]
         for col0 in range(0, w, BLOCK_COLS):
             u_first = col0 // chunk
             n_units = (min(col0 + BLOCK_COLS, w) - 1) // chunk + 1 - u_first
@@ -656,35 +823,40 @@ def kernel_live(mask: torch.Tensor, chunk: int) -> torch.Tensor:
     return live
 
 
-@pytest.mark.parametrize("chunk", [16, 32, 64, 0], ids=["col16", "col32", "col64", "row"])
-def test_in_kernel_cull_is_cull_live_blocks(chunk):
-    rng = np.random.default_rng(chunk)
-    size = 128
-    mask = np.zeros((3, size, size), np.float32)
+@pytest.mark.parametrize("h, w, chunk", [(128, 128, 16), (128, 128, 32), (128, 128, 64), (128, 128, 0),
+                                         (60, 96, 24), (62, 120, 40), (36, 96, 48), (60, 60, 0)],
+                         ids=["col16", "col32", "col64", "row", "60x96_col24", "62x120_col40", "36x96_col48",
+                              "60x60_row"])
+def test_in_kernel_cull_is_cull_live_blocks(h, w, chunk):
+    rng = np.random.default_rng(chunk + h)
+    mask = np.zeros((3, h, w), np.float32)
     for i in range(3):  # sparse faces: a few small patches, and single pixels on unit edges
         for _ in range(4):
-            y, x = rng.integers(0, size - 6, 2)
+            y, x = rng.integers(0, h - 6), rng.integers(0, w - 6)
             mask[i, y:y + rng.integers(1, 6), x:x + rng.integers(1, 6)] = 1.0
-        mask[i, rng.integers(0, size), 63] = mask[i, rng.integers(0, size), 64] = 2.5
+        mask[i, rng.integers(0, h), w // 2 - 1] = mask[i, rng.integers(0, h), w // 2] = 2.5
+        mask[i, h - 1, rng.integers(0, w)] = 1.0  # the last (short) row group
     mask[2] = 0.0
-    mask[2, 17, 127] = -1.0  # any nonzero is face
-    cfg = TC.RenderConfig(img_height=size, img_width=size, shadow_mask_cull=True, shadow_col_chunk=chunk)
+    mask[2, 17, w - 1] = -1.0  # any nonzero is face
+    cfg = TC.RenderConfig(img_height=h, img_width=w, shadow_mask_cull=True, shadow_col_chunk=chunk)
     c = TS.effective_col_chunk(cfg)
     m = torch.from_numpy(mask)
-    want = TS.cull_live_blocks(m, c).repeat_interleave(8, dim=1).repeat_interleave(c, dim=2)
+    want = TS.cull_live_blocks(m, c).repeat_interleave(8, dim=1)[:, :h].repeat_interleave(c, dim=2)
     assert torch.equal(kernel_live(m, c), want)
     assert torch.equal(want, TS._live_pixels(m, cfg))
+    # The JAX package's cull, block by block.
+    np.testing.assert_array_equal(want.numpy(), np.stack([np.asarray(JS.cull_live_blocks(jnp.asarray(x), c))
+                                                          for x in mask]))
 
 
 def test_the_staging_pads_and_interleaves_depth_and_mask():
     """stage_kernel's rule, as the transcription above reads it: padded
     (y, x) is (depth, mask) at (max(y - 1, 0), max(x - 1, 0)); and a t grid
-    outside [0, 1] is refused."""
+    outside [0, 1] is told apart (the kernels take their clamped taps)."""
     depth, mask = draw_scene(5, 32)
     staged = stage(depth, mask)
     assert staged.shape == (3, 33, 33, 2) and staged.is_contiguous()
     ys = torch.clamp(torch.arange(33) - 1, min=0)
     assert torch.equal(staged[..., 0], depth[:, ys][:, :, ys]) and torch.equal(staged[..., 1], mask[:, ys][:, :, ys])
     cfg = dataclasses.replace(TC.RenderConfig(img_height=32, img_width=32), t_stop=1.2, num_sample_points=235)
-    with pytest.raises(ValueError):
-        shadows_cuda._ts_for(torch.device("cpu"), cfg)
+    assert shadows_cuda._ts_for(torch.device("cpu"), cfg)[1]

@@ -7,7 +7,8 @@ package combines with two pmins (shadows_pallas.py:851-855): the minimum
 distance over the ranks, then the smallest t among the ranks that reach it.
   * On hypothesis-drawn per-rank (distance, t) arrays, with ties across
     ranks, negative distances (a negative shadow_bias), the 1e6 sentinel and
-    1e6 + bias, and t from a padded table that repeats its last offset:
+    1e6 + bias, and t from a padded table that repeats its last offset (one
+    that starts below 0 too):
     unpack_march_key of the MIN over the ranks of pack_march_key is those two
     pmins computed in numpy, bit for bit, and pack / unpack round-trip bit
     for bit (-0 read as +0, which the MIN cannot tell apart).
@@ -58,7 +59,7 @@ def rank_arrays(draw):
     pixels = draw(st.integers(1, 48))
     n = draw(st.integers(ranks, 40))  # the grid's samples before the pad
     chunk = -(-n // ranks)
-    start = draw(st.sampled_from([0.0, 0.025, 0.03]))
+    start = draw(st.sampled_from([0.0, 0.025, 0.03, -0.07]))  # a table may start below 0
     grid = (start + 0.005 * np.arange(n)).astype(np.float32)
     table = np.concatenate([grid, np.repeat(grid[-1:], ranks * chunk - n)]).reshape(ranks, chunk)
     bias = draw(st.sampled_from(BIASES))
@@ -93,7 +94,7 @@ def test_min_of_keys_is_the_two_pmins(arrays):
 
 @settings(max_examples=200, deadline=None)
 @given(st.lists(st.floats(width=32, allow_nan=False), min_size=2, max_size=64),
-       st.floats(0.0, 1.0, width=32))
+       st.floats(-2.0, 2.0, width=32))
 def test_key_order_is_the_distance_order(values, t):
     """Any two distances at one t order as their keys do (equal keys for equal values, -0 and +0 too)."""
     d = torch.tensor(values, dtype=torch.float32)
@@ -115,7 +116,11 @@ def test_sliced_keys_are_the_full_grid_march():
     depth, mask, lights = map(torch.from_numpy, (depth, mask, lights))
     table = torch.from_numpy(TS.sharded_sample_ts(cfg, 3)).view(3, -1)
     slices = [TS.ray_march_argmin_batch(depth, mask, lights, cfg, ts) for ts in table]
-    keys = torch.stack([shadows_cuda._march_key(depth, mask, lights, ts, cfg)[0] for ts in table])
+    keys = []
+    for ts in table:  # each slice as K5 takes it: in the grid's range, with the grid's taps
+        ts, clamp = shadows_cuda._grid_slice(torch.device("cpu"), cfg, ts)
+        keys.append(shadows_cuda._march_key(depth, mask, lights, ts, cfg, clamp=clamp)[0])
+    keys = torch.stack(keys)
     for (d, idx), ts, key in zip(slices, table, keys):
         assert torch.equal(key, TS.pack_march_key(d, ts[idx.long()]))
     got_d, got_t = shadows_cuda._combine(keys.amin(dim=0), None)

@@ -202,15 +202,26 @@ def test_grid_shapes_agree(runs):
 
 
 def test_trainer_with_a_mesh_equals_one_process(tmp_path):
+    trainer_on_a_mesh_equals_one_process(tmp_path, "auto")
+
+
+def test_trainer_with_a_mesh_streams_under_device_residency(tmp_path):
+    trainer_on_a_mesh_equals_one_process(tmp_path, "device")
+
+
+def trainer_on_a_mesh_equals_one_process(tmp_path, residency):
+    """Both residencies stream on the two ranks (the JAX package's Trainer does so on a mesh of
+    several devices); the one process keeps the set on its device."""
     cfg = tiny(TC.preset_target_lighting_train(), lr=LR)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batches_per_epoch=2, log_every_steps=1,
-                                                             checkpoint_every_steps=0))
+                                                             checkpoint_every_steps=0, data_residency=residency))
     ctx = distributed.spawn(child.trainer_epoch, 2, "cpu", str(tmp_path / "rdzv"), join=False,
                             args=(str(tmp_path), "trainer", (2,), cfg, str(tmp_path / "mesh"), 3))
     single = TT.Trainer(cfg, SyntheticFaceData(num_samples=8, size=32), workdir=str(tmp_path / "one"), device="cpu")
     state, avg = single.run_epoch(single.init_or_resume(torch.Generator().manual_seed(3)), 0)
     wait(ctx)
     ranks = load(tmp_path, "trainer", 2)
+    assert all(r["streams"] for r in ranks) and single._resident() is not None
     assert_same(ranks[1]["state"], ranks[0]["state"], "trainer")
     for k, v in avg.items():
         if k != "seconds":

@@ -307,10 +307,11 @@ def test_trainer_refuses_what_it_does_not_do():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TT.Trainer(trainer_cfg())  # no CUDA device here, and no device asked for
     # The whole set on the device runs on one rank (tests/test_torch_train_surface.py runs it);
-    # on a mesh of several ranks 'device' is refused rather than streamed silently.
+    # on a mesh of several ranks 'device' streams, as the JAX package's Trainer does
+    # (tests/test_torch_parallel.py runs it on two ranks).
     two_ranks = Mesh(("data",), (2,), 0, (0,), (None,), None, torch.device("cpu"))
-    with pytest.raises(ValueError, match="2 ranks"):
-        TT.Trainer(trainer_cfg(data_residency="device"), mesh=two_ranks)
+    assert TT.Trainer(trainer_cfg(data_residency="device"), data=TD.SyntheticFaceData(4, size=32),
+                      mesh=two_ranks)._resident() is None
     assert isinstance(TT.Trainer(trainer_cfg(data_residency="device"), data=TD.SyntheticFaceData(4, size=32),
                                  device="cpu")._resident(), TT.DeviceResidentBatches)
 

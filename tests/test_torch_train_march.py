@@ -5,8 +5,9 @@ forward and `shadows.march_vjp` backward: the structure kernel K2 and kernel
 march_grad run on the card (tests/test_torch_cuda.py holds those to this
 path). Inputs are 64x64 cosine terrain with a face mask, 16 samples, lights
 outside and inside the image, a seeded random cotangent. Held against:
-  * jax.vjp of JAX's vmapped gather evaluator `sample_distance_at` at JAX's
-    own t*, on the pixels whose t* the two marches agree on (the cotangent
+  * jax.vjp of JAX's vmapped gather evaluator `sample_distance_at` (the
+    one-hot veto, as the custom VJP's backward vetoes whatever the forward's
+    veto) at JAX's own t*, on the pixels whose t* the two marches agree on (the cotangent
     is zeroed elsewhere on both sides): d_depth |d| <= 1e-3 * max |d_depth|,
     d_light |d| <= 2e-4 * max |d_light| of its image. The two compute the
     same float32 formula, but near a zero distance the cross product of BA
@@ -25,7 +26,8 @@ outside and inside the image, a seeded random cotangent. Held against:
     pixels whose winning sample lands a shifted coordinate on an exact
     integer (there the reference's floor/ceil taps, kept by the port, and
     the kernel's hat taps differ by design; ROADMAP queue 3): the same
-    bars as against the gather evaluator.
+    bars as against the gather evaluator, under each of the four vetoes of
+    the forward.
 """
 
 import dataclasses
@@ -114,12 +116,18 @@ def jax_vjp_at(depth, mask, lights, t_star, g, jcfg, evaluator=JS.sample_distanc
     return np.asarray(gd), np.asarray(gl)
 
 
-@pytest.mark.parametrize("veto", ["onehot"])
+@pytest.mark.parametrize("veto", ["onehot", "bilinear"])
 def test_plain_vjp_matches_jax_vjp_at_tstar(veto):
+    """JAX's t*: its pure march under the one-hot veto; under the bilinear
+    veto, which only the Pallas kernel has, the kernel in interpret mode.
+    The backward vetoes one-hot under both, as `_vjp_bwd` does."""
     depth, mask, lights, g = scene(seed=1)
     jcfg, tcfg = cfgs(shadow_mask_gather=veto)
-    _, jt = JS.ray_march_min_distance_batch(jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights), jcfg,
-                                            return_argmin_t=True)
+    j_in = (jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights))
+    if veto == "onehot":
+        _, jt = JS.ray_march_min_distance_batch(*j_in, jcfg, return_argmin_t=True)
+    else:
+        _, jt = JSP.ray_march_min_distance_pallas(*j_in, jcfg, return_argmin_t=True, interpret=True)
     jt = np.asarray(jt)
     _, _, tt = port_grads(depth, mask, lights, g, tcfg)
     agree = tt == jt
@@ -157,11 +165,13 @@ def integer_tap_pixels(depth, mask, lights, t_star, cfg):
     return ((xt == torch.floor(xt)) | (yt == torch.floor(yt)))[:, 0].numpy()
 
 
-def test_plain_vjp_matches_the_pallas_vjp_in_interpret_mode(monkeypatch):
+@pytest.mark.parametrize("veto", ["onehot", "bilinear", "hat", "hat_y"])
+def test_plain_vjp_matches_the_pallas_vjp_in_interpret_mode(monkeypatch, veto):
+    """Under every veto of the forward; the backward of both vetoes the winner one-hot."""
     monkeypatch.setattr(JSP, "ray_march_min_distance_pallas",
                         functools.partial(JSP.ray_march_min_distance_pallas, interpret=True))
     depth, mask, lights, g = scene(seed=3)
-    jcfg, tcfg = cfgs()
+    jcfg, tcfg = cfgs(shadow_mask_gather=veto)
     _, jt = JSP.ray_march_min_distance_pallas(jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(lights), jcfg,
                                               return_argmin_t=True)
     jt = np.asarray(jt)

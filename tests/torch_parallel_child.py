@@ -52,7 +52,8 @@ def k5(device, out_dir, tag, cfg, depth, mask, lights, cot):
         out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, m.world_group)
         (out * cot).sum().backward()
     launches = {k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()}
-    key, _ = shadows_cuda._march_key(depth, mask, lights, ts_local, cfg)
+    ts_key, clamp = shadows_cuda._grid_slice(device, cfg, ts_local)
+    key, _ = shadows_cuda._march_key(depth, mask, lights, ts_key, cfg, clamp=clamp)
     _, t_star = shadows_cuda._combine(key, m.world_group)
     served, served_t = shadows_cuda.sharded_march(depth, mask, lights, cfg, ts_local, m.world_group,
                                                   return_argmin_t=True)
@@ -147,7 +148,7 @@ def trainer_epoch(device, out_dir, tag, shape, cfg, workdir, seed):
     state = trainer.init_or_resume(torch.Generator().manual_seed(seed))
     state, avg = trainer.run_epoch(state, 0)
     trainer.save(state)
-    _save(out_dir, tag, rank, avg=avg, state=_snapshot(state))
+    _save(out_dir, tag, rank, avg=avg, state=_snapshot(state), streams=trainer._resident() is None)
 
 
 def trainer_epochs(device, out_dir, tag, cfg, workdir, epochs, num_samples):
