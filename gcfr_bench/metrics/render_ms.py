@@ -1,0 +1,10 @@
+"""render_ms.<split> (relight): device ms a call launched inside the program's gcfr.render
+span but not inside its gcfr.render.march (normals, shading and the composite), from the
+stretch of gcfr_bench/spans.py."""
+
+from gcfr_bench import spans
+
+
+def read(run):
+    split = spans.program_split(run)
+    return None if split is None else split.device_ms("gcfr.render")

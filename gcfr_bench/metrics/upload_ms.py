@@ -1,0 +1,10 @@
+"""upload_ms.<split> (relight): device ms a call launched inside the program's gcfr.upload
+span (the batch's host-to-device copies and uint8's division by 255), from the stretch of
+gcfr_bench/spans.py."""
+
+from gcfr_bench import spans
+
+
+def read(run):
+    split = spans.program_split(run)
+    return None if split is None else split.device_ms("gcfr.upload")

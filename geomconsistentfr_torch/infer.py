@@ -55,6 +55,7 @@ from geomconsistentfr_torch.ops.shadows_cuda import refine_min_distance_cuda, sh
 from geomconsistentfr_torch.parallel.mesh import Mesh, all_gather_cat
 from geomconsistentfr_torch.render import RenderOutputs, estimated_light, render
 from geomconsistentfr_torch.utils.checkpoint import restore_variables
+from geomconsistentfr_torch.utils.profiling import span
 
 # Channel layout of the packed uint8 visualization tensor (B, H, W, 12).
 VISUAL_PACK_LAYOUT = (
@@ -242,8 +243,9 @@ class Relighter:
         b = torch.as_tensor(images).shape[0]
         self._check_batch(b)
         part = self._part(b)
-        images, masks = self._as_input(images, part), self._as_input(masks, part)
-        light, ambient = self._targets(b, target_light, target_ambient, part)
+        with span("gcfr.upload"):
+            images, masks = self._as_input(images, part), self._as_input(masks, part)
+            light, ambient = self._targets(b, target_light, target_ambient, part)
         net = self._net(images)
         out = render(net.albedo, net.depth, net.lighting, masks, self.cfg.render,
                      target_light=light, target_ambient=ambient, march_fn=self._march_fn)
@@ -256,7 +258,7 @@ class Relighter:
         moved by one level between calls and between processes), and ranks
         that replicate the CNN around a sharded march must march the same
         depth bits."""
-        with deterministic_convs():
+        with span("gcfr.cnn"), deterministic_convs():
             return self.model(images, self.use_skips)
 
     @torch.no_grad()
@@ -269,17 +271,20 @@ class Relighter:
     def forward_visuals(self, images, masks, target_light=None, target_ambient=None) -> torch.Tensor:
         """`forward`, returned as the packed uint8 (B, H, W, 12) visuals."""
         out, masks = self._forward_local(images, masks, target_light, target_ambient)
-        return all_gather_cat(pack_visuals(out, masks), self._batch_group)
+        with span("gcfr.pack"):
+            packed = pack_visuals(out, masks)
+        return all_gather_cat(packed, self._batch_group)
 
     @torch.no_grad()
     def relight_sweep(self, image, mask, lights, ambients=None) -> RenderOutputs:
         """One image (H, W, 3), L target lights (L, 3) -> outputs with leading axis L."""
-        lights = torch.as_tensor(lights).to(self.device, torch.float32)
-        n = lights.shape[0]
-        if ambients is None:
-            ambients = torch.full((n,), 0.5)
-        ambients = torch.as_tensor(ambients).to(self.device, torch.float32)
-        image, mask = self._as_input(image), self._as_input(mask)
+        with span("gcfr.upload"):
+            lights = torch.as_tensor(lights).to(self.device, torch.float32)
+            n = lights.shape[0]
+            if ambients is None:
+                ambients = torch.full((n,), 0.5)
+            ambients = torch.as_tensor(ambients).to(self.device, torch.float32)
+            image, mask = self._as_input(image), self._as_input(mask)
         net = self._net(image[None])
 
         def tile(x):
@@ -293,7 +298,8 @@ class Relighter:
     def relight_sweep_rendered_u8(self, image, mask, lights, ambients=None) -> torch.Tensor:
         """Sweep returning only the masked uint8 renders (L, H, W, 3)."""
         out = self.relight_sweep(image, mask, lights, ambients)
-        return _to_unit(out.rendered * self._as_input(mask)[None, ..., None])
+        with span("gcfr.pack"):
+            return _to_unit(out.rendered * self._as_input(mask)[None, ..., None])
 
     @torch.no_grad()
     def estimate_lighting(self, images):
@@ -308,7 +314,9 @@ class Relighter:
         if group is not None:
             self._check_batch(b)
             part = self._part(b)
-        net = self._net(self._as_input(images, part))
+        with span("gcfr.upload"):
+            images = self._as_input(images, part)
+        net = self._net(images)
         unit, ambient = estimated_light(net.lighting, self.cfg.render)
         return all_gather_cat(unit, group), all_gather_cat(ambient, group)
 

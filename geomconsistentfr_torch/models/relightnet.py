@@ -36,6 +36,7 @@ from geomconsistentfr_torch.models.layers import (
     reset_torch_default,
     upsample2_nearest,
 )
+from geomconsistentfr_torch.utils.profiling import span
 
 FULL_SKIPS = (True, True, True, True)
 
@@ -150,27 +151,28 @@ class RelightNet(nn.Module):
             layer = ("deconv_" if transposed else "conv_") + name
             return bn(conv(m[layer], x, dt), name)
 
-        x = img.permute(0, 3, 1, 2).to(dt)
-
         # Encoder.
-        c1_og = lrelu(conv_bn(x, "c1_og"))
-        c1 = max_pool2(c1_og)
-        h1_1 = lrelu(conv_bn(c1, "h1_1"))
-        h1_out_og = lrelu(c1 + conv_bn(h1_1, "h1_2"))
-        skips = [h1_out_og]
-        h = h1_out_og
-        for stage, src in (("h2", "h1_out"), ("h3", "h2_out"), ("h4", "h3_out")):
-            h_in = max_pool2(h)
-            y = conv_bn(lrelu(conv_bn(h_in, f"{stage}_1")), f"{stage}_2")
-            h = lrelu(shortcut(h_in, f"shortcut_{src}", transposed=False) + y)
-            skips.append(h)
-        h4_out = skips.pop()
+        with span("gcfr.cnn.encoder"):
+            x = img.permute(0, 3, 1, 2).to(dt)
+            c1_og = lrelu(conv_bn(x, "c1_og"))
+            c1 = max_pool2(c1_og)
+            h1_1 = lrelu(conv_bn(c1, "h1_1"))
+            h1_out_og = lrelu(c1 + conv_bn(h1_1, "h1_2"))
+            skips = [h1_out_og]
+            h = h1_out_og
+            for stage, src in (("h2", "h1_out"), ("h3", "h2_out"), ("h4", "h3_out")):
+                h_in = max_pool2(h)
+                y = conv_bn(lrelu(conv_bn(h_in, f"{stage}_1")), f"{stage}_2")
+                h = lrelu(shortcut(h_in, f"shortcut_{src}", transposed=False) + y)
+                skips.append(h)
+            h4_out = skips.pop()
         identity = h4_out[:, : cfg.identity_channels]
         lighting_features = h4_out[:, cfg.identity_channels :]
 
         # Lighting head: f32 global average -> MLP.
-        lf = lighting_features.float().mean(dim=(2, 3))
-        lighting = self.linear_SL2(lrelu(self.linear_SL1(lf)))
+        with span("gcfr.cnn.lighting_head"):
+            lf = lighting_features.float().mean(dim=(2, 3))
+            lighting = self.linear_SL2(lrelu(self.linear_SL1(lf)))
 
         # Decoders; skip sources deepest first.
         skips = (skips[2], skips[1], skips[0], c1_og)
@@ -195,6 +197,8 @@ class RelightNet(nn.Module):
             x = lrelu(conv_bn(x, f"{prefix}_c2_3"))
             return conv(m[f"conv_{prefix}_c2_o"], x, dt).float()
 
-        albedo = torch.sigmoid(decoder("albedo")).permute(0, 2, 3, 1)
-        depth = 100.0 * decoder("depth")[:, 0]
+        with span("gcfr.cnn.decoder_albedo"):
+            albedo = torch.sigmoid(decoder("albedo")).permute(0, 2, 3, 1)
+        with span("gcfr.cnn.decoder_depth"):
+            depth = 100.0 * decoder("depth")[:, 0]
         return RelightNetOutputs(albedo=albedo, depth=depth, lighting=lighting)

@@ -55,6 +55,7 @@ from geomconsistentfr_torch.ops.shadows_cuda import (
     ray_march_min_distance_cuda,
     refine_min_distance_cuda,
 )
+from geomconsistentfr_torch.utils.profiling import span
 
 
 class RenderOutputs(NamedTuple):
@@ -100,6 +101,11 @@ def render(
     target_light (B, 3), need not be unit; target_ambient (B,); march_fn, an
     optional replacement of the march (see the module docstring).
     """
+    with span("gcfr.render"):
+        return _render(albedo, depth, lighting, mask, cfg, target_light, target_ambient, march_fn)
+
+
+def _render(albedo, depth, lighting, mask, cfg: RenderConfig, target_light, target_ambient, march_fn) -> RenderOutputs:
     b, h, w = depth.shape
     f = cfg.focal_length
 
@@ -138,9 +144,10 @@ def render(
 
     if depth.is_cuda and not cfg.use_pallas_shadows:
         raise ValueError("use_pallas_shadows=False: CUDA tensors march only through the CUDA kernels")
-    min_distance = shadow_min_distance(
-        depth.float().contiguous(), mask.float().contiguous(), light_point.float().contiguous(), cfg, march_fn
-    )
+    with span("gcfr.render.march"):
+        min_distance = shadow_min_distance(
+            depth.float().contiguous(), mask.float().contiguous(), light_point.float().contiguous(), cfg, march_fn
+        )
     weights = shadow_weights(min_distance)
     final_shading, rendered = composite(albedo, full_shading, ambient_map, weights)
 

@@ -215,49 +215,52 @@ def _train_step(state: TrainState, batch, cfg: PipelineConfig, use_skips, mesh, 
     images, face_mask = batch["image"], batch["face_mask"]
     group = mesh.group(mesh.axis_names[0]) if mesh is not None else None
 
-    net = g(images, use_skips, group)
-    out = render(net.albedo, net.depth, net.lighting, face_mask, cfg.render, march_fn=march_fn)
-    composite = masked_composite(out.rendered, images, face_mask)
+    with profiling.span("gcfr.train.forward"):
+        net = g(images, use_skips, group)
+        out = render(net.albedo, net.depth, net.lighting, face_mask, cfg.render, march_fn=march_fn)
+        composite = masked_composite(out.rendered, images, face_mask)
 
-    # D's BatchNorm statistics update over three forwards, in reference order.
-    fake_sg = d(composite.detach(), group)
-    real_sg = d(images, group)
-    d_metrics = discriminator_losses(fake_sg, real_sg, lcfg, group)
-    frozen = {name: p.detach() for name, p in d.named_parameters()}
-    fake_for_g = functional_call(d, frozen, (composite,), {"group": group})
+        # D's BatchNorm statistics update over three forwards, in reference order.
+        fake_sg = d(composite.detach(), group)
+        real_sg = d(images, group)
+        d_metrics = discriminator_losses(fake_sg, real_sg, lcfg, group)
+        frozen = {name: p.detach() for name, p in d.named_parameters()}
+        fake_for_g = functional_call(d, frozen, (composite,), {"group": group})
 
-    g_metrics = generator_losses(
-        rendered=out.rendered,
-        images=images,
-        depth=out.depth,
-        depth_gt=batch["depth_gt"],
-        depth_mask=batch["depth_mask"],
-        albedo=out.albedo,
-        albedo_gt=batch["albedo_gt"],
-        face_mask=face_mask,
-        est_ambient=out.ambient_values,
-        est_unit_dir=out.unit_light_direction,
-        light_gt=batch["light_gt"],
-        fake_logits=fake_for_g,
-        cfg=lcfg,
-        group=group,
-    )
-    state.opt_g.zero_grad(set_to_none=True)
-    state.opt_d.zero_grad(set_to_none=True)
-    (g_metrics["total"] + d_metrics["discriminator"]).backward()
-    # A parameter outside this step's graph (a skip branch whose gate is
-    # closed) gets a zero gradient, as jax.grad gives it: Adam then counts the
-    # step and decays its moments, as optax does, instead of skipping it.
-    for p in itertools.chain(g.parameters(), d.parameters()):
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mesh is not None:
-        average_gradients(list(itertools.chain(g.parameters(), d.parameters())), mesh.world_group)
-    # D's parameters and moments update only every gd_ratio-th step; its
-    # BatchNorm statistics and its loss every step (reference :624-629).
-    if state.step % cfg.train.gd_ratio == 0:
-        state.opt_d.step()
-    state.opt_g.step()
+        g_metrics = generator_losses(
+            rendered=out.rendered,
+            images=images,
+            depth=out.depth,
+            depth_gt=batch["depth_gt"],
+            depth_mask=batch["depth_mask"],
+            albedo=out.albedo,
+            albedo_gt=batch["albedo_gt"],
+            face_mask=face_mask,
+            est_ambient=out.ambient_values,
+            est_unit_dir=out.unit_light_direction,
+            light_gt=batch["light_gt"],
+            fake_logits=fake_for_g,
+            cfg=lcfg,
+            group=group,
+        )
+    with profiling.span("gcfr.train.backward"):
+        state.opt_g.zero_grad(set_to_none=True)
+        state.opt_d.zero_grad(set_to_none=True)
+        (g_metrics["total"] + d_metrics["discriminator"]).backward()
+        # A parameter outside this step's graph (a skip branch whose gate is
+        # closed) gets a zero gradient, as jax.grad gives it: Adam then counts the
+        # step and decays its moments, as optax does, instead of skipping it.
+        for p in itertools.chain(g.parameters(), d.parameters()):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            average_gradients(list(itertools.chain(g.parameters(), d.parameters())), mesh.world_group)
+    with profiling.span("gcfr.train.optimizer"):
+        # D's parameters and moments update only every gd_ratio-th step; its
+        # BatchNorm statistics and its loss every step (reference :624-629).
+        if state.step % cfg.train.gd_ratio == 0:
+            state.opt_d.step()
+        state.opt_g.step()
     state.step += 1
     return {k: v.detach() for k, v in {**g_metrics, **d_metrics}.items()}
 
@@ -434,8 +437,13 @@ class Trainer:
         t0 = time.time()
         pending: list = []
         tracing = profiling.trace(os.path.join(self.workdir, "profile")) if self.profile else contextlib.nullcontext()
+        batches = self._batches(rng, start_batch)
         with tracing:
-            for j, batch in enumerate(self._batches(rng, start_batch)):
+            for j in range(tcfg.batches_per_epoch - start_batch):
+                with profiling.span("gcfr.train.batch"):  # the fetch, decoded onto the device
+                    batch = next(batches, None)
+                if batch is None:  # a data source with fewer batches than the epoch asks
+                    break
                 pos = start_batch + j + 1  # 1-based position within the epoch
                 metrics = self.step_fn(state, batch, use_skips=use_skips)
                 if pos % tcfg.log_every_steps == 0:

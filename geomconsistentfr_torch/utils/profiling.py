@@ -1,4 +1,4 @@
-"""Tracing, step timing and NaN hunting (port of geomconsistentfr_tpu/utils/profiling.py).
+"""Tracing and NaN hunting (port of geomconsistentfr_tpu/utils/profiling.py).
 
   * `trace(log_dir)`: a context manager around `torch.profiler` (CPU
     activities, and CUDA's where a card is present) that writes a Chrome
@@ -6,7 +6,9 @@
     chrome://tracing) into `log_dir` on exit. The CUDA kernels appear in it
     under their own names (stage_kernel, march_kernel, march_grad_kernel,
     cuDNN's).
-  * `StepTimer`: wall-clock step time with an exponential moving average.
+  * `span(name)`: the program's named spans (`gcfr.*`), which a profiler's
+    trace shows on the host's timeline, on the clock of the device's
+    kernels and copies; with no profiler recording they cost one check.
   * `debug_nans(enable)`: the counterpart of `jax_debug_nans`, see below.
 """
 
@@ -18,6 +20,22 @@ import time
 from typing import Iterator, Optional
 
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function` span named `name` while a profiler records, else one shared
+    no-op context (a `record_function` costs about ten times the check even with the
+    profiler off). The relight path's spans: gcfr.upload, gcfr.cnn (its stages
+    gcfr.cnn.encoder, gcfr.cnn.lighting_head, gcfr.cnn.decoder_albedo and
+    gcfr.cnn.decoder_depth), gcfr.render (its march gcfr.render.march) and gcfr.pack;
+    the training step's: gcfr.train.batch, gcfr.train.forward, gcfr.train.backward and
+    gcfr.train.optimizer."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -87,22 +105,4 @@ def debug_nans(enable: bool = True) -> None:
     elif not enable and _NAN_HOOK is not None:
         _NAN_HOOK.remove()
         _NAN_HOOK = None
-
-
-class StepTimer:
-    """EMA wall-clock step timing: `with timer: ...` then `timer.ms`."""
-
-    def __init__(self, decay: float = 0.9):
-        self.decay = decay
-        self.ms: Optional[float] = None
-        self._t0 = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = (time.perf_counter() - self._t0) * 1e3
-        self.ms = dt if self.ms is None else self.decay * self.ms + (1 - self.decay) * dt
-        return False
 

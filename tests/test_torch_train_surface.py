@@ -199,11 +199,3 @@ def test_debug_nans_stops_at_the_first_nan_module_output():
         profiling.debug_nans(False)
     assert not torch.is_anomaly_enabled()
     net(x)
-
-
-def test_step_timer_keeps_an_average():
-    timer = profiling.StepTimer(decay=0.5)
-    for _ in range(3):
-        with timer:
-            pass
-    assert timer.ms is not None and timer.ms >= 0.0
