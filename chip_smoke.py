@@ -206,6 +206,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
               process on the card. Per-rank times are labelled "2 ranks on
               one <card>": two ranks on one card scale nothing. The train
               and parallel phases run last, so the others run as before.
+  14. epilogue csrc/epilogue.cu (the CNN's eval-mode epilogue) built, with
+              ptxas's registers; at batch 64, channels-last as the CNN runs,
+              each form at the shapes where RelightNet's forward runs it
+              (EPILOGUE_ROWS: bn_act alone and with a plain residual at
+              256^2 x 16 and 128^2 x 16, alone and with a projection
+              shortcut at 16^2 x 155, where C is not a multiple of 4; the
+              join with a plain residual and the skip from 128^2 x 16 and
+              with a shortcut and the skip from 16^2 x 64), bit-equal to the
+              eager composition; the kernel alone (torch.profiler) and the
+              wrapper (CUDA events) per launch beside the bound by bytes at
+              3.35 TB/s and the eager composition's time; Relighter's
+              forward_visuals at batch 64 (tier high): the kernel's launches
+              (EPILOGUES, none eager) and the BatchNorms they hold. It runs
+              right after build.
+Last (also after a failed phase), the `profiler` line: how many
+torch.profiler windows (`profiled`) it read, in how many the uncounted first
+call held fewer activities than a counted one, and how many were short.
 The phases from cli to launch (7-10 and those named) run in phase_surface.
 Then the `kernels` JSON line (K1-K4, K5 as `march_sp`, and `unpack_key`,
 which replaces the reference's pmin combine; K1-K4 with the vetoes and
@@ -361,18 +378,26 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def ptxas_registers(log: str) -> dict:
-    """kernel name -> the ptxas 'Used N registers' line of its instantiation."""
+def ptxas_registers(log: str, name_of=None) -> dict:
+    """kernel name -> the ptxas 'Used N registers' line of its instantiation;
+    `name_of` names a mangled entry (march.cu's kernels by default), None to skip it."""
+    name_of = name_of or sass_kernel_name
     regs, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)", line)
         if m:
             entry = m.group(1)
         elif "registers" in line and entry is not None:
-            name = sass_kernel_name(entry)
+            name = name_of(entry)
             if name is not None:
                 regs[name] = line.split(":", 1)[-1].strip()
     return regs
+
+
+def epilogue_kernel_name(mangled: str):
+    """'bn_act<cl, 4>' for csrc/epilogue.cu's bn_act_kernel<true, 4>, and so for the join."""
+    m = re.search(r"(bn_act|join)_kernelILb([01])ELi(\d+)E", mangled)
+    return m and f"{m.group(1)}<{'cl' if m.group(2) == '1' else 'nchw'}, {m.group(3)}>"
 
 
 # SASS opcode groups counted per kernel (the base opcode, before its first '.').
@@ -560,8 +585,25 @@ def paired_host_ms(a, b, iters: int = 20, rounds: int = 15) -> dict:
 # kernel (a one-element negation, left out), and a reading is taken again, up
 # to five windows, until the window holds a whole number of launches per
 # call; the fullest window is kept. Three windows in a row have read nothing
-# (march_grad_cuda at batch 64, H100 80GB HBM3).
+# (march_grad_cuda at batch 64, H100 80GB HBM3). After the epilogue phase's
+# windows, e2e's march profile lost the first launch of a kernel in the
+# window (stage_kernel of five (stage, K1) calls) in all five tries, after the
+# marker and a 2 ms spin. So each window opens on the marker and a short
+# spin, runs fn() once, which takes the window's first launch of each of its
+# kernels, and then the counted calls between two device-side spins of about
+# 2 ms (torch.cuda._sleep, after a synchronize): only the activities between
+# the long spins are read.
+# PROFILE_EDGES counts the windows, those whose first call held fewer
+# activities than each counted call (first_call_short), and those that held
+# too few activities (short).
 PROFILE_WINDOWS = 5
+PROFILE_PAD_CYCLES = 4_000_000
+PROFILE_EDGES = {"windows": 0, "first_call_short": 0, "short": 0}
+
+
+def is_spin(e) -> bool:
+    """A profile window's delimiting spin: torch.cuda._sleep's kernel, 0.5 ms or longer."""
+    return "spin_kernel" in e.name and e.time_range.elapsed_us() >= 500
 
 
 def profiled(fn, iters: int, keep, per_call: int = 0) -> list:
@@ -579,16 +621,31 @@ def profiled(fn, iters: int, keep, per_call: int = 0) -> list:
     for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             marker.neg_()
+            torch.cuda._sleep(1000)  # the window's first spin, too short to delimit
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
             torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        seen = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and "neg_kernel" not in e.name and keep(e.name)]
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+            torch.cuda.synchronize()
+        device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        spins = [i for i, e in enumerate(device) if is_spin(e)]
+        first = counted = []
+        if len(spins) == 2:
+            first, counted = ([e for e in part if not ("neg_kernel" in e.name or "spin_kernel" in e.name) and keep(e.name)]
+                              for part in (device[:spins[0]], device[spins[0] + 1:spins[1]]))
+        PROFILE_EDGES["windows"] += 1
+        PROFILE_EDGES["first_call_short"] += len(first) * iters < len(counted)
+        seen = [(e.name, e.time_range.elapsed_us()) for e in counted]
         if len(seen) > len(best):
             best = seen
         if best and (len(best) == per_call * iters if per_call else len(best) % iters == 0):
             break
+        PROFILE_EDGES["short"] += 1
     return best
 
 
@@ -606,6 +663,109 @@ def kernel_device_ms(fn, iters: int = 20, name: str = "march_kernel", readings: 
             per_call = max(1, round(len(seen) / iters))
             per_reading.append(sum(us for _, us in seen) / len(seen) * per_call / 1e3)
     return statistics.median(per_reading) if per_reading else None
+
+
+# The epilogue's forms at the shapes (B, C, H, W) of the convolution's output
+# where RelightNet's batch-64 forward runs them, and its launches there a
+# forward: bn_act alone (c1_og, c2_1-3, the skip branches' first layers,
+# h1_1, the stages' first), with a plain residual (h1_2, the skip branches'
+# second), with a projection shortcut's conv output and BatchNorm (h4_2);
+# the join with a plain residual (the last decoder stage) or a projection
+# shortcut (the first), and the skip at twice the size.
+EPILOGUE_ROWS = (("bn_act", (64, 16, 256, 256), 9), ("bn_act_residual", (64, 16, 256, 256), 2),
+                 ("join_residual_skip", (64, 16, 128, 128), 2), ("bn_act", (64, 16, 128, 128), 5),
+                 ("bn_act_residual", (64, 16, 128, 128), 3), ("bn_act", (64, 155, 16, 16), 1),
+                 ("bn_act_shortcut", (64, 155, 16, 16), 1), ("join_shortcut_skip", (64, 64, 16, 16), 2))
+# Float32 maps of the convolution output's size a form reads and writes, once each.
+EPILOGUE_MAPS = {"bn_act": 2, "bn_act_residual": 3, "bn_act_shortcut": 3, "join_residual_skip": 1 + 1 + 4 + 4,
+                 "join_shortcut_skip": 1 + 1 + 4 + 4}
+
+
+def phase_epilogue(dev):
+    """The epilogue kernel built, held bit for bit against the eager composition
+    at the main path's shapes, timed, and its launches counted on a batch-64 forward."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models import layers
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.ops import epilogue_cuda as E
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    t0 = time.perf_counter()
+    _, log = K.build(E.SOURCE)
+    E._library()
+    build_s = time.perf_counter() - t0
+    regs = ptxas_registers(log, epilogue_kernel_name)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cl = torch.channels_last
+    rows = []
+    for form, (b, c, h, w), per_forward in EPILOGUE_ROWS:
+        join = form.startswith("join")
+
+        def rand(*s):
+            return torch.randn(*s, generator=gen, device=dev).contiguous(memory_format=cl)
+
+        def bn():
+            m = layers.BatchNorm(c).to(dev).eval()
+            with torch.no_grad():
+                for t in (m.running_mean, m.bias):
+                    t.copy_(0.3 * torch.randn(c, generator=gen, device=dev))
+                for t in (m.running_var, m.weight):
+                    t.copy_(0.5 + torch.rand(c, generator=gen, device=dev))
+            return m
+
+        u, v = rand(b, c, h, w), rand(b, c, h, w)
+        bias, bias2 = torch.randn(c, generator=gen, device=dev), torch.randn(c, generator=gen, device=dev)
+        bn1, bn2 = bn(), bn()
+        skip = rand(b, c, 2 * h, 2 * w) if join else None
+        a = E.Affine(u, bn1.eval_vectors(bias), True)
+        r = E.Affine(v, bn2.eval_vectors(bias2), True) if "shortcut" in form else v if "residual" in form else None
+
+        def kernel():
+            return E.join(a, r, 0.2, skip) if join else E.bn_act(a, r, 0.2)
+
+        def eager():
+            y = bn1(u + bias.view(1, -1, 1, 1), torch.float32)
+            if "shortcut" in form:
+                y = bn2(v + bias2.view(1, -1, 1, 1), torch.float32) + y
+            elif "residual" in form:
+                y = v + y
+            y = layers.leaky_relu(y, 0.2)
+            return layers.upsample2_nearest(y) + skip if join else y
+
+        with torch.no_grad():
+            got, want = kernel(), eager()
+            torch.cuda.synchronize()
+            check(torch_equal_bits(got, want) and got.stride() == want.stride(), "epilogue",
+                  f"{form} at {(b, c, h, w)}: the kernel differs from the eager composition")
+            name = "join_kernel" if join else "bn_act_kernel"
+            bound = EPILOGUE_MAPS[form] * b * c * h * w * 4 / PEAK_BYTES_PER_S * 1e3
+            kernel_ms = kernel_device_ms(kernel, name=name)
+            rows.append(dict(form=form, shape=[b, c, h, w], per_forward=per_forward, kernel_ms=kernel_ms,
+                             ms=cuda_time_ms(kernel, 20, windows=3), eager_ms=cuda_time_ms(eager, 20, windows=3),
+                             bound_ms=bound, bound_by="bytes",
+                             hbm_share=None if kernel_ms is None else bound / kernel_ms))
+        del u, v, skip, got, want, a, r
+
+    # The benchmark's configuration: Relighter.forward_visuals at batch 64, tier high.
+    cfg = C.apply_precision_tier(C.preset_single_image(), "high")
+    state = RelightNet(cfg.model, generator=torch.Generator().manual_seed(0)).state_dict()
+    rl = Relighter(cfg, state, device=dev)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+    masks = np.full((64, 256, 256), 255, np.uint8)
+    light = np.repeat(np.asarray([[0.3, 0.4, 0.87]], np.float32), 64, 0)
+    rl.forward_visuals(images, masks, light)
+    E.EPILOGUES.update(fused=0, eager=0)
+    rl.forward_visuals(images, masks, light).cpu()
+    epilogues = dict(E.EPILOGUES)
+    bns = sum(isinstance(m, layers.BatchNorm) for m in rl.model.modules())
+    check(epilogues == {"fused": 47, "eager": 0}, "epilogue", f"a batch-64 forward evaluated {epilogues}")
+    emit("epilogue", ok=True, build_s=build_s, ptxas=regs, rows=rows, forward_epilogues=epilogues,
+         forward_batchnorms=bns)
 
 
 def load_goldens():
@@ -4015,6 +4175,7 @@ def main() -> int:
         emit("build", ok=True, seconds=seconds, kernels=list(COMPILED), ptxas=regs, sass=sass,
              loop_conversions={k: sum(lp[op] for lp in v["loops"] for op in ("F2I", "I2F", "FRND"))
                                for k, v in sass.items() if not k.endswith(".clamp")})
+        phase_epilogue(dev)
 
         goldens = load_goldens()
         march_err, march_ran = phase_march(goldens, dev)
@@ -4027,6 +4188,7 @@ def main() -> int:
         parallel_launches, k5 = phase_parallel(dev)
     except PhaseError as e:
         emit("failed", ok=False, error=str(e))
+        emit("profiler", ok=True, **PROFILE_EDGES)
         return 1
 
     # max_abs_err: the worst kernel-vs-plain |d| of every comparison of that
@@ -4094,6 +4256,7 @@ def main() -> int:
         library_ms=None, kernel_ms=unpack["kernel_ms"],
     ))
     print(json.dumps({"kernels": kernels}), flush=True)
+    emit("profiler", ok=True, **PROFILE_EDGES)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

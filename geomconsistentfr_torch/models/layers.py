@@ -10,6 +10,11 @@
     and the count is the group's, as JAX's `axis_name` does (:83-89).
   * `conv`: a conv or stride-1 transposed conv evaluated in a chosen dtype
     (parameters stay float32 and are cast per call, as flax promotes them).
+  * `conv_bn_act`: conv -> BatchNorm [+ residual] [-> LeakyReLU] [-> nearest
+    x2 upsample + skip], one epilogue. Where `epilogue_cuda.use_fused` holds
+    (CUDA, float32 activations, eval mode, no autograd) the convolutions run
+    without their bias and one launch of csrc/epilogue.cu does the rest, bit
+    for bit as the eager composition, which runs everywhere else.
   * `reset_torch_default`: torch's default init (kaiming-uniform a=sqrt(5),
     i.e. uniform(+-1/sqrt(fan_in)) for weight and bias) drawn from an
     explicit `torch.Generator`.
@@ -19,12 +24,13 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from geomconsistentfr_torch.ops import epilogue_cuda
 from geomconsistentfr_torch.parallel.mesh import all_mean, group_size
 
 
@@ -60,11 +66,33 @@ class BatchNorm(nn.BatchNorm2d):
         y = (x - mean.view(shape)) * inv.view(shape) * self.weight.view(shape) + self.bias.view(shape)
         return y.to(out_dtype)
 
+    def eval_vectors(self, conv_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """(5, C) float32: the convolution's bias (zeros without one), the running mean,
+        rsqrt(running var + eps), weight and bias, as the eval-mode forward computes
+        them. Kept until a source tensor is replaced or changed in place (its
+        data_ptr or _version), so a later load_state_dict is followed."""
+        sources = (conv_bias, self.running_mean, self.running_var, self.weight, self.bias)
+        live = [t for t in sources if t is not None]
+        if any(t.is_inference() for t in live):  # no version counter to follow
+            return self._eval_vectors(conv_bias)
+        stamp = (self.eps,) + tuple((id(t), t.data_ptr(), t._version) for t in live)
+        cached = getattr(self, "_vectors", None)
+        if cached is None or cached[0] != stamp:
+            # The sources are held with the stamp, so no other tensor takes their ids.
+            cached = self._vectors = (stamp, live, self._eval_vectors(conv_bias))
+        return cached[2]
 
-def conv(module: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Apply a Conv2d / stride-1 ConvTranspose2d with inputs and parameters in `dtype`."""
+    def _eval_vectors(self, conv_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        b = torch.zeros_like(self.running_mean) if conv_bias is None else conv_bias
+        inv = torch.rsqrt(self.running_var + self.eps)
+        return torch.stack([b, self.running_mean, inv, self.weight, self.bias])
+
+
+def conv(module: nn.Module, x: torch.Tensor, dtype: torch.dtype, bias: bool = True) -> torch.Tensor:
+    """Apply a Conv2d / stride-1 ConvTranspose2d with inputs and parameters in `dtype`;
+    without its bias where `bias` is False."""
     w = module.weight.to(dtype)
-    b = None if module.bias is None else module.bias.to(dtype)
+    b = None if module.bias is None or not bias else module.bias.to(dtype)
     x = x.to(dtype)
     if isinstance(module, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, stride=1, padding=module.padding)
@@ -123,6 +151,52 @@ def upsample2_nearest(x: torch.Tensor) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
+
+
+class Branch(NamedTuple):
+    """A convolution and its BatchNorm on input `x`, the convolution in `dtype`."""
+
+    conv: nn.Module
+    bn: BatchNorm
+    x: torch.Tensor
+    dtype: torch.dtype
+
+
+def conv_bn_act(main: Branch, residual: Union[None, torch.Tensor, Branch] = None, slope: Optional[float] = None,
+                *, dtype: torch.dtype, group=None, upsample: bool = False,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One epilogue: act(residual + BN(conv(x))), act LeakyReLU(slope) or the identity
+    (slope None), residual nothing, a tensor or another Branch (a projection shortcut);
+    with `upsample`, its nearest x2 upsample plus `skip` where given. The BatchNorms
+    narrow to `dtype`; `group` is their cross-replica group in train mode."""
+    if skip is not None and not upsample:
+        raise ValueError("a skip is added only after the upsample")
+    branches = (main, residual) if isinstance(residual, Branch) else (main,)
+    if epilogue_cuda.use_fused(main.x, dtype, *(br.bn for br in branches)):
+        a = _affine(main)
+        r = _affine(residual) if isinstance(residual, Branch) else residual
+        if upsample:
+            return epilogue_cuda.join(a, r, slope, skip)
+        return epilogue_cuda.bn_act(a, r, slope)
+    epilogue_cuda.EPILOGUES["eager"] += 1
+    y = main.bn(conv(main.conv, main.x, main.dtype), dtype, group)
+    if isinstance(residual, Branch):
+        residual = residual.bn(conv(residual.conv, residual.x, residual.dtype), dtype, group)
+    if residual is not None:
+        y = residual + y
+    if slope is not None:
+        y = leaky_relu(y, slope)
+    if upsample:
+        y = upsample2_nearest(y)
+        if skip is not None:
+            y = y + skip
+    return y
+
+
+def _affine(br: Branch) -> epilogue_cuda.Affine:
+    """The branch's convolution without its bias, with the vectors that add it and its BatchNorm."""
+    bias = br.conv.bias
+    return epilogue_cuda.Affine(conv(br.conv, br.x, br.dtype, bias=False), br.bn.eval_vectors(bias), bias is not None)
 
 
 @torch.no_grad()

@@ -15,6 +15,13 @@ the JAX model leaves without a dtype so that flax promotes them to float32;
 BatchNorm is float32 with a narrowed output; the lighting head and the
 outputs are float32.
 
+Each convolution with a BatchNorm ends in one epilogue
+(`layers.conv_bn_act`): its bias, the BatchNorm, the residual (a tensor or
+a projection shortcut's conv and BatchNorm) and the LeakyReLU, and at a
+decoder stage's end the upsample and the skip. In eval mode on the card in
+float32 without autograd that is one launch of csrc/epilogue.cu, bit for
+bit the eager composition that runs otherwise.
+
 Public layout is the JAX package's: images (B, H, W, 3) in [0, 1]; outputs
 albedo (B, H, W, 3), depth (B, H, W) (x100), lighting (B, 4). NCHW inside.
 """
@@ -29,12 +36,13 @@ from torch import nn
 from geomconsistentfr_torch.config import ModelConfig
 from geomconsistentfr_torch.models.layers import (
     BatchNorm,
+    Branch,
     conv,
+    conv_bn_act,
     leaky_relu,
     max_pool2,
     no_tf32,
     reset_torch_default,
-    upsample2_nearest,
 )
 from geomconsistentfr_torch.utils.profiling import span
 
@@ -141,29 +149,30 @@ class RelightNet(nn.Module):
         def lrelu(x):
             return leaky_relu(x, slope)
 
-        def bn(x, name):
-            return m[f"bn_{name}"](x, dt, group)
-
-        def conv_bn(x, name):
-            return bn(conv(m[f"conv_{name}"], x, dt), name)
+        def branch(x, name, layer=None, conv_dtype=dt):
+            """conv `layer` (conv_<name> by default) with BatchNorm bn_<name>, on x."""
+            return Branch(m[layer or f"conv_{name}"], m[f"bn_{name}"], x, conv_dtype)
 
         def shortcut(x, name, transposed):
-            layer = ("deconv_" if transposed else "conv_") + name
-            return bn(conv(m[layer], x, dt), name)
+            return branch(x, name, ("deconv_" if transposed else "conv_") + name)
+
+        def layer(main, residual=None, **join):
+            """One epilogue: lrelu(residual + BN(conv)) (layers.conv_bn_act)."""
+            return conv_bn_act(main, residual, slope, dtype=dt, group=group, **join)
 
         # Encoder.
         with span("gcfr.cnn.encoder"):
             x = img.permute(0, 3, 1, 2).to(dt)
-            c1_og = lrelu(conv_bn(x, "c1_og"))
+            c1_og = layer(branch(x, "c1_og"))
             c1 = max_pool2(c1_og)
-            h1_1 = lrelu(conv_bn(c1, "h1_1"))
-            h1_out_og = lrelu(c1 + conv_bn(h1_1, "h1_2"))
+            h1_1 = layer(branch(c1, "h1_1"))
+            h1_out_og = layer(branch(h1_1, "h1_2"), c1)
             skips = [h1_out_og]
             h = h1_out_og
             for stage, src in (("h2", "h1_out"), ("h3", "h2_out"), ("h4", "h3_out")):
                 h_in = max_pool2(h)
-                y = conv_bn(lrelu(conv_bn(h_in, f"{stage}_1")), f"{stage}_2")
-                h = lrelu(shortcut(h_in, f"shortcut_{src}", transposed=False) + y)
+                y1 = layer(branch(h_in, f"{stage}_1"))
+                h = layer(branch(y1, f"{stage}_2"), shortcut(h_in, f"shortcut_{src}", transposed=False))
                 skips.append(h)
             h4_out = skips.pop()
         identity = h4_out[:, : cfg.identity_channels]
@@ -180,21 +189,21 @@ class RelightNet(nn.Module):
         def decoder(prefix: str) -> torch.Tensor:
             x = identity
             for idx, (stage, _feat, src) in enumerate(_DECODER_STAGES):
+                # The skip branch first, always evaluated; the gate only adds it.
+                s = skips[idx]
+                s1 = layer(branch(s, f"{prefix}_skip_s{idx + 1}_1"))
+                s_out = layer(branch(s1, f"{prefix}_skip_s{idx + 1}_2"), s)
                 # Main-branch deconvs run in float32 (flax promotion in the
                 # JAX model); their BatchNorm narrows back to `dt`.
-                y1 = lrelu(bn(conv(m[f"deconv_{prefix}_{stage}_1"], x, torch.float32), f"{prefix}_{stage}_1"))
-                y2 = bn(conv(m[f"deconv_{prefix}_{stage}_2"], y1, torch.float32), f"{prefix}_{stage}_2")
+                main = f"{prefix}_{stage}"
+                y1 = layer(branch(x, f"{main}_1", f"deconv_{main}_1", torch.float32))
                 sc = x if src is None else shortcut(x, f"{prefix}_shortcut_{src}", transposed=True)
-                x = upsample2_nearest(lrelu(sc + y2))
-                # The skip branch is always evaluated; the gate only adds it.
-                s = skips[idx]
-                s1 = lrelu(conv_bn(s, f"{prefix}_skip_s{idx + 1}_1"))
-                s_out = lrelu(s + conv_bn(s1, f"{prefix}_skip_s{idx + 1}_2"))
-                if use_skips[idx]:
-                    x = x + s_out
-            x = lrelu(conv_bn(x, f"{prefix}_c2_1"))
-            x = lrelu(conv_bn(x, f"{prefix}_c2_2"))
-            x = lrelu(conv_bn(x, f"{prefix}_c2_3"))
+                # x = up2(lrelu(sc + y2)) [+ s_out]
+                x = layer(branch(y1, f"{main}_2", f"deconv_{main}_2", torch.float32), sc, upsample=True,
+                          skip=s_out if use_skips[idx] else None)
+            x = layer(branch(x, f"{prefix}_c2_1"))
+            x = layer(branch(x, f"{prefix}_c2_2"))
+            x = layer(branch(x, f"{prefix}_c2_3"))
             return conv(m[f"conv_{prefix}_c2_o"], x, dt).float()
 
         with span("gcfr.cnn.decoder_albedo"):

@@ -112,27 +112,27 @@ def _nvcc() -> str:
     candidate = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError("nvcc not found: the CUDA march kernel cannot be built")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def build() -> tuple[Path, str]:
-    """Compile march.cu unless a build of this source exists; (library, ptxas log)."""
-    src = SOURCE.read_bytes()
+def build(source: Path = SOURCE) -> tuple[Path, str]:
+    """Compile `source` (march.cu unless given) unless a build of it exists; (library, ptxas log)."""
+    src = source.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"march_{key}.so"
-    log = BUILD_DIR / f"march_{key}.log"
+    lib = BUILD_DIR / f"{source.stem}_{key}.so"
+    log = BUILD_DIR / f"{source.stem}_{key}.log"
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed to build {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees a whole file
     log.write_text(proc.stdout + proc.stderr)
     return lib, proc.stdout + proc.stderr
