@@ -7,6 +7,22 @@ traffic parameters; a per-layer metric named in BENCHMARK.json is read by
 `metrics/<metric>.py`, or for `<quantity>.<split>` without a file of its own,
 by `metrics/<quantity>.py`. Adding a cell, a configuration or a metric adds
 files.
+
+To add a cell, add:
+
+1. `workloads/<cell>.json`: its configuration, driver, chips, why, traffic
+   parameters and the limits of its `check`;
+2. `tests/sizes/<cell>.json`: the sizes at which the tests run it, `small` on
+   the CPU and `card` on the card, and `entry`, the Relighter method whose
+   output it fetches and checks (or null); the tests find it by name;
+3. where they are new: `configs/<config>.json` (the configuration as run,
+   with its source, `reduced` and `assumed`) and `drivers/<driver>.py`
+   (traffic, timed call, work counts and the reference's answers, with the
+   reference itself under `reference/`);
+4. where they are new: `metrics/<metric>.py`, one reader a per-layer metric;
+5. last, the cell's entries in BENCHMARK.json: the configuration, the
+   workload, the cell's name under each end-to-end metric it reports, and
+   its per-layer metrics.
 """
 
 from __future__ import annotations
@@ -274,14 +290,17 @@ def u8_gaps(got: np.ndarray, want: np.ndarray, face: np.ndarray) -> dict:
     """Levels by which uint8 outputs differ, over each image's face pixels.
 
     got, want (N, H, W, C) uint8; face (N, H, W) bool. Returns the worst
-    image's share of face bytes off by more than one level, and the mean gap
-    in levels over every face byte.
+    image's share of face bytes off by more than one level, the mean gap in
+    levels over every face byte, and the share of face bytes that differ at
+    all (which a few pixels far off, as at a shadow's edge, barely move).
     """
     gap = np.abs(got.astype(np.int16) - want.astype(np.int16))
     f = face[..., None]
     off = ((gap > 1) & f).reshape(len(gap), -1).sum(axis=1) / (f.reshape(len(gap), -1).sum(axis=1) * gap.shape[-1])
+    n_bytes = f.sum() * gap.shape[-1]
     return {"worst_image_off_by_2": float(off.max()),
-            "mean_gap": float((gap * f).sum() / (f.sum() * gap.shape[-1]))}
+            "mean_gap": float((gap * f).sum() / n_bytes),
+            "moved_share": float(((gap > 0) & f).sum() / n_bytes)}
 
 
 class Verdict:

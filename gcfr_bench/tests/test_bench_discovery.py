@@ -3,6 +3,7 @@
 import pytest
 
 from gcfr_bench import core, run
+from gcfr_bench.tests.conftest import SIZE_FILES, raw_sizes, sizes
 
 M = core.manifest()
 
@@ -52,3 +53,44 @@ def test_merge_is_deep():
     target = {"a": {"b": 1, "c": {"d": 2}}, "e": 3}
     run.merge(target, {"a": {"c": {"d": 4}}, "e": 5})
     assert target == {"a": {"b": 1, "c": {"d": 4}}, "e": 5}
+
+
+def test_every_workload_file_has_a_size_file_and_every_size_file_a_workload():
+    """A cell's test sizes are found by name: tests/sizes/<cell>.json beside workloads/<cell>.json."""
+    missing = sorted(set(WORKLOAD_FILES) - set(SIZE_FILES))
+    orphans = sorted(set(SIZE_FILES) - set(WORKLOAD_FILES))
+    assert not missing, f"workload files without a size file: {[f'gcfr_bench/tests/sizes/{c}.json' for c in missing]}"
+    assert not orphans, f"size files without a workload file: {[f'gcfr_bench/workloads/{c}.json' for c in orphans]}"
+
+
+def keys_within(overrides: dict, base: dict) -> bool:
+    """Every key of `overrides`, at every depth, is a key of `base` there."""
+    return all(k in base and (not isinstance(v, dict) or (isinstance(base[k], dict) and keys_within(v, base[k])))
+               for k, v in overrides.items())
+
+
+@pytest.mark.parametrize("cell", SIZE_FILES)
+def test_size_file_shape(cell):
+    """A size file holds the CPU overrides, the card's and the checked entry; the overrides
+    name only keys the cell's files have. Read as written, before the CPU render is merged in."""
+    from geomconsistentfr_torch.infer import Relighter
+
+    s = raw_sizes(cell)
+    assert set(s) == {"small", "card", "entry"}
+    assert s["entry"] is None or callable(getattr(Relighter, s["entry"], None))
+    wl = core.workload(cell)
+    assert set(s["small"]) <= {"workload", "config"}
+    for overrides in (s["small"].get("workload", {}), s["card"]):
+        assert keys_within(overrides, wl)
+    assert keys_within(s["small"].get("config", {}), core.config(wl["config"]))
+
+
+def test_cpu_render_merges_into_a_size_file_s_own_config(monkeypatch, tmp_path):
+    """A size file's own CPU config overrides survive the 64x64 render merged under them."""
+    from gcfr_bench.tests import conftest
+
+    (tmp_path / "x.json").write_text('{"small": {"config": {"pipeline": {"render": {"num_sample_points": 40,'
+                                     ' "img_width": 32}}}}, "card": {}, "entry": null}')
+    monkeypatch.setattr(conftest, "SIZES_DIR", tmp_path)
+    render = sizes("x")["small"]["config"]["pipeline"]["render"]
+    assert render == {"img_height": 64, "img_width": 32, "num_sample_points": 40}

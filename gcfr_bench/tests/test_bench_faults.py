@@ -11,13 +11,13 @@ import pytest
 import torch
 
 from gcfr_bench import core, run
-from gcfr_bench.tests.conftest import SMALL
+from gcfr_bench.tests.conftest import SIZES, WORKLOAD_FILES, sizes
 
 SEED = 2 ** 31 + 11
 
 
 def small_run(cell, seconds=0.2):
-    return run.run_cell(cell, SEED, seconds, False, device="cpu", overrides=SMALL[cell])
+    return run.run_cell(cell, SEED, seconds, False, device="cpu", overrides=sizes(cell)["small"])
 
 
 def xor_first(fn):
@@ -28,8 +28,8 @@ def xor_first(fn):
     return altered
 
 
-@pytest.mark.parametrize("cell,method", [("single_image.batch64", "forward_visuals"),
-                                         ("single_image.sweep64", "relight_sweep_rendered_u8")])
+@pytest.mark.parametrize("cell,method", [(cell, SIZES[cell]["entry"]) for cell in WORKLOAD_FILES
+                                         if cell in SIZES and SIZES[cell]["entry"]])
 def test_relight_answer_altered(monkeypatch, cell, method):
     from geomconsistentfr_torch.infer import Relighter
 
@@ -87,11 +87,11 @@ def test_train_half_batch(monkeypatch):
 GUARD = """
 import json, sys
 from gcfr_bench import core, run
-from gcfr_bench.tests.conftest import SMALL
+from gcfr_bench.tests.conftest import sizes
 results = {}
 for cell in sorted(p.stem for p in (core.BENCH / "workloads").glob("*.json")):
     r = run.run_cell(cell, 77, 0.5 if "serve" not in cell else 2.0, cell.endswith("sweep64"), device="cpu",
-                     overrides=SMALL[cell])
+                     overrides=sizes(cell)["small"])
     results[cell] = r["correct"]
 print(json.dumps({"correct": results, "forbidden": core.forbidden_modules(sys.modules)}))
 """
@@ -118,8 +118,10 @@ def test_forbidden_names_compare_whole():
 
 
 REFERENCE = """
-import sys
-import gcfr_bench.reference.model, gcfr_bench.reference.render, gcfr_bench.reference.train
+import importlib, sys
+from gcfr_bench import core
+for path in sorted((core.BENCH / "reference").glob("[!_]*.py")):
+    importlib.import_module("gcfr_bench.reference." + path.stem)
 print(sorted({m.split(".")[0] for m in sys.modules} & {"geomconsistentfr_torch", "geomconsistentfr_tpu", "jax"}))
 """
 
@@ -133,21 +135,13 @@ def test_reference_imports_nothing_of_the_program():
         assert "geomconsistentfr" not in path.read_text().replace("GeomConsistentFR", "")
 
 
-CARD = {  # each cell at its own image size and shapes, with fewer calls or seconds
-    "single_image.batch64": {"traffic": {"pool_batches": 2, "checked_calls": 2}},
-    "single_image.sweep64": {"traffic": {"pool_calls": 2, "checked_calls": 2}},
-    "single_image.serve_overload": {"traffic": {"checked_requests": 8}},
-    "target_lighting_train.b3": {},
-}
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", sorted(CARD))
+@pytest.mark.parametrize("cell", [cell for cell in WORKLOAD_FILES if cell in SIZES])
 def test_control_fails_on_the_card(cuda_device, cell):
     """A sound run is correct, and the control (the reference in TF32 in the program's
     place) fails at least one of the cell's limits."""
     wl = core.workload(cell)
-    run.merge(wl, CARD[cell])
+    run.merge(wl, SIZES[cell]["card"])  # the cell at its own shapes, with fewer calls
     drv = core.driver_module(wl["driver"]).Driver(wl, core.config(wl["config"]), SEED, cuda_device)
     drv.traced = False
     drv.setup()

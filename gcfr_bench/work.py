@@ -65,6 +65,13 @@ def relightnet_flops(variant: str, h: int, w: int) -> int:
     return sum(conv_flops(*c) for c in convs) + sum(2 * i * o for i, o in linears)
 
 
+def relightnet_encoder_flops(variant: str, h: int, w: int) -> int:
+    """Forward operations of one image through the encoder and the lighting head alone (the
+    first 12 convolutions and both linears): all that an estimate of the light needs."""
+    convs, linears = relightnet_layers(variant, h, w)
+    return sum(conv_flops(*c) for c in convs[:3 + 3 * len(ENCODER)]) + sum(2 * i * o for i, o in linears)
+
+
 def relightnet_first_conv_flops(h: int, w: int) -> int:
     return conv_flops(3, 16, 5, h, w)
 
