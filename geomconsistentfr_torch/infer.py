@@ -303,7 +303,8 @@ class Relighter:
 
     @torch.no_grad()
     def estimate_lighting(self, images):
-        """Estimated (unit direction (B, 3), ambient (B,)), z clamped per the config.
+        """Estimated (unit direction (B, 3), ambient (B,)), z clamped per the config,
+        from RelightNet's encoder and lighting head (`RelightNet.estimate`): no decoder runs.
 
         Sharded in 'data' mode only: the samples and grid modes shard the
         march, which this skips, so any batch size works there.
@@ -316,8 +317,10 @@ class Relighter:
             part = self._part(b)
         with span("gcfr.upload"):
             images = self._as_input(images, part)
-        net = self._net(images)
-        unit, ambient = estimated_light(net.lighting, self.cfg.render)
+        # The encoder and the lighting head alone, under _net's deterministic convolutions.
+        with span("gcfr.cnn"), deterministic_convs():
+            lighting = self.model.estimate(images)
+        unit, ambient = estimated_light(lighting, self.cfg.render)
         return all_gather_cat(unit, group), all_gather_cat(ambient, group)
 
     def transfer_lighting(self, input_images, reference_images, masks) -> RenderOutputs:

@@ -24,10 +24,14 @@ bit the eager composition that runs otherwise.
 
 Public layout is the JAX package's: images (B, H, W, 3) in [0, 1]; outputs
 albedo (B, H, W, 3), depth (B, H, W) (x100), lighting (B, 4). NCHW inside.
+`estimate` runs the encoder and the lighting head alone (the lighting is
+read from the encoder's last map; the decoders feed nothing into it), the
+same code as `forward`'s first part, so its lighting is bit-equal.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -140,29 +144,39 @@ class RelightNet(nn.Module):
         with no_tf32():
             return self._forward(img, use_skips, group)
 
-    def _forward(self, img, use_skips, group) -> RelightNetOutputs:
-        cfg = self.cfg
-        slope = cfg.leaky_slope
-        dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    def estimate(self, img: torch.Tensor) -> torch.Tensor:
+        """The lighting head's output (B, 4) alone: the encoder and the head run,
+        the decoders do not. Bit-equal to `forward(img).lighting`."""
+        with no_tf32():
+            return self._encode(img, None)[2]
+
+    def _dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else torch.float32
+
+    def _branch(self, x, name, layer=None, conv_dtype=None) -> Branch:
+        """conv `layer` (conv_<name> by default) with BatchNorm bn_<name>, on x."""
         m = self._modules
+        return Branch(m[layer or f"conv_{name}"], m[f"bn_{name}"], x, conv_dtype or self._dtype())
 
-        def lrelu(x):
-            return leaky_relu(x, slope)
+    def _layer(self, main, residual=None, group=None, **join) -> torch.Tensor:
+        """One epilogue: lrelu(residual + BN(conv)) (layers.conv_bn_act)."""
+        return conv_bn_act(main, residual, self.cfg.leaky_slope, dtype=self._dtype(), group=group, **join)
 
-        def branch(x, name, layer=None, conv_dtype=dt):
-            """conv `layer` (conv_<name> by default) with BatchNorm bn_<name>, on x."""
-            return Branch(m[layer or f"conv_{name}"], m[f"bn_{name}"], x, conv_dtype)
+    def _forward(self, img, use_skips, group) -> RelightNetOutputs:
+        identity, skips, lighting = self._encode(img, group)
+        with span("gcfr.cnn.decoder_albedo"):
+            albedo = torch.sigmoid(self._decoder("albedo", identity, skips, use_skips, group)).permute(0, 2, 3, 1)
+        with span("gcfr.cnn.decoder_depth"):
+            depth = 100.0 * self._decoder("depth", identity, skips, use_skips, group)[:, 0]
+        return RelightNetOutputs(albedo=albedo, depth=depth, lighting=lighting)
 
-        def shortcut(x, name, transposed):
-            return branch(x, name, ("deconv_" if transposed else "conv_") + name)
-
-        def layer(main, residual=None, **join):
-            """One epilogue: lrelu(residual + BN(conv)) (layers.conv_bn_act)."""
-            return conv_bn_act(main, residual, slope, dtype=dt, group=group, **join)
-
-        # Encoder.
+    def _encode(self, img, group):
+        """The encoder and the lighting head: (h4_out's identity channels, the
+        decoders' skip sources deepest first, lighting (B, 4))."""
+        cfg = self.cfg
+        layer, branch = functools.partial(self._layer, group=group), self._branch
         with span("gcfr.cnn.encoder"):
-            x = img.permute(0, 3, 1, 2).to(dt)
+            x = img.permute(0, 3, 1, 2).to(self._dtype())
             c1_og = layer(branch(x, "c1_og"))
             c1 = max_pool2(c1_og)
             h1_1 = layer(branch(c1, "h1_1"))
@@ -172,7 +186,7 @@ class RelightNet(nn.Module):
             for stage, src in (("h2", "h1_out"), ("h3", "h2_out"), ("h4", "h3_out")):
                 h_in = max_pool2(h)
                 y1 = layer(branch(h_in, f"{stage}_1"))
-                h = layer(branch(y1, f"{stage}_2"), shortcut(h_in, f"shortcut_{src}", transposed=False))
+                h = layer(branch(y1, f"{stage}_2"), branch(h_in, f"shortcut_{src}"))
                 skips.append(h)
             h4_out = skips.pop()
         identity = h4_out[:, : cfg.identity_channels]
@@ -181,33 +195,27 @@ class RelightNet(nn.Module):
         # Lighting head: f32 global average -> MLP.
         with span("gcfr.cnn.lighting_head"):
             lf = lighting_features.float().mean(dim=(2, 3))
-            lighting = self.linear_SL2(lrelu(self.linear_SL1(lf)))
+            lighting = self.linear_SL2(leaky_relu(self.linear_SL1(lf), cfg.leaky_slope))
+        return identity, (skips[2], skips[1], skips[0], c1_og), lighting
 
-        # Decoders; skip sources deepest first.
-        skips = (skips[2], skips[1], skips[0], c1_og)
-
-        def decoder(prefix: str) -> torch.Tensor:
-            x = identity
-            for idx, (stage, _feat, src) in enumerate(_DECODER_STAGES):
-                # The skip branch first, always evaluated; the gate only adds it.
-                s = skips[idx]
-                s1 = layer(branch(s, f"{prefix}_skip_s{idx + 1}_1"))
-                s_out = layer(branch(s1, f"{prefix}_skip_s{idx + 1}_2"), s)
-                # Main-branch deconvs run in float32 (flax promotion in the
-                # JAX model); their BatchNorm narrows back to `dt`.
-                main = f"{prefix}_{stage}"
-                y1 = layer(branch(x, f"{main}_1", f"deconv_{main}_1", torch.float32))
-                sc = x if src is None else shortcut(x, f"{prefix}_shortcut_{src}", transposed=True)
-                # x = up2(lrelu(sc + y2)) [+ s_out]
-                x = layer(branch(y1, f"{main}_2", f"deconv_{main}_2", torch.float32), sc, upsample=True,
-                          skip=s_out if use_skips[idx] else None)
-            x = layer(branch(x, f"{prefix}_c2_1"))
-            x = layer(branch(x, f"{prefix}_c2_2"))
-            x = layer(branch(x, f"{prefix}_c2_3"))
-            return conv(m[f"conv_{prefix}_c2_o"], x, dt).float()
-
-        with span("gcfr.cnn.decoder_albedo"):
-            albedo = torch.sigmoid(decoder("albedo")).permute(0, 2, 3, 1)
-        with span("gcfr.cnn.decoder_depth"):
-            depth = 100.0 * decoder("depth")[:, 0]
-        return RelightNetOutputs(albedo=albedo, depth=depth, lighting=lighting)
+    def _decoder(self, prefix: str, identity, skips, use_skips, group) -> torch.Tensor:
+        """Decoder `prefix` ('albedo' or 'depth') from the identity channels, before its output's activation."""
+        layer, branch = functools.partial(self._layer, group=group), self._branch
+        x = identity
+        for idx, (stage, _feat, src) in enumerate(_DECODER_STAGES):
+            # The skip branch first, always evaluated; the gate only adds it.
+            s = skips[idx]
+            s1 = layer(branch(s, f"{prefix}_skip_s{idx + 1}_1"))
+            s_out = layer(branch(s1, f"{prefix}_skip_s{idx + 1}_2"), s)
+            # Main-branch deconvs run in float32 (flax promotion in the
+            # JAX model); their BatchNorm narrows back to the compute dtype.
+            main = f"{prefix}_{stage}"
+            y1 = layer(branch(x, f"{main}_1", f"deconv_{main}_1", torch.float32))
+            sc = x if src is None else branch(x, f"{prefix}_shortcut_{src}", f"deconv_{prefix}_shortcut_{src}")
+            # x = up2(lrelu(sc + y2)) [+ s_out]
+            x = layer(branch(y1, f"{main}_2", f"deconv_{main}_2", torch.float32), sc, upsample=True,
+                      skip=s_out if use_skips[idx] else None)
+        x = layer(branch(x, f"{prefix}_c2_1"))
+        x = layer(branch(x, f"{prefix}_c2_2"))
+        x = layer(branch(x, f"{prefix}_c2_3"))
+        return conv(self._modules[f"conv_{prefix}_c2_o"], x, self._dtype()).float()

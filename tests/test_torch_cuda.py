@@ -1015,6 +1015,41 @@ def test_relighter_gives_the_same_bytes_from_call_to_call(dev, tier):
         assert np.array_equal(rl.forward_visuals(*row).cpu().numpy(), first)
 
 
+@pytest.mark.parametrize("variant", ["target", "transfer"])
+def test_estimate_at_batch_64_is_the_full_forwards_light_and_pack(dev, variant):
+    """estimate_lighting runs the encoder and the lighting head alone: at batch 64,
+    256x256, tier high, its light and ambient are the bits of `estimated_light` on the
+    full forward's lighting, and a transfer call's packed visuals under them are the
+    bytes of the same call under the full forward's estimate. Seeded random weights."""
+    from pathlib import Path
+
+    from geomconsistentfr_torch.config import apply_precision_tier, preset_lighting_transfer, preset_single_image
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.layers import deterministic_convs
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.render import estimated_light
+
+    fx = np.load(Path(__file__).parent / "golden" / "ref_transfer_00104.npz")
+    rng = np.random.default_rng(5)
+
+    def jittered(image):
+        return np.clip(image[None] + rng.uniform(-0.03, 0.03, (64, *image.shape)), 0.0, 1.0).astype(np.float32)
+
+    refs, inputs = jittered(fx["image"][:, ::-1]), jittered(fx["image"])
+    masks = np.repeat(fx["mask"][None], 64, 0)
+    preset = preset_single_image if variant == "target" else preset_lighting_transfer
+    cfg = apply_precision_tier(preset(), "high")
+    rl = Relighter(cfg, RelightNet(cfg.model, generator=torch.Generator().manual_seed(1)).state_dict())
+    unit, ambient = rl.estimate_lighting(refs)
+    with torch.no_grad(), deterministic_convs():
+        lighting = rl.model(rl._as_input(refs), rl.use_skips).lighting
+    want_unit, want_ambient = estimated_light(lighting, cfg.render)
+    assert unit.shape == (64, 3) and torch.equal(unit, want_unit) and torch.equal(ambient, want_ambient)
+    got = rl.forward_visuals(inputs, masks, target_light=unit, target_ambient=ambient)
+    want = rl.forward_visuals(inputs, masks, target_light=want_unit, target_ambient=want_ambient)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # Training from the CLI and the secondary models on the card
 # ---------------------------------------------------------------------------

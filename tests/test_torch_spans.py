@@ -91,6 +91,14 @@ def test_sweep_opens_upload_cnn_render_and_pack(relighter):
     assert found["gcfr.cnn.encoder"] == ["gcfr.cnn"]
 
 
+def test_estimate_opens_upload_cnn_encoder_and_head_only(relighter):
+    images, _, _ = inputs()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        relighter.estimate_lighting(images)
+    assert gcfr_spans(prof) == {"gcfr.upload": [None], "gcfr.cnn": [None],
+                                "gcfr.cnn.encoder": ["gcfr.cnn"], "gcfr.cnn.lighting_head": ["gcfr.cnn"]}
+
+
 def test_span_is_one_shared_null_context_with_the_profiler_off(relighter, monkeypatch):
     def refuse(name):
         raise AssertionError(f"record_function({name!r}) made with the profiler off")
