@@ -209,17 +209,35 @@ Phases (each prints one JSON line; any failure exits non-zero):
   14. epilogue csrc/epilogue.cu (the CNN's eval-mode epilogue) built, with
               ptxas's registers; at batch 64, channels-last as the CNN runs,
               each form at the shapes where RelightNet's forward runs it
-              (EPILOGUE_ROWS: bn_act alone and with a plain residual at
-              256^2 x 16 and 128^2 x 16, alone and with a projection
-              shortcut at 16^2 x 155, where C is not a multiple of 4; the
-              join with a plain residual and the skip from 128^2 x 16 and
-              with a shortcut and the skip from 16^2 x 64), bit-equal to the
+              (EPILOGUE_ROWS: bn_act alone at 256^2 x 16, alone and with a
+              projection shortcut at 16^2 x 155, where C is not a multiple
+              of 4; the join with a shortcut and the skip from 16^2 x 64;
+              the 16-channel 3x3 layers are phase conv3x3's), bit-equal to the
               eager composition; the kernel alone (torch.profiler) and the
               wrapper (CUDA events) per launch beside the bound by bytes at
               3.35 TB/s and the eager composition's time; Relighter's
-              forward_visuals at batch 64 (tier high): the kernel's launches
-              (EPILOGUES, none eager) and the BatchNorms they hold. It runs
-              right after build.
+              forward_visuals at batch 64 (tier high): the epilogues
+              (EPILOGUES, none eager; 18 of them in conv3x3.cu's store) and
+              the BatchNorms they hold. It runs right after build.
+  15. conv3x3  csrc/conv3x3.cu (the direct 3x3 convolution of the 16-channel
+              layers, the epilogue in its store) built, with ptxas's
+              registers and no spills; at each form and shape where the
+              batch-64 forward runs it (CONV3X3_ROWS: bn_act alone and with a
+              plain residual at 256^2 and 128^2, the transposed h8_1, the
+              join with a plain residual and the skip from 128^2 and with the
+              shortcut and the skip from 64^2) and at batch 1 and 8, held
+              against float64 (relative error <= 1e-5 of the output's
+              largest magnitude, and cuDNN's for comparison), two launches
+              bit-equal; the kernel alone (torch.profiler) and the call
+              (CUDA events) per launch beside cuDNN under
+              deterministic_convs followed by epilogue.cu (CUDA events and
+              its device time), the plain path (cuDNN, then the eager
+              epilogue), the bounds by operations at 67 TFLOP/s and by bytes
+              at 3.35 TB/s, and the kernel's share of the bound by
+              operations; Relighter's forward_visuals at batch 64 in both
+              variants: 18 direct launches, 47 epilogues, two forwards
+              bit-equal, and 2 direct launches an estimate_lighting. It runs
+              right after epilogue.
 Last (also after a failed phase), the `profiler` line: how many
 torch.profiler windows (`profiled`) it read, in how many the uncounted first
 call held fewer activities than a counted one, and how many were short.
@@ -667,18 +685,14 @@ def kernel_device_ms(fn, iters: int = 20, name: str = "march_kernel", readings: 
 
 # The epilogue's forms at the shapes (B, C, H, W) of the convolution's output
 # where RelightNet's batch-64 forward runs them, and its launches there a
-# forward: bn_act alone (c1_og, c2_1-3, the skip branches' first layers,
-# h1_1, the stages' first), with a plain residual (h1_2, the skip branches'
-# second), with a projection shortcut's conv output and BatchNorm (h4_2);
-# the join with a plain residual (the last decoder stage) or a projection
-# shortcut (the first), and the skip at twice the size.
-EPILOGUE_ROWS = (("bn_act", (64, 16, 256, 256), 9), ("bn_act_residual", (64, 16, 256, 256), 2),
-                 ("join_residual_skip", (64, 16, 128, 128), 2), ("bn_act", (64, 16, 128, 128), 5),
-                 ("bn_act_residual", (64, 16, 128, 128), 3), ("bn_act", (64, 155, 16, 16), 1),
+# forward: bn_act alone (c1_og, c2_2-3), with a projection shortcut's conv
+# output and BatchNorm (h4_2); the join with a projection shortcut (the first
+# decoder stage) and the skip at twice the size. The 16-channel 3x3 layers
+# compute their epilogue in csrc/conv3x3.cu's store (CONV3X3_ROWS).
+EPILOGUE_ROWS = (("bn_act", (64, 16, 256, 256), 5), ("bn_act", (64, 155, 16, 16), 1),
                  ("bn_act_shortcut", (64, 155, 16, 16), 1), ("join_shortcut_skip", (64, 64, 16, 16), 2))
 # Float32 maps of the convolution output's size a form reads and writes, once each.
-EPILOGUE_MAPS = {"bn_act": 2, "bn_act_residual": 3, "bn_act_shortcut": 3, "join_residual_skip": 1 + 1 + 4 + 4,
-                 "join_shortcut_skip": 1 + 1 + 4 + 4}
+EPILOGUE_MAPS = {"bn_act": 2, "bn_act_shortcut": 3, "join_shortcut_skip": 1 + 1 + 4 + 4}
 
 
 def phase_epilogue(dev):
@@ -722,7 +736,7 @@ def phase_epilogue(dev):
         bn1, bn2 = bn(), bn()
         skip = rand(b, c, 2 * h, 2 * w) if join else None
         a = E.Affine(u, bn1.eval_vectors(bias), True)
-        r = E.Affine(v, bn2.eval_vectors(bias2), True) if "shortcut" in form else v if "residual" in form else None
+        r = E.Affine(v, bn2.eval_vectors(bias2), True) if "shortcut" in form else None
 
         def kernel():
             return E.join(a, r, 0.2, skip) if join else E.bn_act(a, r, 0.2)
@@ -731,8 +745,6 @@ def phase_epilogue(dev):
             y = bn1(u + bias.view(1, -1, 1, 1), torch.float32)
             if "shortcut" in form:
                 y = bn2(v + bias2.view(1, -1, 1, 1), torch.float32) + y
-            elif "residual" in form:
-                y = v + y
             y = layers.leaky_relu(y, 0.2)
             return layers.upsample2_nearest(y) + skip if join else y
 
@@ -766,6 +778,188 @@ def phase_epilogue(dev):
     check(epilogues == {"fused": 47, "eager": 0}, "epilogue", f"a batch-64 forward evaluated {epilogues}")
     emit("epilogue", ok=True, build_s=build_s, ptxas=regs, rows=rows, forward_epilogues=epilogues,
          forward_batchnorms=bns)
+
+
+def conv3x3_kernel_name(mangled: str):
+    """'conv3x3' for csrc/conv3x3.cu's conv3x3_kernel."""
+    return "conv3x3" if "conv3x3_kernel" in mangled else None
+
+
+# The direct convolution's rows: its form, the (B, 16, H, W) input, whether the
+# layer is a ConvTranspose2d, and its launches a batch-64 forward (both
+# decoders and the encoder): bn_act alone at 256^2 (skip_s4_1, c2_1) and 128^2
+# (h1_1, skip_s3_1; the deconv h8_1), with a plain residual (skip_s4_2; h1_2,
+# skip_s3_2), the join with a plain residual and the skip from 128^2 (h8_2),
+# with the projection shortcut from 32 channels and the skip from 64^2 (h7_2);
+# then the batch sizes of the sweep (1) and the server (8), which no cell runs.
+CONV3X3_ROWS = (("bn_act", (64, 16, 256, 256), False, 4), ("bn_act_residual", (64, 16, 256, 256), False, 2),
+                ("bn_act", (64, 16, 128, 128), False, 3), ("bn_act", (64, 16, 128, 128), True, 2),
+                ("bn_act_residual", (64, 16, 128, 128), False, 3),
+                ("join_residual_skip", (64, 16, 128, 128), True, 2),
+                ("join_shortcut_skip", (64, 16, 64, 64), True, 2),
+                ("bn_act", (1, 16, 256, 256), False, 0), ("bn_act", (8, 16, 256, 256), False, 0),
+                ("bn_act_residual", (1, 16, 128, 128), False, 0), ("bn_act_residual", (8, 16, 128, 128), False, 0),
+                ("join_shortcut_skip", (1, 16, 64, 64), True, 0), ("join_shortcut_skip", (8, 16, 64, 64), True, 0))
+CONV3X3_LAUNCHES = {"forward": 18, "estimate": 2}
+
+
+def conv3x3_call(form, shape, transposed, dev, seed):
+    """(conv_bn_act on seeded inputs in `form`, the same in float64 on the eager formulas,
+    float32 maps the call reads and writes once each)."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from geomconsistentfr_torch.models import layers
+    from geomconsistentfr_torch.ops import conv3x3_cuda as D
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    b, c, h, w = shape
+
+    def rand(*s):
+        return torch.randn(*s, generator=gen, device=dev).contiguous(memory_format=cl)
+
+    def bn(ch):
+        m = layers.BatchNorm(ch).to(dev).eval()
+        with torch.no_grad():
+            for t in (m.running_mean, m.bias):
+                t.copy_(0.3 * torch.randn(ch, generator=gen, device=dev))
+            for t in (m.running_var, m.weight):
+                t.copy_(0.5 + torch.rand(ch, generator=gen, device=dev))
+        return m
+
+    x = rand(b, c, h, w)
+    conv = (nn.ConvTranspose2d if transposed else nn.Conv2d)(c, c, 3, padding=1).to(dev)
+    main = layers.Branch(conv, bn(c), x, torch.float32)
+    join = form.startswith("join")
+    skip = rand(b, c, 2 * h, 2 * w) if join else None
+    residual, maps = None, 2
+    if "residual" in form:
+        residual, maps = rand(b, c, h, w), 3
+    elif "shortcut" in form:
+        v = rand(b, 2 * c, h, w)
+        residual, maps = layers.Branch((nn.ConvTranspose2d if transposed else nn.Conv2d)(2 * c, c, 3, padding=1)
+                                       .to(dev), bn(c), v, torch.float32), 3
+    if join:
+        maps += 3 + 4  # the output and the skip at four times the size, less the one counted
+    extra = dict(upsample=True, skip=skip) if join else {}
+
+    def call():
+        return layers.conv_bn_act(main, residual, 0.2, dtype=torch.float32, **extra)
+
+    def want64():
+        def affine(br, u):
+            m = br.bn
+            y = u + br.conv.bias.double().view(1, -1, 1, 1)
+            return ((y - m.running_mean.double().view(1, -1, 1, 1)) / torch.sqrt(m.running_var.double() + m.eps)
+                    .view(1, -1, 1, 1)) * m.weight.double().view(1, -1, 1, 1) + m.bias.double().view(1, -1, 1, 1)
+
+        y = affine(main, F.conv2d(x.double(), D.conv_weight(conv).double(), padding=1))
+        if isinstance(residual, layers.Branch):
+            y = y + affine(residual, F.conv2d(residual.x.double(), D.conv_weight(residual.conv).double(), padding=1))
+        elif residual is not None:
+            y = y + residual.double()
+        y = torch.where(y >= 0, y, 0.2 * y)
+        return F.interpolate(y, scale_factor=2, mode="nearest") + skip.double() if join else y
+
+    return call, want64, maps
+
+
+def patched(module, name, value, fn):
+    """fn() with module.name set to value for the call."""
+    def run():
+        saved = getattr(module, name)
+        setattr(module, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(module, name, saved)
+    return run
+
+
+def phase_conv3x3(dev):
+    """The direct convolution built, held against float64 at the main path's shapes and at
+    batch 1 and 8, timed against cuDNN (deterministic) followed by epilogue.cu, and its
+    launches counted on a batch-64 forward and an estimate pass."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models import layers
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.ops import conv3x3_cuda as D
+    from geomconsistentfr_torch.ops import epilogue_cuda as E
+    from geomconsistentfr_torch.ops import shadows_cuda as K
+
+    t0 = time.perf_counter()
+    _, log = K.build(D.SOURCE)
+    D._library()
+    build_s = time.perf_counter() - t0
+    regs = ptxas_registers(log, conv3x3_kernel_name)
+    check(sorted(regs) == ["conv3x3"], "conv3x3", f"ptxas reported {regs}")
+    check(not re.search(r"[1-9]\d* bytes spill", log), "conv3x3", f"ptxas reports spills: {log}")
+    rows = []
+    for i, (form, (b, c, h, w), transposed, per_forward) in enumerate(CONV3X3_ROWS):
+        call, want64, maps = conv3x3_call(form, (b, c, h, w), transposed, dev, i)
+        cudnn = patched(D, "takes", lambda *args: False, call)  # cuDNN, then epilogue.cu
+        plain = patched(E, "use_fused", lambda *args: False, call)  # cuDNN, then the eager epilogue
+
+        with torch.no_grad(), layers.exact_convs():
+            D.CONVS.update(direct=0)
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            check(D.CONVS == {"direct": 2}, "conv3x3", f"{form} at {(b, c, h, w)}: {D.CONVS} direct launches")
+            check(torch_equal_bits(got, again), "conv3x3", f"{form} at {(b, c, h, w)}: two launches differ")
+            want = want64()
+            scale = want.abs().max().item()
+            rel_err = (got.double() - want).abs().max().item() / scale
+            cudnn_err = (cudnn().double() - want).abs().max().item() / scale
+            check(rel_err <= 1e-5, "conv3x3", f"{form} at {(b, c, h, w)}: relative error {rel_err} against float64")
+            del got, again, want
+            ops = 2 * b * h * w * c * c * 9
+            nbytes = maps * b * c * h * w * 4
+            by_ops, by_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+            kernel_ms = kernel_device_ms(call, name="conv3x3_kernel")
+            rows.append(dict(form=form, shape=[b, c, h, w], transposed=transposed, per_forward=per_forward,
+                             rel_err=rel_err, cudnn_rel_err=cudnn_err,
+                             kernel_ms=kernel_ms, ms=cuda_time_ms(call, 10, windows=3),
+                             cudnn_ms=cuda_time_ms(cudnn, 10, windows=3),
+                             cudnn_device_ms=sum(us for _, us in profiled(cudnn, 10, lambda n: True)) / 10 / 1e3,
+                             plain_ms=cuda_time_ms(plain, 10, windows=3),
+                             bound_ms=max(by_ops, by_bytes),
+                             bound_by="operations" if by_ops >= by_bytes else "bytes", ops_bound_ms=by_ops,
+                             bytes_bound_ms=by_bytes,
+                             ops_share=None if kernel_ms is None else by_ops / kernel_ms))
+        del call, want64
+        torch.cuda.empty_cache()
+
+    # Relighter.forward_visuals at batch 64, tier high, both variants, and an estimate pass.
+    forward = {}
+    for variant, preset in (("target", C.preset_single_image), ("transfer", C.preset_lighting_transfer)):
+        cfg = C.apply_precision_tier(preset(), "high")
+        rl = Relighter(cfg, RelightNet(cfg.model, generator=torch.Generator().manual_seed(0)).state_dict(),
+                       device=dev)
+        rng = np.random.default_rng(0)
+        images = rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+        masks = np.full((64, 256, 256), 255, np.uint8)
+        light = np.repeat(np.asarray([[0.3, 0.4, 0.87]], np.float32), 64, 0)
+        first = rl.forward_visuals(images, masks, light).cpu()
+        D.CONVS.update(direct=0)
+        E.EPILOGUES.update(fused=0, eager=0)
+        again = rl.forward_visuals(images, masks, light).cpu()
+        counts = dict(direct=D.CONVS["direct"], **E.EPILOGUES)
+        check(torch.equal(first, again), "conv3x3", f"{variant}: two batch-64 forwards differ")
+        D.CONVS.update(direct=0)
+        rl.estimate_lighting(images)[0].cpu()
+        counts["estimate_direct"] = D.CONVS["direct"]
+        want = dict(direct=CONV3X3_LAUNCHES["forward"], fused=47, eager=0,
+                    estimate_direct=CONV3X3_LAUNCHES["estimate"])
+        check(counts == want, "conv3x3", f"{variant}: {counts}, expected {want}")
+        forward[variant] = counts
+        del rl
+    emit("conv3x3", ok=True, build_s=build_s, ptxas=regs, rows=rows, forward=forward)
 
 
 def load_goldens():
@@ -4176,6 +4370,7 @@ def main() -> int:
              loop_conversions={k: sum(lp[op] for lp in v["loops"] for op in ("F2I", "I2F", "FRND"))
                                for k, v in sass.items() if not k.endswith(".clamp")})
         phase_epilogue(dev)
+        phase_conv3x3(dev)
 
         goldens = load_goldens()
         march_err, march_ran = phase_march(goldens, dev)

@@ -14,7 +14,11 @@
     x2 upsample + skip], one epilogue. Where `epilogue_cuda.use_fused` holds
     (CUDA, float32 activations, eval mode, no autograd) the convolutions run
     without their bias and one launch of csrc/epilogue.cu does the rest, bit
-    for bit as the eager composition, which runs everywhere else.
+    for bit as the eager composition, which runs everywhere else; there a
+    16-channel 3x3 main convolution that `conv3x3_cuda.takes` (stride 1,
+    padding 1, a channels-last input) runs instead as one launch of
+    csrc/conv3x3.cu, the convolution and the epilogue together (its sums in
+    another order than cuDNN's).
   * `reset_torch_default`: torch's default init (kaiming-uniform a=sqrt(5),
     i.e. uniform(+-1/sqrt(fan_in)) for weight and bias) drawn from an
     explicit `torch.Generator`.
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from geomconsistentfr_torch.ops import epilogue_cuda
+from geomconsistentfr_torch.ops import conv3x3_cuda, epilogue_cuda
 from geomconsistentfr_torch.parallel.mesh import all_mean, group_size
 
 
@@ -173,8 +177,12 @@ def conv_bn_act(main: Branch, residual: Union[None, torch.Tensor, Branch] = None
         raise ValueError("a skip is added only after the upsample")
     branches = (main, residual) if isinstance(residual, Branch) else (main,)
     if epilogue_cuda.use_fused(main.x, dtype, *(br.bn for br in branches)):
-        a = _affine(main)
         r = _affine(residual) if isinstance(residual, Branch) else residual
+        if conv3x3_cuda.takes(main.conv, main.x, main.dtype):
+            bias = main.conv.bias
+            c = conv3x3_cuda.Conv(main.x, conv3x3_cuda.taps(main.conv), main.bn.eval_vectors(bias), bias is not None)
+            return conv3x3_cuda.join(c, r, slope, skip) if upsample else conv3x3_cuda.bn_act(c, r, slope)
+        a = _affine(main)
         if upsample:
             return epilogue_cuda.join(a, r, slope, skip)
         return epilogue_cuda.bn_act(a, r, slope)

@@ -20,7 +20,10 @@ Each convolution with a BatchNorm ends in one epilogue
 a projection shortcut's conv and BatchNorm) and the LeakyReLU, and at a
 decoder stage's end the upsample and the skip. In eval mode on the card in
 float32 without autograd that is one launch of csrc/epilogue.cu, bit for
-bit the eager composition that runs otherwise.
+bit the eager composition that runs otherwise; and for the 16-channel 3x3
+layers (the encoder's h1_1, h1_2; each decoder's skip_s3_*, skip_s4_*,
+h7_2, h8_1, h8_2, c2_1: 18 a forward) one launch of csrc/conv3x3.cu does
+the convolution too.
 
 Public layout is the JAX package's: images (B, H, W, 3) in [0, 1]; outputs
 albedo (B, H, W, 3), depth (B, H, W) (x100), lighting (B, 4). NCHW inside.

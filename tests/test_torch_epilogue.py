@@ -5,7 +5,8 @@ operations in its order, from the bias-free convolution output and the (5, C)
 vectors) against the eager composition of models/layers.py bit for bit, in
 every form, on random BatchNorm statistics; the one predicate that picks the
 fused path and the `EPILOGUES` counts; RelightNet with the fused path forced on
-the CPU (the launch replaced by `kernel_model`) against its eager forward; the
+the CPU (the launch replaced by `kernel_model`, the direct convolution of
+ops/conv3x3_cuda.py off) against its eager forward; the
 vector cache after a load_state_dict and an in-place change; and the wrapper's
 checks, which run before any launch and refuse CPU tensors. The kernel itself
 is held against the eager path on the card (tests/test_torch_epilogue_cuda.py).
@@ -21,6 +22,7 @@ from torch import nn
 from geomconsistentfr_torch.config import ModelConfig
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.models.relightnet import RelightNet
+from geomconsistentfr_torch.ops import conv3x3_cuda
 from geomconsistentfr_torch.ops import epilogue_cuda as E
 
 SLOPE = 0.2
@@ -74,9 +76,11 @@ def kernel_model(a, r, slope, join, skip):
 
 
 def force_fused(mp, launches: list) -> None:
-    """Take the fused path on the CPU: the predicate holds and each launch runs kernel_model."""
+    """Take the fused path on the CPU: the predicate holds and each launch runs kernel_model;
+    the direct convolution (ops/conv3x3_cuda.py) is off, so that every epilogue is this kernel's."""
     mp.setattr(E, "use_fused", lambda *args: True)
     mp.setattr(E, "_launch", lambda *args: launches.append(args[3]) or kernel_model(*args))
+    mp.setattr(conv3x3_cuda, "takes", lambda *args: False)
 
 
 FORMS = ["plain", "residual", "two_affines", "identity_act", "no_bias", "join", "join_skip", "join_two_affines"]

@@ -7,7 +7,11 @@ their bias), bit for bit and in the same memory order, at the main path's
 shapes, at batch 1, at H*W not a multiple of 4 and C not a multiple of 4,
 in NCHW and channels-last; RelightNet (target and transfer, tiers strict and
 high, batch 64 and 1) and `Relighter.forward_visuals` the same way, with no
-eager epilogue on the fused run; and a refused launch. Every test needs an
+eager epilogue on the fused run; and a refused launch. The fused runs leave
+the 16-channel 3x3 convolutions to cuDNN (ops/conv3x3_cuda.takes patched to
+False), so that the epilogue kernel alone is compared bit for bit; with the
+direct route on (csrc/conv3x3.cu, whose sums take another order) RelightNet
+is held to the eager forward within float32 rounding. Every test needs an
 NVIDIA GPU (marker `cuda`) and skips without one. On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_epilogue_cuda.py
@@ -24,6 +28,7 @@ from geomconsistentfr_torch.config import apply_precision_tier, preset_single_im
 from geomconsistentfr_torch.infer import Relighter
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.models.relightnet import RelightNet
+from geomconsistentfr_torch.ops import conv3x3_cuda
 from geomconsistentfr_torch.ops import epilogue_cuda as E
 
 pytestmark = pytest.mark.cuda
@@ -55,11 +60,16 @@ def randomize_bns(net, seed):
             m.load_state_dict(random_bn(m.num_features, gen, "cpu").state_dict())
 
 
-def both_paths(fn, monkeypatch):
-    """(fused result, eager result, the fused run's EPILOGUES), convolutions exact."""
+def both_paths(fn, monkeypatch, direct=False):
+    """(fused result, eager result, the fused run's EPILOGUES), convolutions exact. The
+    fused run leaves the 16-channel 3x3 convolutions to cuDNN (the direct route, which sums
+    in another order, monkeypatched off) unless `direct`."""
     with torch.no_grad(), layers.exact_convs():
         E.EPILOGUES.update(fused=0, eager=0)
-        got = fn()
+        with monkeypatch.context() as mp:
+            if not direct:
+                mp.setattr(conv3x3_cuda, "takes", lambda *args: False)
+            got = fn()
         counts = dict(E.EPILOGUES)
         with monkeypatch.context() as mp:
             mp.setattr(E, "use_fused", lambda *args: False)
@@ -146,6 +156,31 @@ def test_relightnet_bit_equal_to_eager(dev, variant, tier, batch, monkeypatch):
         assert counts == {"fused": EPILOGUES_PER_FORWARD, "eager": 0}
         for g, w in zip(got, want):
             assert_same(g, w)
+
+
+# The direct route's largest difference from the eager forward over each output's largest
+# magnitude: float32 sums in another order, through up to 16 layers after the first direct one.
+DIRECT_REL_ERR = 1e-5
+
+
+@pytest.mark.parametrize("batch", [64, 1])
+@pytest.mark.parametrize("tier", ["strict", "high"])
+@pytest.mark.parametrize("variant", ["target", "transfer"])
+def test_relightnet_direct_route_close_to_eager(dev, variant, tier, batch, monkeypatch):
+    """The forward as Relighter runs it, the 18 16-channel 3x3 layers on csrc/conv3x3.cu,
+    against the eager forward within float32 rounding."""
+    cfg = apply_precision_tier(preset_single_image(), tier).model
+    net = RelightNet(dataclasses.replace(cfg, variant=variant), generator=torch.Generator().manual_seed(batch))
+    randomize_bns(net, batch + 1)
+    net = net.to(dev).eval()
+    img = torch.rand(batch, 256, 256, 3, generator=torch.Generator().manual_seed(batch + 2)).to(dev)
+    conv3x3_cuda.CONVS.update(direct=0)
+    got, want, counts = both_paths(lambda: net(img), monkeypatch, direct=True)
+    assert counts == {"fused": EPILOGUES_PER_FORWARD, "eager": 0} and conv3x3_cuda.CONVS == {"direct": 18}
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.double() - w.double()).abs().max().item() / w.abs().max().item()
+        assert err <= DIRECT_REL_ERR, err
 
 
 def test_relighter_forward_visuals_bit_equal_to_eager(dev, monkeypatch):
