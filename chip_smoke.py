@@ -217,8 +217,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
               wrapper (CUDA events) per launch beside the bound by bytes at
               3.35 TB/s and the eager composition's time; Relighter's
               forward_visuals at batch 64 (tier high): the epilogues
-              (EPILOGUES, none eager; 18 of them in conv3x3.cu's store) and
-              the BatchNorms they hold. It runs right after build.
+              (epilogue_counts(): 29 launches of epilogue.cu and 18 of
+              conv3x3.cu, none eager) and the BatchNorms they hold. It runs
+              right after build.
   15. conv3x3  csrc/conv3x3.cu (the direct 3x3 convolution of the 16-channel
               layers, the epilogue in its store) built, with ptxas's
               registers and no spills; at each form and shape where the
@@ -296,8 +297,35 @@ ALL_KERNELS = KERNELS + ("march_sp", "unpack_key")
 
 
 def counts(**n) -> dict:
-    """Launch counts by kernel name (shadows_cuda.LAUNCHES' keys), 0 where not given."""
+    """Launch counts of the march kernels by name (csrc/march.cu's, as cuda_lib.LAUNCHES counts
+    them), 0 where not given."""
     return {k: n.get(k, 0) for k in ("stage", *KERNELS[:4], "march_sp", "unpack_key")}
+
+
+def march_launches() -> dict:
+    """cuda_lib.LAUNCHES' march kernels, the keys of counts() (phases epilogue and conv3x3 count
+    the CNN's kernels)."""
+    from geomconsistentfr_torch.ops import cuda_lib, shadows_cuda
+
+    return {k: cuda_lib.LAUNCHES[k] for k in shadows_cuda.LIBRARY.kernels}
+
+
+def epilogue_counts() -> dict:
+    """The CNN's epilogues since reset_launches: 'fused' the launches of csrc/epilogue.cu and of
+    csrc/conv3x3.cu, 'eager' the eager compositions (layers.EAGER_EPILOGUES)."""
+    from geomconsistentfr_torch.models import layers
+    from geomconsistentfr_torch.ops import cuda_lib
+
+    return dict(fused=cuda_lib.LAUNCHES["epilogue"] + cuda_lib.LAUNCHES["conv3x3"], eager=layers.EAGER_EPILOGUES)
+
+
+def build_library(library):
+    """Build a kernel library (ops/cuda_lib.build) and load it: (the .so, ptxas's log)."""
+    from geomconsistentfr_torch.ops import cuda_lib
+
+    built = cuda_lib.build(library.source)
+    library.load()
+    return built
 
 
 class CollectiveCounter:
@@ -483,9 +511,9 @@ def sass_counts(lib: Path, cuobjdump: Path) -> dict:
 
 
 def cuobjdump_path() -> Path:
-    from geomconsistentfr_torch.ops import shadows_cuda as K
+    from geomconsistentfr_torch.ops import cuda_lib
 
-    return Path(K._nvcc()).parent / "cuobjdump"
+    return Path(cuda_lib._nvcc()).parent / "cuobjdump"
 
 
 def march_stats(got, want):
@@ -706,11 +734,9 @@ def phase_epilogue(dev):
     from geomconsistentfr_torch.models import layers
     from geomconsistentfr_torch.models.relightnet import RelightNet
     from geomconsistentfr_torch.ops import epilogue_cuda as E
-    from geomconsistentfr_torch.ops import shadows_cuda as K
 
     t0 = time.perf_counter()
-    _, log = K.build(E.SOURCE)
-    E._library()
+    _, log = build_library(E.LIBRARY)
     build_s = time.perf_counter() - t0
     regs = ptxas_registers(log, epilogue_kernel_name)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -771,9 +797,9 @@ def phase_epilogue(dev):
     masks = np.full((64, 256, 256), 255, np.uint8)
     light = np.repeat(np.asarray([[0.3, 0.4, 0.87]], np.float32), 64, 0)
     rl.forward_visuals(images, masks, light)
-    E.EPILOGUES.update(fused=0, eager=0)
+    reset_launches()
     rl.forward_visuals(images, masks, light).cpu()
-    epilogues = dict(E.EPILOGUES)
+    epilogues = epilogue_counts()
     bns = sum(isinstance(m, layers.BatchNorm) for m in rl.model.modules())
     check(epilogues == {"fused": 47, "eager": 0}, "epilogue", f"a batch-64 forward evaluated {epilogues}")
     emit("epilogue", ok=True, build_s=build_s, ptxas=regs, rows=rows, forward_epilogues=epilogues,
@@ -890,12 +916,11 @@ def phase_conv3x3(dev):
     from geomconsistentfr_torch.models import layers
     from geomconsistentfr_torch.models.relightnet import RelightNet
     from geomconsistentfr_torch.ops import conv3x3_cuda as D
+    from geomconsistentfr_torch.ops import cuda_lib
     from geomconsistentfr_torch.ops import epilogue_cuda as E
-    from geomconsistentfr_torch.ops import shadows_cuda as K
 
     t0 = time.perf_counter()
-    _, log = K.build(D.SOURCE)
-    D._library()
+    _, log = build_library(D.LIBRARY)
     build_s = time.perf_counter() - t0
     regs = ptxas_registers(log, conv3x3_kernel_name)
     check(sorted(regs) == ["conv3x3"], "conv3x3", f"ptxas reported {regs}")
@@ -907,10 +932,11 @@ def phase_conv3x3(dev):
         plain = patched(E, "use_fused", lambda *args: False, call)  # cuDNN, then the eager epilogue
 
         with torch.no_grad(), layers.exact_convs():
-            D.CONVS.update(direct=0)
+            reset_launches()
             got, again = call(), call()
             torch.cuda.synchronize()
-            check(D.CONVS == {"direct": 2}, "conv3x3", f"{form} at {(b, c, h, w)}: {D.CONVS} direct launches")
+            direct = cuda_lib.LAUNCHES["conv3x3"]
+            check(direct == 2, "conv3x3", f"{form} at {(b, c, h, w)}: {direct} direct launches")
             check(torch_equal_bits(got, again), "conv3x3", f"{form} at {(b, c, h, w)}: two launches differ")
             want = want64()
             scale = want.abs().max().item()
@@ -946,14 +972,13 @@ def phase_conv3x3(dev):
         masks = np.full((64, 256, 256), 255, np.uint8)
         light = np.repeat(np.asarray([[0.3, 0.4, 0.87]], np.float32), 64, 0)
         first = rl.forward_visuals(images, masks, light).cpu()
-        D.CONVS.update(direct=0)
-        E.EPILOGUES.update(fused=0, eager=0)
+        reset_launches()
         again = rl.forward_visuals(images, masks, light).cpu()
-        counts = dict(direct=D.CONVS["direct"], **E.EPILOGUES)
+        counts = dict(direct=cuda_lib.LAUNCHES["conv3x3"], **epilogue_counts())
         check(torch.equal(first, again), "conv3x3", f"{variant}: two batch-64 forwards differ")
-        D.CONVS.update(direct=0)
+        reset_launches()
         rl.estimate_lighting(images)[0].cpu()
-        counts["estimate_direct"] = D.CONVS["direct"]
+        counts["estimate_direct"] = cuda_lib.LAUNCHES["conv3x3"]
         want = dict(direct=CONV3X3_LAUNCHES["forward"], fused=47, eager=0,
                     estimate_direct=CONV3X3_LAUNCHES["estimate"])
         check(counts == want, "conv3x3", f"{variant}: {counts}, expected {want}")
@@ -971,10 +996,12 @@ def load_goldens():
 
 
 def reset_launches():
-    from geomconsistentfr_torch.ops import shadows_cuda as K
+    """Every kernel's launch count (cuda_lib.LAUNCHES) and the eager epilogues' to 0."""
+    from geomconsistentfr_torch.models import layers
+    from geomconsistentfr_torch.ops import cuda_lib
 
-    for name in K.LAUNCHES:
-        K.LAUNCHES[name] = 0
+    cuda_lib.LAUNCHES.update(dict.fromkeys(cuda_lib.LAUNCHES, 0))
+    layers.EAGER_EPILOGUES = 0
 
 
 def phase_march(goldens, dev):
@@ -1410,7 +1437,6 @@ def phase_golden(goldens, dev):
     import numpy as np
 
     from geomconsistentfr_torch import config as C
-    from geomconsistentfr_torch.ops import shadows_cuda as K
     from geomconsistentfr_torch.render import render
 
     rows = []
@@ -1428,8 +1454,8 @@ def phase_golden(goldens, dev):
             cfg = dataclasses.replace(strict, shadow_mask_cull=cull)
             reset_launches()
             outs[cull] = render(*args, cfg, **targets)
-            check(K.LAUNCHES == counts(stage=1, march=1), "golden",
-                  f"{name}: strict render launched {K.LAUNCHES}")
+            n = march_launches()
+            check(n == counts(stage=1, march=1), "golden", f"{name}: strict render launched {n}")
         w = outs[False].shadow_mask_weights.cpu().numpy()
         sw = float(np.abs(w - fx["shadow_weights"]).mean())
         check(sw <= 1e-5, "golden", f"{name}: shadow-weight mean |d| {sw}")
@@ -1446,8 +1472,8 @@ def phase_golden(goldens, dev):
         # The draft tier: K2 then K3, at the bars of tests/test_torch_draft.py.
         reset_launches()
         draft = render(*args, C.apply_precision_tier(preset, "draft").render, **targets)
-        check(K.LAUNCHES == counts(stage=1, march_argmin=1, refine=1), "golden",
-              f"{name}: draft render launched {K.LAUNCHES}")
+        n = march_launches()
+        check(n == counts(stage=1, march_argmin=1, refine=1), "golden", f"{name}: draft render launched {n}")
         dw = draft.shadow_mask_weights.cpu().numpy()
         row["draft_sw_face_mean_abs"] = float(np.abs(dw - fx["shadow_weights"])[face].mean())
         if transfer:
@@ -1515,7 +1541,6 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
     from geomconsistentfr_torch.infer import Relighter
     from geomconsistentfr_torch.models.relightnet import RelightNet
     from geomconsistentfr_torch.ops import shadows as S
-    from geomconsistentfr_torch.ops import shadows_cuda as K
     from geomconsistentfr_torch.ops.shading import composite, shadow_weights
     from geomconsistentfr_torch.render import shadow_min_distance
 
@@ -1544,7 +1569,7 @@ def phase_e2e(goldens, dev, seed=0, batch=64):
                          (S, "scale_march_inputs"), (R, "pool_march_inputs")) as glue:
             out = rl.forward(images, masks, lights)
         torch.cuda.synchronize()
-        n = dict(K.LAUNCHES)
+        n = march_launches()
         check(n == TIER_LAUNCHES[tier], "e2e", f"{tier}: forward launched {n}, expected {TIER_LAUNCHES[tier]}")
         check(not any(glue.calls.values()), "e2e", f"{tier}: the forward called {glue.calls}")
         for name in KERNELS:
@@ -1666,7 +1691,7 @@ def _run_in(ctx, fn, *args):
 # ---------------------------------------------------------------------------
 
 # Runs `python -m MODULE ARGS` the way -m does (runpy.run_module, alter_sys)
-# and at exit writes the process's kernel launches (shadows_cuda.LAUNCHES,
+# and at exit writes the process's march kernel launches (cuda_lib.LAUNCHES,
 # zero at its start) and its clock to a JSON file: when the wrapper started,
 # when torch, the package and the CUDA context were up, and the exit.
 # Under torchrun each rank writes <report>.rank<RANK>.json, with its exit code.
@@ -1677,15 +1702,15 @@ report_path, module = sys.argv[1], sys.argv[2]
 if "RANK" in os.environ:
     report_path = report_path[:-len(".json")] + f".rank{os.environ['RANK']}.json"
 import torch
-from geomconsistentfr_torch.ops import shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows_cuda
 torch.zeros(1, device="cuda")
 t_ready = time.time()
 exit_code = [None]
 
 def report():
     with open(report_path, "w") as f:
-        json.dump({"launches": dict(shadows_cuda.LAUNCHES), "t_start": t_start, "t_ready": t_ready,
-                   "t_end": time.time(), "exit_code": exit_code[0]}, f)
+        json.dump({"launches": {k: cuda_lib.LAUNCHES[k] for k in shadows_cuda.LIBRARY.kernels},
+                   "t_start": t_start, "t_ready": t_ready, "t_end": time.time(), "exit_code": exit_code[0]}, f)
 
 atexit.register(report)
 sys.argv = [module] + sys.argv[3:]
@@ -2688,7 +2713,6 @@ def phase_orbax(goldens, files, tmp: Path) -> dict:
         transfer_to_target_variant,
     )
     from geomconsistentfr_torch.infer import Relighter, load_relighter
-    from geomconsistentfr_torch.ops import shadows_cuda as K
     from geomconsistentfr_torch.utils import zstd
     from geomconsistentfr_torch.utils.checkpoint import restore_variables
 
@@ -2726,7 +2750,7 @@ def phase_orbax(goldens, files, tmp: Path) -> dict:
         load_s = time.perf_counter() - t
         reset_launches()
         got = rl.forward_visuals(images, masks, lights).cpu()
-        n = dict(K.LAUNCHES)
+        n = march_launches()
         check(n == TIER_LAUNCHES[tier], "orbax", f"{tier}: the forward launched {n}")
         add_launches(launches, n)
         ref = Relighter(cfg, state).forward_visuals(images, masks, lights).cpu()
@@ -3271,9 +3295,9 @@ def phase_train(dev, seed=0, steps=6):
         step_fn = trainer.step_fn
 
         def recorded(st, batch, use_skips):
-            g0, d0, n0, step = flat_params(st.g), flat_params(st.d), dict(K.LAUNCHES), st.step
+            g0, d0, n0, step = flat_params(st.g), flat_params(st.d), march_launches(), st.step
             metrics = step_fn(st, batch, use_skips=use_skips)
-            rec = dict(step=step, launches={k: v - n0[k] for k, v in K.LAUNCHES.items()},
+            rec = dict(step=step, launches={k: v - n0[k] for k, v in march_launches().items()},
                        losses={k: float(v) for k, v in metrics.items()},
                        g_moved=not torch.equal(g0, flat_params(st.g)), d_moved=not torch.equal(d0, flat_params(st.d)))
             if not records:
@@ -3286,7 +3310,7 @@ def phase_train(dev, seed=0, steps=6):
         reset_launches()
         state, avg = trainer.run_epoch(state, 0)
         torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
+        launches = march_launches()
         trainer.step_fn = step_fn
         want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
         check(launches == want, "train", f"{steps} steps launched {launches}, expected {want}")
@@ -3483,7 +3507,7 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
         reset_launches()
         out = rl.forward(images, masks, lights)
         torch.cuda.synchronize()
-        n = dict(K.LAUNCHES)
+        n = march_launches()
         check(n == SAMPLES_LAUNCHES[tier], "parallel", f"{tier}: sample-parallel forward launched {n}")
         for field in out._fields:
             check(bool(torch.isfinite(getattr(out, field)).all()), "parallel", f"{tier}: non-finite {field}")
@@ -3528,7 +3552,7 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
         out = K.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, group)
         (out * cot).sum().backward()
     torch.cuda.synchronize()
-    n = dict(K.LAUNCHES)
+    n = march_launches()
     check(n == GRID_STEP_LAUNCHES, "parallel", f"K5 forward and backward launched {n}")
     check(collectives.calls == K5_COLLECTIVES, "parallel", f"K5 issued {collectives.calls} collectives")
     ts_full, clamp = K._ts_for(dev, cfg)
@@ -3624,7 +3648,7 @@ def parallel_rank(dev, out_dir: str, seed: int) -> None:
             records.append(dict(losses={k: float(v) for k, v in m.items()}, digest=state_digest(state),
                                 grad_norms=grad_norms(named_grads(state))))
         torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
+        launches = march_launches()
         step_ms = cuda_time_ms(lambda: step(state, locals_[0], use_skips=skips), 2, warmup=1, windows=3)
         return dict(records=records, launches=launches, step_ms=step_ms)
 
@@ -4289,8 +4313,7 @@ def timing_child(root: Path) -> int:
     from geomconsistentfr_torch.ops import shadows_cuda as K
 
     check(Path(K.__file__).resolve().is_relative_to(root), "compare", f"imported {K.__file__}, not {root}'s package")
-    lib, log = K.build()
-    K._library()
+    lib, log = build_library(K.LIBRARY)
     timing = compare_timing(load_goldens(), torch.device("cuda:0"))
     torch.cuda.empty_cache()
     emit("compare_run", ok=True, root=str(root), ptxas=ptxas_registers(log), sass=sass_counts(lib, cuobjdump_path()),
@@ -4359,8 +4382,7 @@ def main() -> int:
         from geomconsistentfr_torch.ops import shadows_cuda as K
 
         t0 = time.perf_counter()
-        lib, log = K.build()
-        K._library()
+        lib, log = build_library(K.LIBRARY)
         seconds = time.perf_counter() - t0
         regs = ptxas_registers(log)
         check(sorted(regs) == sorted(COMPILED), "build", f"ptxas reported {sorted(regs)}, expected {sorted(COMPILED)}")

@@ -18,7 +18,9 @@
     16-channel 3x3 main convolution that `conv3x3_cuda.takes` (stride 1,
     padding 1, a channels-last input) runs instead as one launch of
     csrc/conv3x3.cu, the convolution and the epilogue together (its sums in
-    another order than cuDNN's).
+    another order than cuDNN's). `cuda_lib.LAUNCHES` counts the launches of
+    both kernels ('epilogue', 'conv3x3'); `EAGER_EPILOGUES` counts the eager
+    compositions.
   * `reset_torch_default`: torch's default init (kaiming-uniform a=sqrt(5),
     i.e. uniform(+-1/sqrt(fan_in)) for weight and bias) drawn from an
     explicit `torch.Generator`.
@@ -36,6 +38,9 @@ from torch import nn
 
 from geomconsistentfr_torch.ops import conv3x3_cuda, epilogue_cuda
 from geomconsistentfr_torch.parallel.mesh import all_mean, group_size
+
+# Epilogues that conv_bn_act composed eagerly since the count was last set to 0.
+EAGER_EPILOGUES = 0
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -186,7 +191,8 @@ def conv_bn_act(main: Branch, residual: Union[None, torch.Tensor, Branch] = None
         if upsample:
             return epilogue_cuda.join(a, r, slope, skip)
         return epilogue_cuda.bn_act(a, r, slope)
-    epilogue_cuda.EPILOGUES["eager"] += 1
+    global EAGER_EPILOGUES
+    EAGER_EPILOGUES += 1
     y = main.bn(conv(main.conv, main.x, main.dtype), dtype, group)
     if isinstance(residual, Branch):
         residual = residual.bn(conv(residual.conv, residual.x, residual.dtype), dtype, group)

@@ -20,22 +20,16 @@ gives the kernel's weight layout, cached on the module until the weight is
 replaced or changed in place (its data_ptr or _version), as
 `BatchNorm.eval_vectors` caches its vectors.
 
-`CONVS["direct"]` counts the launches the launcher accepted; each also adds
-one to `epilogue_cuda.EPILOGUES["fused"]`, which counts every epilogue a
-hand-written kernel computes. `plain` is the same function in plain
-PyTorch (F.conv2d, then the epilogue in the kernel's order). The wrapper
-takes no CPU tensor: there `conv_bn_act` never routes here.
-
-The kernel is built as the other kernels are (`shadows_cuda.build`: nvcc,
-sm_90a, -fmad=false, `build/kernels/`, hashed by source and flags) and
-loaded with ctypes; it launches on torch's current stream and allocates
-nothing.
+`LIBRARY` declares the kernel to ops/cuda_lib.py, which builds and launches
+it and counts its launches as 'conv3x3'; the kernel allocates nothing.
+`plain` is the same function in plain PyTorch (F.conv2d, then the epilogue
+in the kernel's order). The wrapper takes no CPU tensor: there
+`conv_bn_act` never routes here.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -43,18 +37,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from geomconsistentfr_torch.ops import epilogue_cuda, shadows_cuda
+from geomconsistentfr_torch.ops.cuda_lib import Library, check, ptr
 from geomconsistentfr_torch.ops.epilogue_cuda import Affine, Residual
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "conv3x3.cu"
 CHANNELS = 16
 
-# Launches of the kernel that the launcher accepted since the count was last set to 0.
-CONVS = {"direct": 0}
-
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = ([_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2 + [_c_int] * 5
-             + [ctypes.c_float, _c_void_p])
+LIBRARY = Library(Path(__file__).resolve().parents[1] / "csrc" / "conv3x3.cu", {
+    "conv3x3": ("gcfr_conv3x3_launch", [_c_void_p] * 3 + [_c_int] + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2
+                + [_c_int] * 5 + [ctypes.c_float]),
+})
 
 
 class Conv(NamedTuple):
@@ -103,77 +95,44 @@ def _taps(conv: nn.Module) -> torch.Tensor:
     return conv_weight(conv).permute(2, 3, 1, 0).reshape(9, CHANNELS, CHANNELS).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(shadows_cuda.build(SOURCE)[0]))
-    lib.gcfr_conv3x3_launch.argtypes, lib.gcfr_conv3x3_launch.restype = _ARGTYPES, _c_int
-    return lib
-
-
 # -- the kernel ----------------------------------------------------------------
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    epilogue_cuda._check(name, t, shape, device, torch.channels_last)
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
-def _check_small(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if (t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
-            or t.data_ptr() % 16):
-        raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 {shape} tensor on {device}")
-
-
 def _launch(c: Conv, r: Residual, slope: Optional[float], join: bool, skip: Optional[torch.Tensor]):
     if c.x.dim() != 4:
         raise ValueError(f"the convolution reads (B, 16, H, W) maps, got {tuple(c.x.shape)}")
     b, _, h, w = c.x.shape
-    shape, dev = (b, CHANNELS, h, w), c.x.device
-    _check("x", c.x, shape, dev)
-    _check_small("the weights", c.w, (9, CHANNELS, CHANNELS), dev)
-    _check_small("the vectors", c.vec, (5, CHANNELS), dev)
+    shape, dev, cl = (b, CHANNELS, h, w), c.x.device, torch.channels_last
+    check("x", c.x, shape, dev, cl, aligned=True)
+    check("the weights", c.w, (9, CHANNELS, CHANNELS), dev, aligned=True)
+    check("the vectors", c.vec, (5, CHANNELS), dev, aligned=True)
     rx = r.x if isinstance(r, Affine) else r
     if rx is not None:
-        _check("the residual", rx, shape, dev)
+        check("the residual", rx, shape, dev, cl, aligned=True)
     if isinstance(r, Affine):
-        _check_small("the residual's vectors", r.vec, (5, CHANNELS), dev)
+        check("the residual's vectors", r.vec, (5, CHANNELS), dev, aligned=True)
     out_shape = (b, CHANNELS, 2 * h, 2 * w) if join else shape
     if skip is not None:
         if not join:
             raise ValueError("a skip is added only by the join")
-        _check("the skip", skip, out_shape, dev)
+        check("the skip", skip, out_shape, dev, cl, aligned=True)
     if dev.type != "cuda":
         raise ValueError(f"the convolution kernel runs on CUDA tensors, got {dev}")
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev, memory_format=torch.channels_last)
-    with torch.cuda.device(dev):
-        err = _library().gcfr_conv3x3_launch(
-            c.x.data_ptr(), c.w.data_ptr(), c.vec.data_ptr(), int(c.has_bias), _ptr(rx),
-            _ptr(r.vec if isinstance(r, Affine) else None), int(isinstance(r, Affine) and r.has_bias),
-            _ptr(skip), out.data_ptr(), b, h, w, int(join), int(slope is not None),
-            0.0 if slope is None else float(slope), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
-    return out
-
-
-def _ptr(x: Optional[torch.Tensor]) -> int:
-    return 0 if x is None else x.data_ptr()
-
-
-def _count(out: torch.Tensor) -> torch.Tensor:
-    CONVS["direct"] += 1
-    epilogue_cuda.EPILOGUES["fused"] += 1
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev, memory_format=cl)
+    LIBRARY.launch(
+        "conv3x3", dev, c.x.data_ptr(), c.w.data_ptr(), c.vec.data_ptr(), int(c.has_bias), ptr(rx),
+        ptr(r.vec if isinstance(r, Affine) else None), int(isinstance(r, Affine) and r.has_bias),
+        ptr(skip), out.data_ptr(), b, h, w, int(join), int(slope is not None), 0.0 if slope is None else float(slope),
+    )
     return out
 
 
 def bn_act(c: Conv, r: Residual = None, slope: Optional[float] = None) -> torch.Tensor:
     """act(A(conv(x)) + r): LeakyReLU(slope), or the identity where slope is None."""
-    return _count(_launch(c, r, slope, False, None))
+    return _launch(c, r, slope, False, None)
 
 
 def join(c: Conv, r: Residual, slope: Optional[float], skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """up2(act(A(conv(x)) + r)) [+ skip]: the nearest x2 upsample, then the skip where given."""
-    return _count(_launch(c, r, slope, True, skip))
+    return _launch(c, r, slope, True, skip)
 
 
 # -- the plain version ---------------------------------------------------------

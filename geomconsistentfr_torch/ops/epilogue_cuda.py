@@ -13,38 +13,28 @@ composition of models/layers.py, or raises; it takes no CPU tensor (there
 the eager composition is the plain version).
 
 `use_fused` is the one predicate by which models/layers.conv_bn_act takes
-this path instead of the eager one; `EPILOGUES` counts the epilogues each
-way: the kernel's launches, and the eager compositions. An `Affine`
-carries u, its (5, C) vectors (`BatchNorm.eval_vectors`) and whether the
-bias row is added. The maps are (B, C, H, W), contiguous or channels-last,
+this path instead of the eager one. `LIBRARY` declares the kernel to
+ops/cuda_lib.py, which builds and launches it and counts its launches as
+'epilogue'. An `Affine` carries u, its (5, C) vectors
+(`BatchNorm.eval_vectors`) and whether the bias row is added. The maps are (B, C, H, W), contiguous or channels-last,
 all of one epilogue in the same memory order; the output takes it.
-
-The kernel is built as the march kernels are (`shadows_cuda.build`: nvcc,
-sm_90a, -fmad=false, `build/kernels/`, hashed by source and flags) and
-loaded with ctypes; it launches on torch's current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import NamedTuple, Optional, Union
 
 import torch
 
-from geomconsistentfr_torch.ops import shadows_cuda
-
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "epilogue.cu"
-
-# Epilogues evaluated since the counts were last set to 0: 'fused' counts
-# the kernel's launches that the launcher accepted, 'eager' the eager
-# compositions (models/layers.conv_bn_act).
-EPILOGUES = {"fused": 0, "eager": 0}
+from geomconsistentfr_torch.ops.cuda_lib import Library, check, ptr
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = ([_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2 + [_c_int] * 7
-             + [ctypes.c_float, _c_void_p])
+LIBRARY = Library(Path(__file__).resolve().parents[1] / "csrc" / "epilogue.cu", {
+    "epilogue": ("gcfr_epilogue_launch", [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2 + [_c_int] + [_c_void_p] * 2
+                 + [_c_int] * 7 + [ctypes.c_float]),
+})
 
 
 class Affine(NamedTuple):
@@ -63,13 +53,6 @@ def use_fused(x: torch.Tensor, dtype: torch.dtype, *bns: torch.nn.Module) -> boo
             and not any(bn.training for bn in bns))
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(shadows_cuda.build(SOURCE)[0]))
-    lib.gcfr_epilogue_launch.argtypes, lib.gcfr_epilogue_launch.restype = _ARGTYPES, _c_int
-    return lib
-
-
 # -- the kernel ----------------------------------------------------------------
 def _layout(x: torch.Tensor) -> torch.memory_format:
     if x.is_contiguous():
@@ -79,59 +62,33 @@ def _layout(x: torch.Tensor) -> torch.memory_format:
     raise ValueError(f"the epilogue reads contiguous or channels-last maps, got strides {x.stride()}")
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, fmt: torch.memory_format) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous(memory_format=fmt):
-        raise ValueError(f"{name} must be in the memory order of the convolution's output ({fmt})")
-
-
-def _check_vec(name: str, a: Affine) -> None:
-    c = a.x.shape[1]
-    if a.vec.device != a.x.device or a.vec.dtype != torch.float32 or tuple(a.vec.shape) != (5, c) \
-            or not a.vec.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 (5, {c}) tensor on {a.x.device}")
-
-
 def _launch(a: Affine, r: Residual, slope: Optional[float], join: bool, skip: Optional[torch.Tensor]):
     if a.x.dim() != 4:
         raise ValueError(f"the epilogue reads (B, C, H, W) maps, got {tuple(a.x.shape)}")
     b, c, h, w = a.x.shape
     dev, fmt = a.x.device, _layout(a.x)
-    _check("u", a.x, (b, c, h, w), dev, fmt)
-    _check_vec("the vectors", a)
+    check("u", a.x, (b, c, h, w), dev, fmt)
+    check("the vectors", a.vec, (5, c), dev)
     rx = r.x if isinstance(r, Affine) else r
     if rx is not None:
-        _check("the residual", rx, (b, c, h, w), dev, fmt)
+        check("the residual", rx, (b, c, h, w), dev, fmt)
     if isinstance(r, Affine):
-        _check_vec("the residual's vectors", r)
+        check("the residual's vectors", r.vec, (5, c), dev)
     out_shape = (b, c, 2 * h, 2 * w) if join else (b, c, h, w)
     if skip is not None:
         if not join:
             raise ValueError("a skip is added only by the join")
-        _check("the skip", skip, out_shape, dev, fmt)
+        check("the skip", skip, out_shape, dev, fmt)
     if dev.type != "cuda":
         raise ValueError(f"the epilogue kernel runs on CUDA tensors, got {dev}")
     out = torch.empty(out_shape, dtype=torch.float32, device=dev, memory_format=fmt)
-    with torch.cuda.device(dev):
-        err = _library().gcfr_epilogue_launch(
-            a.x.data_ptr(), a.vec.data_ptr(), int(a.has_bias), _ptr(rx),
-            _ptr(r.vec if isinstance(r, Affine) else None), int(isinstance(r, Affine) and r.has_bias),
-            _ptr(skip), out.data_ptr(), b, c, h, w, int(fmt == torch.channels_last), int(join),
-            int(slope is not None), 0.0 if slope is None else float(slope), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"epilogue kernel launch failed: CUDA error {err}")
-    EPILOGUES["fused"] += 1
+    LIBRARY.launch(
+        "epilogue", dev, a.x.data_ptr(), a.vec.data_ptr(), int(a.has_bias), ptr(rx),
+        ptr(r.vec if isinstance(r, Affine) else None), int(isinstance(r, Affine) and r.has_bias),
+        ptr(skip), out.data_ptr(), b, c, h, w, int(fmt == torch.channels_last), int(join),
+        int(slope is not None), 0.0 if slope is None else float(slope),
+    )
     return out
-
-
-def _ptr(x: Optional[torch.Tensor]) -> int:
-    return 0 if x is None else x.data_ptr()
 
 
 def bn_act(a: Affine, r: Residual = None, slope: Optional[float] = None) -> torch.Tensor:

@@ -55,21 +55,16 @@ smallest t among the ranks that reach it (shadows_pallas.py:851-855). The
 MIN is a collective of torch.distributed outside the kernels, as `pmin` is
 outside the Pallas kernel.
 
-The kernels are compiled by `nvcc` for sm_90a at first use into
-`<repo>/build/kernels/` (git-ignored), keyed by a hash of the source and the
-flags, and loaded with ctypes; the source has a plain C interface, so a build
-takes seconds. `LAUNCHES` counts each kernel's launches, by name.
+`LIBRARY` declares csrc/march.cu's kernels to ops/cuda_lib.py, which builds,
+loads and launches them and counts each launch under the kernel's name in
+`cuda_lib.LAUNCHES`: 'stage', 'march', 'march_argmin', 'refine',
+'march_grad', 'march_sp' and 'unpack_key'.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
@@ -78,19 +73,8 @@ import torch
 
 from geomconsistentfr_torch.config import RenderConfig
 from geomconsistentfr_torch.ops import shadows
+from geomconsistentfr_torch.ops.cuda_lib import Library, check, ptr
 from geomconsistentfr_torch.parallel.mesh import all_min
-
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "march.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-fmad=false", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-# Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"stage": 0, "march": 0, "march_argmin": 0, "refine": 0, "march_grad": 0, "march_sp": 0,
-            "unpack_key": 0}
 
 # The kernel's `form` argument (csrc/march.cu, enum Form).
 _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
@@ -98,54 +82,14 @@ _FORMS = {"march": 0, "march_argmin": 1, "refine": 2}
 QUAD_MAX = 2048
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_c_int] + [_c_void_p] * 11 + [_c_int] * 11 + [_c_float] * 7 + [_c_void_p]
-_STAGE_ARGTYPES = [_c_void_p] * 8 + [_c_int] * 6 + [_c_void_p]
-_GRAD_ARGTYPES = [_c_void_p] * 9 + [_c_int] * 5 + [_c_void_p]
-_UNPACK_ARGTYPES = [_c_void_p] * 3 + [ctypes.c_longlong, _c_void_p]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
-
-
-def build(source: Path = SOURCE) -> tuple[Path, str]:
-    """Compile `source` (march.cu unless given) unless a build of it exists; (library, ptxas log)."""
-    src = source.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{source.stem}_{key}.so"
-    log = BUILD_DIR / f"{source.stem}_{key}.log"
-    if lib.exists():
-        return lib, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {source.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build sees a whole file
-    log.write_text(proc.stdout + proc.stderr)
-    return lib, proc.stdout + proc.stderr
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    for fn, argtypes in ((lib.gcfr_stage_launch, _STAGE_ARGTYPES), (lib.gcfr_march_launch, _ARGTYPES),
-                         (lib.gcfr_march_grad_launch, _GRAD_ARGTYPES),
-                         (lib.gcfr_unpack_key_launch, _UNPACK_ARGTYPES)):
-        fn.argtypes, fn.restype = argtypes, _c_int
-    return lib
+_MARCH = ("gcfr_march_launch", [_c_int] + [_c_void_p] * 11 + [_c_int] * 11 + [_c_float] * 7)
+LIBRARY = Library(Path(__file__).resolve().parents[1] / "csrc" / "march.cu", {
+    "stage": ("gcfr_stage_launch", [_c_void_p] * 8 + [_c_int] * 6),
+    "march": _MARCH, "march_argmin": _MARCH, "refine": _MARCH,
+    "march_grad": ("gcfr_march_grad_launch", [_c_void_p] * 9 + [_c_int] * 5),
+    "march_sp": _MARCH,  # K2's key form on a rank's slice, launched as 'march_argmin' (count_as)
+    "unpack_key": ("gcfr_unpack_key_launch", [_c_void_p] * 3 + [ctypes.c_longlong]),
+})
 
 
 def _in_unit(lo: float, hi: float) -> bool:
@@ -195,17 +139,6 @@ def _offsets_on(device: torch.device, halfwidth: int, t_step: float) -> torch.Te
     return torch.as_tensor(shadows.refine_offsets(cfg), device=device)
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def needs_grad(depth: torch.Tensor, light_point: torch.Tensor) -> bool:
     """True when autograd records and depth or the light point asks for a gradient."""
     return torch.is_grad_enabled() and (depth.requires_grad or light_point.requires_grad)
@@ -218,17 +151,9 @@ def _check_inputs(depth, mask, light_point, cfg: RenderConfig, what: str) -> Non
     b, h, w = depth.shape
     if (h, w) != (cfg.img_height, cfg.img_width):
         raise ValueError(f"depth {tuple(depth.shape)} does not match the config's {cfg.img_height}x{cfg.img_width}")
-    _check("depth", depth, (b, h, w), depth.device)
-    _check("mask", mask, (b, h, w), depth.device)
-    _check("light_point", light_point, (b, 3), depth.device)
-
-
-def _ptr(x) -> int:
-    return 0 if x is None else x.data_ptr()
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    check("depth", depth, (b, h, w), depth.device)
+    check("mask", mask, (b, h, w), depth.device)
+    check("light_point", light_point, (b, 3), depth.device)
 
 
 def _stage(depth, mask, light_point, cfg: RenderConfig, draft: bool = False, flags: bool = False,
@@ -258,14 +183,8 @@ def _stage(depth, mask, light_point, cfg: RenderConfig, draft: bool = False, fla
     full = torch.empty((b, h + 1, w + 1, 2), dtype=torch.float32, device=dev) if full_res else None
     full_live = torch.empty((b, -(-h // 8), w // full_chunk), dtype=torch.uint8, device=dev) if cull and full_res else None
     light = torch.empty((b, 3), dtype=torch.float32, device=dev) if s > 1 else None
-    with torch.cuda.device(dev):
-        err = _library().gcfr_stage_launch(
-            depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(), quad.data_ptr(), _ptr(full), _ptr(live),
-            _ptr(full_live), _ptr(light), b, h, w, s, chunk, full_chunk, _stream(dev),
-        )
-    if err != 0:
-        raise RuntimeError(f"stage kernel launch failed: CUDA error {err}")
-    LAUNCHES["stage"] += 1
+    LIBRARY.launch("stage", dev, depth.data_ptr(), mask.data_ptr(), light_point.data_ptr(), quad.data_ptr(),
+                   ptr(full), ptr(live), ptr(full_live), ptr(light), b, h, w, s, chunk, full_chunk)
     return shadows.Staged(quad, live, full, full_live, light)
 
 
@@ -317,18 +236,14 @@ def _launch(kernel: str, staged: shadows.Staged, mask, light_point, ts, cfg: Ren
     centre_idx, centre_ts = centre if centre is not None else (None, None)
 
     out = torch.empty((b, h, w), dtype=torch.float32, device=dev) if key is None else None
-    with torch.cuda.device(dev):
-        err = _library().gcfr_march_launch(
-            _FORMS[kernel], quad.data_ptr(), _ptr(mask), _ptr(flags), light_point.data_ptr(),
-            ts.data_ptr(), _ptr(t_map),
-            _ptr(centre_idx), _ptr(centre_ts), _ptr(out), _ptr(idx), _ptr(key),
-            b, h, w, ts.numel(), veto, int(clamp), int(cfg.shadow_mask_cull), chunk, int(gate_on),
-            cfg.shadow_resolution_scale, 0 if centre_ts is None else centre_ts.numel(),
-            lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, _stream(dev),
-        )
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    LAUNCHES[count_as or kernel] += 1
+    LIBRARY.launch(
+        kernel, dev, _FORMS[kernel], quad.data_ptr(), ptr(mask), ptr(flags), light_point.data_ptr(),
+        ts.data_ptr(), ptr(t_map),
+        ptr(centre_idx), ptr(centre_ts), ptr(out), ptr(idx), ptr(key),
+        b, h, w, ts.numel(), veto, int(clamp), int(cfg.shadow_mask_cull), chunk, int(gate_on),
+        cfg.shadow_resolution_scale, 0 if centre_ts is None else centre_ts.numel(),
+        lo_x, hi_x, lo_y, hi_y, cfg.shadow_bias, t_lo, t_hi, count_as=count_as,
+    )
     return out if key is None else key
 
 
@@ -434,12 +349,7 @@ def unpack_march_key(key: torch.Tensor) -> tuple:
         raise ValueError(f"the unpack reads contiguous int64 keys, got {key.dtype}")
     out = torch.empty(key.shape, dtype=torch.float32, device=key.device)
     t_star = torch.empty_like(out)
-    with torch.cuda.device(key.device):
-        err = _library().gcfr_unpack_key_launch(key.data_ptr(), out.data_ptr(), t_star.data_ptr(), key.numel(),
-                                                _stream(key.device))
-    if err != 0:
-        raise RuntimeError(f"unpack_key kernel launch failed: CUDA error {err}")
-    LAUNCHES["unpack_key"] += 1
+    LIBRARY.launch("unpack_key", key.device, key.data_ptr(), out.data_ptr(), t_star.data_ptr(), key.numel())
     return out, t_star
 
 
@@ -455,10 +365,10 @@ def _check_grad_inputs(depth, mask, light_point, grad, cfg: RenderConfig, staged
     b, h, w = depth.shape
     dev = depth.device
     grad = grad.contiguous()
-    _check("grad", grad, (b, h, w), dev)
+    check("grad", grad, (b, h, w), dev)
     if staged is None:
         raise ValueError("march_grad reads the forward's staged input: pass the shadows.Staged K2 read")
-    _check("the staged quad", staged.quad, (b, h + 1, w + 1, 2), dev)
+    check("the staged quad", staged.quad, (b, h + 1, w + 1, 2), dev)
     chunk = shadows.effective_col_chunk(cfg)
     units = (b, -(-h // 8), w // chunk)
     if cfg.shadow_mask_cull and (staged.flags is None or staged.flags.dtype != torch.uint8
@@ -485,7 +395,7 @@ def march_grad_cuda(depth, mask, light_point, idx, ts, grad, cfg: RenderConfig, 
     b, h, w = depth.shape
     if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h, w) or not idx.is_contiguous() or idx.device != depth.device:
         raise ValueError("idx must be a contiguous int32 (B, H, W) tensor on the depth's device")
-    _check("ts", ts, (ts.numel(),), depth.device)
+    check("ts", ts, (ts.numel(),), depth.device)
     grid, clamp = _ts_for(depth.device, cfg)
     if ts is not grid:
         clamp = _ts_for(depth.device, cfg, ts)[1]
@@ -500,7 +410,7 @@ def march_grad_at_cuda(depth, mask, light_point, t_star, grad, cfg: RenderConfig
     if depth.device.type == "cpu":
         return shadows.march_vjp(depth, mask, light_point, t_star, grad, cfg)
     grad = _check_grad_inputs(depth, mask, light_point, grad, cfg, staged)
-    _check("t_star", t_star, tuple(depth.shape), depth.device)
+    check("t_star", t_star, tuple(depth.shape), depth.device)
     clamp = _ts_for(depth.device, cfg, t_star)[1]  # the kernel's taps; this waits for the card
     return _march_grad(light_point, None, None, grad, staged, cfg, t_map=t_star, clamp=clamp)
 
@@ -513,15 +423,11 @@ def _march_grad(light_point, idx, ts, grad, staged: shadows.Staged, cfg: RenderC
     b, h, w = grad.shape
     dev = grad.device
     grads = torch.zeros(b * h * w + 3 * b, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _library().gcfr_march_grad_launch(
-            staged.quad.data_ptr(), _ptr(staged.flags if cfg.shadow_mask_cull else None), light_point.data_ptr(),
-            _ptr(ts), _ptr(idx), _ptr(t_map), grad.data_ptr(), grads.data_ptr(), grads.data_ptr() + 4 * b * h * w,
-            b, h, w, int(clamp), shadows.effective_col_chunk(cfg), _stream(dev),
-        )
-    if err != 0:
-        raise RuntimeError(f"march_grad kernel launch failed: CUDA error {err}")
-    LAUNCHES["march_grad"] += 1
+    LIBRARY.launch(
+        "march_grad", dev, staged.quad.data_ptr(), ptr(staged.flags if cfg.shadow_mask_cull else None),
+        light_point.data_ptr(), ptr(ts), ptr(idx), ptr(t_map), grad.data_ptr(), grads.data_ptr(),
+        grads.data_ptr() + 4 * b * h * w, b, h, w, int(clamp), shadows.effective_col_chunk(cfg),
+    )
     return grads.as_strided((b, h, w), (h * w, w, 1)), grads.as_strided((b, 3), (3, 1), b * h * w)
 
 
@@ -654,7 +560,7 @@ def refine_min_distance_cuda(
     if depth.device.type == "cpu":
         return shadows.refine_min_distance_batch(depth, mask, light_point, t_map, cfg, offsets)
     _check_inputs(depth, mask, light_point, cfg, "refine")
-    _check("t_map", t_map, tuple(depth.shape), depth.device)
+    check("t_map", t_map, tuple(depth.shape), depth.device)
     return _launch("refine", _stage(depth, mask, light_point, cfg), mask, light_point,
                    _refine_offsets(depth.device, cfg, offsets), cfg, t_map=t_map)
 
@@ -696,7 +602,7 @@ def refine_around_argmin_cuda(
     if idx.dtype != torch.int32 or tuple(idx.shape) != (b, h // s, w // s) or not idx.is_contiguous() \
             or idx.device != dev:
         raise ValueError(f"idx must be a contiguous int32 {(b, h // s, w // s)} tensor on the depth's device")
-    _check("ts", ts, (ts.numel(),), dev)
+    check("ts", ts, (ts.numel(),), dev)
     return _launch("refine", _stage(depth, mask, light_point, cfg), mask, light_point,
                    _refine_offsets(dev, cfg, offsets), cfg, centre=(idx, ts))
 

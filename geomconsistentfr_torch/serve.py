@@ -465,17 +465,11 @@ def follow(group, tier_pool) -> dict:
 def warmup(relighter, batch_sizes=(1, 8)) -> float:
     """Run every shape the serving path uses once, before traffic arrives.
 
-    On the card this builds the march, epilogue and conv3x3 kernels first (nvcc, once
-    per source; a later process loads the build), so no request pays for it. Then one
-    forward_visuals per relight batch size and one estimate_lighting at the
-    smallest, on zero inputs. Returns the wall seconds."""
+    One forward_visuals per relight batch size and one estimate_lighting at the
+    smallest, on zero inputs. On the card these build and load every kernel the
+    relighter's tier launches (nvcc, once per source; a later process loads the
+    build), so no request pays for it. Returns the wall seconds."""
     t0 = time.monotonic()
-    if relighter.device.type == "cuda":
-        from geomconsistentfr_torch.ops import conv3x3_cuda, epilogue_cuda, shadows_cuda
-
-        shadows_cuda._library()
-        epilogue_cuda._library()
-        conv3x3_cuda._library()
     size = relighter.cfg.render.img_height
     light = np.asarray([[0.0, 0.0, 1.0]], np.float32)
     for b in sorted(set(batch_sizes)):

@@ -2,7 +2,7 @@
 
 `takes`, the one predicate by which `layers.conv_bn_act` runs a convolution
 in csrc/conv3x3.cu: which of RelightNet's layers it picks in both variants,
-and the `CONVS` counts of a forward and of an estimate pass with the card
+and the `cuda_lib.LAUNCHES["conv3x3"]` counts of a forward and of an estimate pass with the card
 forced (the predicates see a CUDA tensor; each launch runs the plain
 version), none off the card, in train mode, with autograd or in bfloat16;
 the ConvTranspose2d -> conv2d weight transform against F.conv_transpose2d
@@ -21,8 +21,9 @@ from torch import nn
 
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.ops import conv3x3_cuda as D
+from geomconsistentfr_torch.ops import cuda_lib
 from geomconsistentfr_torch.ops import epilogue_cuda as E
-from test_torch_epilogue import SLOPE, cpu_net, kernel_model, random_bn
+from test_torch_epilogue import SLOPE, cpu_net, epilogue_counts, kernel_model, random_bn, reset_counts
 
 # The layers the direct route takes: 16 -> 16, 3x3, stride 1, padding 1 (both decoders, then the encoder).
 DECODER_LAYERS = ("conv_{p}_skip_s3_1", "conv_{p}_skip_s3_2", "conv_{p}_skip_s4_1", "conv_{p}_skip_s4_2",
@@ -34,8 +35,9 @@ DIRECT_PER_FORWARD, DIRECT_PER_ESTIMATE = 18, 2
 
 def force_card(mp, picked: list) -> None:
     """Take the fused path's device condition as met on the CPU (every other condition of
-    `use_fused` still applies); each direct launch runs `plain` and each epilogue launch
-    kernel_model; `picked` receives each convolution module the direct route takes."""
+    `use_fused` still applies); each direct launch runs `plain` and counts as the kernel's
+    accepted launch would, each epilogue launch runs kernel_model (uncounted); `picked`
+    receives each convolution module the direct route takes."""
     real_use_fused, real_takes = E.use_fused, D.takes
     card = types.SimpleNamespace(is_cuda=True)
 
@@ -45,15 +47,14 @@ def force_card(mp, picked: list) -> None:
             picked.append(conv)
         return ok
 
+    def direct(*args):
+        cuda_lib.LAUNCHES["conv3x3"] += 1
+        return D.plain(*args)
+
     mp.setattr(E, "use_fused", lambda x, dtype, *bns: real_use_fused(card, dtype, *bns))
     mp.setattr(E, "_launch", kernel_model)
-    mp.setattr(D, "_launch", D.plain)
+    mp.setattr(D, "_launch", direct)
     mp.setattr(D, "takes", takes)
-
-
-def reset_counts():
-    D.CONVS.update(direct=0)
-    E.EPILOGUES.update(fused=0, eager=0)
 
 
 @pytest.mark.parametrize("variant", ["target", "transfer"])
@@ -67,16 +68,16 @@ def test_direct_route_per_layer_and_count_per_forward(variant, monkeypatch):
     with torch.no_grad():
         reset_counts()
         want = net(img)
-        assert D.CONVS == {"direct": 0} and E.EPILOGUES == {"fused": 0, "eager": 47}
+        assert cuda_lib.LAUNCHES["conv3x3"] == 0 and epilogue_counts() == {"fused": 0, "eager": 47}
         picked = []
         with monkeypatch.context() as mp:
             force_card(mp, picked)
             reset_counts()
             got = net(img)
         assert sorted(names[m] for m in picked) == DIRECT_LAYERS
-        assert D.CONVS == {"direct": DIRECT_PER_FORWARD}
+        assert cuda_lib.LAUNCHES["conv3x3"] == DIRECT_PER_FORWARD
         # 'fused' counts the direct kernel's epilogues; epilogue.cu's launches run kernel_model here.
-        assert E.EPILOGUES == {"fused": DIRECT_PER_FORWARD, "eager": 0}
+        assert epilogue_counts() == {"fused": DIRECT_PER_FORWARD, "eager": 0}
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w)
 
@@ -92,7 +93,7 @@ def test_direct_route_count_per_estimate(variant, monkeypatch):
         reset_counts()
         net.estimate(img)
     assert sorted(names[m] for m in picked) == ["conv_h1_1", "conv_h1_2"]
-    assert D.CONVS == {"direct": DIRECT_PER_ESTIMATE}
+    assert cuda_lib.LAUNCHES["conv3x3"] == DIRECT_PER_ESTIMATE
 
 
 @pytest.mark.parametrize("variant", ["target", "transfer"])
@@ -113,8 +114,8 @@ def test_no_direct_route(case, variant, monkeypatch):
     else:
         with torch.no_grad():
             net(img)
-    assert picked == [] and D.CONVS == {"direct": 0}
-    assert E.EPILOGUES == {"fused": 0, "eager": 47}
+    assert picked == [] and cuda_lib.LAUNCHES["conv3x3"] == 0
+    assert epilogue_counts() == {"fused": 0, "eager": 47}
 
 
 def conv16(transposed=False, **kw):
@@ -267,6 +268,6 @@ def test_launch_checks_raise_before_any_launch(case, monkeypatch):
         "skip_shape": (dict(join=True, skip=cl_map(2, 16, 6, 6)), "shape"),
         "cpu": ({}, "CUDA tensors"),  # every check passes: the device refuses
     }[case]
-    monkeypatch.setattr(D, "_library", lambda: pytest.fail("the launcher was reached"))
+    monkeypatch.setattr(D.LIBRARY, "load", lambda: pytest.fail("the launcher was reached"))
     with pytest.raises((ValueError, TypeError), match=match):
         D._launch(**launch_args(**change))

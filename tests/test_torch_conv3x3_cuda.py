@@ -25,7 +25,7 @@ from torch import nn
 
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.ops import conv3x3_cuda as D
-from geomconsistentfr_torch.ops import epilogue_cuda as E
+from geomconsistentfr_torch.ops import cuda_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -113,11 +113,12 @@ def run_direct(call):
     """call() on the direct route, with cuDNN's deterministic float32 algorithms for any other
     convolution (a shortcut), as Relighter runs the CNN; asserts it was one direct launch."""
     with torch.no_grad(), layers.exact_convs():
-        D.CONVS.update(direct=0)
-        E.EPILOGUES.update(fused=0, eager=0)
+        cuda_lib.LAUNCHES.update(epilogue=0, conv3x3=0)
+        layers.EAGER_EPILOGUES = 0
         got = call()
         torch.cuda.synchronize()
-    assert D.CONVS == {"direct": 1} and E.EPILOGUES == {"fused": 1, "eager": 0}
+    assert cuda_lib.LAUNCHES["conv3x3"] == 1
+    assert cuda_lib.LAUNCHES["epilogue"] + cuda_lib.LAUNCHES["conv3x3"] == 1 and layers.EAGER_EPILOGUES == 0
     assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == torch.float32
     return got
 
@@ -169,6 +170,7 @@ from geomconsistentfr_torch.config import apply_precision_tier, preset_single_im
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.models.relightnet import RelightNet
 from geomconsistentfr_torch.ops import conv3x3_cuda as D
+from geomconsistentfr_torch.ops import cuda_lib
 out, batch = sys.argv[1], int(sys.argv[2])
 cfg = apply_precision_tier(preset_single_image(), "high").model
 net = RelightNet(cfg, generator=torch.Generator().manual_seed(0))
@@ -181,9 +183,9 @@ for m in net.modules():
 net = net.cuda().eval()
 img = torch.rand(batch, 256, 256, 3, generator=torch.Generator().manual_seed(2)).cuda()
 with torch.no_grad(), layers.deterministic_convs():
-    D.CONVS.update(direct=0)
+    cuda_lib.LAUNCHES.update(conv3x3=0)
     outs = net(img)
-    assert D.CONVS == {"direct": 18}, D.CONVS
+    assert cuda_lib.LAUNCHES["conv3x3"] == 18, cuda_lib.LAUNCHES
 torch.save([t.cpu() for t in outs], out)
 """
 
@@ -220,11 +222,11 @@ def test_refused_inputs_raise_before_any_launch(dev, case, monkeypatch):
         "bfloat16": dict(x=x.to(torch.bfloat16)),
         "vectors": dict(vec=torch.zeros(5, 8, device=dev)),
     }[case]
-    monkeypatch.setattr(D, "_library", lambda: pytest.fail("the launcher was reached"))
-    D.CONVS.update(direct=0)
+    monkeypatch.setattr(D.LIBRARY, "load", lambda: pytest.fail("the launcher was reached"))
+    cuda_lib.LAUNCHES.update(conv3x3=0)
     with pytest.raises((ValueError, TypeError)):
         D.bn_act(valid_conv(dev, **change), None, SLOPE)
-    assert D.CONVS == {"direct": 0}
+    assert cuda_lib.LAUNCHES["conv3x3"] == 0
 
 
 def test_refused_launch_raises(dev, monkeypatch):
@@ -232,16 +234,11 @@ def test_refused_launch_raises(dev, monkeypatch):
     out = torch.empty_like(c.x)
     stream = torch.cuda.current_stream(dev).cuda_stream
     # The launcher refuses what it does not take (here no rows) with cudaErrorInvalidValue.
-    assert D._library().gcfr_conv3x3_launch(c.x.data_ptr(), c.w.data_ptr(), c.vec.data_ptr(), 1, None, None, 0, None,
-                                            out.data_ptr(), 2, 0, 8, 0, 1, SLOPE, stream) == 1
+    assert D.LIBRARY.load()["conv3x3"](c.x.data_ptr(), c.w.data_ptr(), c.vec.data_ptr(), 1, None, None, 0, None,
+                                       out.data_ptr(), 2, 0, 8, 0, 1, SLOPE, stream) == 1
 
-    class Refusing:
-        @staticmethod
-        def gcfr_conv3x3_launch(*args):
-            return 1
-
-    monkeypatch.setattr(D, "_library", lambda: Refusing)
-    D.CONVS.update(direct=0)
+    monkeypatch.setattr(D.LIBRARY, "load", lambda: {"conv3x3": lambda *args: 1})
+    cuda_lib.LAUNCHES.update(conv3x3=0)
     with pytest.raises(RuntimeError, match="conv3x3 kernel launch failed"):
         D.bn_act(c, None, SLOPE)
-    assert D.CONVS == {"direct": 0}  # a refused launch is not counted
+    assert cuda_lib.LAUNCHES["conv3x3"] == 0  # a refused launch is not counted

@@ -26,7 +26,7 @@ import torch
 
 from chip_smoke import device_activities  # torch.profiler as the card's machine needs it
 from geomconsistentfr_torch.config import RenderConfig
-from geomconsistentfr_torch.ops import shadows, shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows, shadows_cuda
 from geomconsistentfr_torch.ops.geometry import l2_normalize
 from geomconsistentfr_torch.render import render
 
@@ -67,12 +67,12 @@ def assert_march_close(got, want):
 
 
 def launches_since(before):
-    return {k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()}
+    return {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()}
 
 
 def counts(**n):
     """Launch counts by kernel name, 0 where not given ('stage' is each march's input staging)."""
-    return {k: n.get(k, 0) for k in shadows_cuda.LAUNCHES}
+    return {k: n.get(k, 0) for k in cuda_lib.LAUNCHES}
 
 
 @pytest.mark.parametrize("gate", ["none", "inside_image", "wide"])
@@ -82,7 +82,7 @@ def test_kernel_matches_plain(dev, veto, cull, gate):
     depth, mask, light = scene(dev)
     cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_bias_gate=gate,
                        shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march=1)
@@ -96,7 +96,7 @@ def test_argmin_kernel_matches_plain(dev, veto, cull, gate):
     depth, mask, light = scene(dev, seed=2)
     cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_bias_gate=gate,
                        shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(depth, mask, light, cfg, return_argmin_t=True)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march_argmin=1)
@@ -129,7 +129,7 @@ def test_refine_kernel_matches_plain(dev, veto, cull, gate):
     m_depth, m_mask, m_light, m_cfg = shadows.scale_march_inputs(depth, mask, light, cfg)
     _, t_star = shadows.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
     t_map = shadows.upsample_tstar_nn(t_star, cfg)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, refine=1)
@@ -151,7 +151,7 @@ def test_render_on_the_card_always_launches_the_kernel(dev):
     depth, mask, light = scene(dev)
     cfg = RenderConfig(**SMALL)
     args = (torch.rand((4, 64, 64, 3), device=dev), depth, torch.zeros((4, 4), device=dev), mask)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     assert launches_since(before) == counts(stage=1, march=1)
     want = shadows.ray_march_min_distance_batch(depth, mask, cfg.light_distance * l2_normalize(light, dim=-1), cfg)
@@ -167,7 +167,7 @@ def test_draft_render_launches_the_draft_kernels(dev, halfwidth):
     cfg = RenderConfig(**dict(DRAFT, shadow_refine_halfwidth=halfwidth, shadow_lowres_t_stride=1),
                        shadow_mask_gather="bilinear", shadow_mask_cull=True, shadow_col_chunk=64)
     args = (torch.rand((4, 64, 64, 3), device=dev), depth, torch.zeros((4, 4), device=dev), mask)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     torch.cuda.synchronize()
     want_launches = (counts(stage=1, march_argmin=1, refine=1) if halfwidth
@@ -191,7 +191,7 @@ def test_pool_march_inputs_is_the_plain_pooling(dev, scale):
     scale_march_inputs' floats bit for bit, each contiguous."""
     depth, mask, light = scene(dev, seed=21)
     cfg = RenderConfig(**dict(DRAFT, shadow_resolution_scale=scale), shadow_mask_cull=True, shadow_col_chunk=64)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda.pool_march_inputs(depth, mask, light, cfg)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1)
@@ -267,7 +267,7 @@ def test_march_grad_matches_plain_vjp(dev, veto, cull, gate):
     cfg = RenderConfig(**SMALL, shadow_mask_gather=veto, shadow_bias_gate=gate,
                        shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
     d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     out = shadows_cuda.ray_march_min_distance_cuda(d, mask, lp, cfg)
     assert launches_since(before) == counts(stage=1, march_argmin=1)
     (out * g).sum().backward()
@@ -295,7 +295,7 @@ def test_render_with_a_gradient_launches_k2_and_march_grad(dev):
         out.rendered.sum().backward()
         return d.grad.cpu(), lt.grad.cpu()
 
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got_d, got_l = grads(dev)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march_argmin=1, march_grad=1)
@@ -496,7 +496,7 @@ def test_refine_index_form_is_the_t_map_form(dev):
     table, clamp = shadows_cuda._ts_for(dev, m_cfg)
     _, idx, _ = shadows_cuda._argmin(m_depth, m_mask, m_light, table, m_cfg, clamp=clamp)
     t_map = shadows.upsample_tstar_nn(table[idx.long()], cfg)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     for offsets in (None, shadows.refine_offsets(cfg)[1:6]):
         assert_bits_equal(shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, table, cfg, offsets),
                           shadows_cuda.refine_min_distance_cuda(depth, mask, light, t_map, cfg, offsets))
@@ -527,7 +527,7 @@ def test_draft_render_reads_k2s_index_directly(dev, monkeypatch):
     monkeypatch.setattr(shadows, "upsample_tstar_nn", refused)
     monkeypatch.setattr(render_module, "upsample_tstar_nn", refused)
     monkeypatch.setattr(shadows, "cull_live_blocks", refused)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     out = render(*args, cfg, target_light=light)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march_argmin=1, refine=1)
@@ -563,7 +563,7 @@ def test_staging_is_bit_equal_to_its_plain_version(dev, scale, cull):
     mask[2, ::2] = 0.0                   # half of each 2x2 block: the majority's edge
     cfg = RenderConfig(**dict(DRAFT, shadow_resolution_scale=scale, shadow_lowres_t_stride=min(scale, 2)),
                        shadow_mask_cull=cull > 0, shadow_col_chunk=cull)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda._stage(depth, mask, light, cfg, draft=scale > 1, flags=True)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1)
@@ -631,7 +631,7 @@ def test_refine_reading_flags_equals_refine_scanning_the_mask(dev, veto, cull):
     _, idx = shadows.ray_march_argmin_batch(m_depth, m_mask, m_light, m_cfg, table)
     staged = shadows_cuda._stage(depth, mask, light, cfg, draft=True, flags=True)
     full = shadows.Staged(staged.full, staged.full_flags)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda._launch("refine", full, None, light, shadows_cuda._refine_offsets(dev, cfg), cfg,
                                centre=(idx, table))
     assert launches_since(before) == counts(refine=1)
@@ -723,7 +723,7 @@ def test_k5_backward_in_one_process(dev):
     cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
     ts = shadows.sample_ts(cfg).astype(np.float32)
     d, lp = depth.clone().requires_grad_(), light.clone().requires_grad_()
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts, None)
     (out * g).sum().backward()
     torch.cuda.synchronize()
@@ -762,7 +762,7 @@ def test_k2_key_form_is_the_packed_index_form(dev, samples, cull, bias):
     ts, clamp = shadows_cuda._ts_for(dev, cfg)
     assert ts.numel() == samples and not clamp
     out, idx, _ = shadows_cuda._launch_argmin(depth, mask, light, ts, cfg, clamp=clamp)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     key, staged = shadows_cuda._march_key(depth, mask, light, ts, cfg, clamp=clamp)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march_argmin=1)
@@ -787,7 +787,7 @@ def test_unpack_kernel_is_its_plain_version(dev):
     key, _ = shadows_cuda._march_key(depth, mask, light, ts, cfg, clamp=clamp)
     words = torch.from_numpy(np.random.default_rng(25).integers(-2 ** 63, 2 ** 63 - 1, size=5001,
                                                                  dtype=np.int64)).to(dev)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     for k in (key, words, key.view(-1)[:1001]):
         got_d, got_t = shadows_cuda.unpack_march_key(k)
         want_d, want_t = shadows.unpack_march_key(k)
@@ -823,7 +823,7 @@ def test_march_grad_t_map_form_is_the_index_form(dev):
     g = torch.zeros_like(d)
     g.view(64, -1)[torch.arange(64, device=dev), torch.tensor(pix, device=dev)] = torch.from_numpy(
         rng.normal(size=64).astype(np.float32)).to(dev)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     by_idx = shadows_cuda.march_grad_cuda(d, m, lp, idx, ts, g, cfg, staged)
     by_t = shadows_cuda.march_grad_at_cuda(d, m, lp, ts[idx.long()], g, cfg, staged)
     torch.cuda.synchronize()
@@ -851,7 +851,7 @@ def test_march_over_lights_on_the_card(dev):
     image expanded across the lights, bit-equal to the plain march of the repeated image."""
     depth, mask, light = edge_scene(dev, seed=28)
     cfg = RenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=16)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows.ray_march_min_distance_lights(depth[0], mask[0], light, cfg)
     torch.cuda.synchronize()
     assert launches_since(before) == counts(stage=1, march=1)

@@ -42,7 +42,7 @@ import jax.numpy as jnp
 
 from geomconsistentfr_torch import config as TC
 from geomconsistentfr_torch.ops import shadows as TS
-from geomconsistentfr_torch.ops import shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows_cuda
 from geomconsistentfr_torch.render import render as t_render
 from geomconsistentfr_tpu import config as JC
 from geomconsistentfr_tpu.ops import shadows as JS
@@ -399,7 +399,7 @@ def test_wrappers_on_cpu_tensors_are_the_plain_versions():
     depth, mask, lights = scene(seed=11)
     tcfg = TC.RenderConfig(**DRAFT, shadow_mask_cull=True)
     inputs = T(depth, mask, lights)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got_d, got_t = shadows_cuda.ray_march_min_distance_cuda(*inputs, tcfg, return_argmin_t=True)
     want_d, want_t = TS.ray_march_min_distance_batch(*inputs, tcfg, return_argmin_t=True)
     np.testing.assert_array_equal(got_d.numpy(), want_d.numpy())
@@ -409,7 +409,7 @@ def test_wrappers_on_cpu_tensors_are_the_plain_versions():
         shadows_cuda.refine_min_distance_cuda(*inputs, t_map, tcfg).numpy(),
         TS.refine_min_distance_batch(*inputs, t_map, tcfg).numpy(),
     )
-    assert shadows_cuda.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
 
 
 # --------------------------------------------------------------------------- render()

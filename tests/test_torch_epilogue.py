@@ -4,7 +4,8 @@ The plain version of the kernel's arithmetic (`kernel_model`: csrc/epilogue.cu's
 operations in its order, from the bias-free convolution output and the (5, C)
 vectors) against the eager composition of models/layers.py bit for bit, in
 every form, on random BatchNorm statistics; the one predicate that picks the
-fused path and the `EPILOGUES` counts; RelightNet with the fused path forced on
+fused path and the epilogue counts (`cuda_lib.LAUNCHES` of the two kernels,
+`layers.EAGER_EPILOGUES`); RelightNet with the fused path forced on
 the CPU (the launch replaced by `kernel_model`, the direct convolution of
 ops/conv3x3_cuda.py off) against its eager forward; the
 vector cache after a load_state_dict and an in-place change; and the wrapper's
@@ -22,7 +23,7 @@ from torch import nn
 from geomconsistentfr_torch.config import ModelConfig
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.models.relightnet import RelightNet
-from geomconsistentfr_torch.ops import conv3x3_cuda
+from geomconsistentfr_torch.ops import conv3x3_cuda, cuda_lib
 from geomconsistentfr_torch.ops import epilogue_cuda as E
 
 SLOPE = 0.2
@@ -140,10 +141,21 @@ def cpu_net(variant="target", compute_dtype="float32", seed=0):
     return net.eval()
 
 
+def reset_counts():
+    cuda_lib.LAUNCHES.update(epilogue=0, conv3x3=0)
+    layers.EAGER_EPILOGUES = 0
+
+
+def epilogue_counts() -> dict:
+    """The epilogues since reset_counts: 'fused' those a hand-written kernel computed (the
+    launches of csrc/epilogue.cu and of csrc/conv3x3.cu), 'eager' the eager compositions."""
+    return {"fused": cuda_lib.LAUNCHES["epilogue"] + cuda_lib.LAUNCHES["conv3x3"], "eager": layers.EAGER_EPILOGUES}
+
+
 def count_epilogues(net, img, **kw):
-    E.EPILOGUES.update(fused=0, eager=0)
+    reset_counts()
     out = net(img, **kw)
-    return out, dict(E.EPILOGUES)
+    return out, epilogue_counts()
 
 
 # Epilogues a forward evaluates: the encoder's 9 (c1_og, h1_1, h1_2, two a
@@ -255,10 +267,10 @@ def test_launch_checks_raise_before_any_launch(case):
         "skip_without_join": (dict(skip=torch.zeros(2, 4, 12, 12)), "skip"),
         "cpu": ({}, "CUDA tensors"),  # every check passes: the device refuses
     }[case]
-    E.EPILOGUES.update(fused=0, eager=0)
+    reset_counts()
     with pytest.raises((ValueError, TypeError), match=match):
         E._launch(**launch_args(**change))
-    assert E.EPILOGUES == {"fused": 0, "eager": 0}
+    assert epilogue_counts() == {"fused": 0, "eager": 0}
 
 
 def test_conv_bn_act_refuses_a_skip_without_the_upsample():

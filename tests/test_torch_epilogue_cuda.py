@@ -28,7 +28,7 @@ from geomconsistentfr_torch.config import apply_precision_tier, preset_single_im
 from geomconsistentfr_torch.infer import Relighter
 from geomconsistentfr_torch.models import layers
 from geomconsistentfr_torch.models.relightnet import RelightNet
-from geomconsistentfr_torch.ops import conv3x3_cuda
+from geomconsistentfr_torch.ops import conv3x3_cuda, cuda_lib
 from geomconsistentfr_torch.ops import epilogue_cuda as E
 
 pytestmark = pytest.mark.cuda
@@ -61,16 +61,19 @@ def randomize_bns(net, seed):
 
 
 def both_paths(fn, monkeypatch, direct=False):
-    """(fused result, eager result, the fused run's EPILOGUES), convolutions exact. The
+    """(fused result, eager result, the fused run's epilogue counts: 'fused' the launches of
+    csrc/epilogue.cu and csrc/conv3x3.cu, 'eager' layers.EAGER_EPILOGUES), convolutions exact. The
     fused run leaves the 16-channel 3x3 convolutions to cuDNN (the direct route, which sums
     in another order, monkeypatched off) unless `direct`."""
     with torch.no_grad(), layers.exact_convs():
-        E.EPILOGUES.update(fused=0, eager=0)
+        cuda_lib.LAUNCHES.update(epilogue=0, conv3x3=0)
+        layers.EAGER_EPILOGUES = 0
         with monkeypatch.context() as mp:
             if not direct:
                 mp.setattr(conv3x3_cuda, "takes", lambda *args: False)
             got = fn()
-        counts = dict(E.EPILOGUES)
+        counts = {"fused": cuda_lib.LAUNCHES["epilogue"] + cuda_lib.LAUNCHES["conv3x3"],
+                  "eager": layers.EAGER_EPILOGUES}
         with monkeypatch.context() as mp:
             mp.setattr(E, "use_fused", lambda *args: False)
             want = fn()
@@ -174,9 +177,8 @@ def test_relightnet_direct_route_close_to_eager(dev, variant, tier, batch, monke
     randomize_bns(net, batch + 1)
     net = net.to(dev).eval()
     img = torch.rand(batch, 256, 256, 3, generator=torch.Generator().manual_seed(batch + 2)).to(dev)
-    conv3x3_cuda.CONVS.update(direct=0)
     got, want, counts = both_paths(lambda: net(img), monkeypatch, direct=True)
-    assert counts == {"fused": EPILOGUES_PER_FORWARD, "eager": 0} and conv3x3_cuda.CONVS == {"direct": 18}
+    assert counts == {"fused": EPILOGUES_PER_FORWARD, "eager": 0} and cuda_lib.LAUNCHES["conv3x3"] == 18
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         err = (g.double() - w.double()).abs().max().item() / w.abs().max().item()
@@ -201,18 +203,15 @@ def test_refused_launch_raises(dev, monkeypatch):
     u = torch.zeros(2, 4, 8, 8, device=dev)
     vec = torch.zeros(5, 4, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = E._library()
+    launch = E.LIBRARY.load()["epilogue"]
     # The launcher refuses what it does not take (here no channels) with cudaErrorInvalidValue.
-    assert lib.gcfr_epilogue_launch(u.data_ptr(), vec.data_ptr(), 0, None, None, 0, None, u.data_ptr(),
-                                    2, 0, 8, 8, 0, 0, 1, SLOPE, stream) == 1
+    assert launch(u.data_ptr(), vec.data_ptr(), 0, None, None, 0, None, u.data_ptr(),
+                  2, 0, 8, 8, 0, 0, 1, SLOPE, stream) == 1
 
-    class Refusing:
-        @staticmethod
-        def gcfr_epilogue_launch(*args):
-            return 1
-
-    monkeypatch.setattr(E, "_library", lambda: Refusing)
-    E.EPILOGUES.update(fused=0, eager=0)
+    monkeypatch.setattr(E.LIBRARY, "load", lambda: {"epilogue": lambda *args: 1})
+    cuda_lib.LAUNCHES.update(epilogue=0)
+    layers.EAGER_EPILOGUES = 0
     with pytest.raises(RuntimeError, match="epilogue kernel launch failed"):
         E.bn_act(E.Affine(u, vec, False), None, SLOPE)
-    assert E.EPILOGUES == {"fused": 0, "eager": 0}  # a refused launch is not counted
+    # a refused launch is not counted
+    assert cuda_lib.LAUNCHES["epilogue"] == 0 and layers.EAGER_EPILOGUES == 0

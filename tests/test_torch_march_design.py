@@ -58,7 +58,7 @@ import jax.numpy as jnp
 
 from geomconsistentfr_torch import config as TC
 from geomconsistentfr_torch.ops import shadows as TS
-from geomconsistentfr_torch.ops import shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows_cuda
 from geomconsistentfr_tpu import config as JC
 from geomconsistentfr_tpu.ops import shadows as JS
 from torch_cpu_threads import one_warm_intra_op_thread  # noqa: F401 (autouse fixture)
@@ -675,13 +675,13 @@ def test_refine_around_argmin_is_the_refine_on_the_upsampled_tstar(variant):
     t_map = TS.upsample_tstar_nn(ts[idx.long()], cfg)
     assert torch.equal(kernel_centre(idx, ts, 64, 64, 4), t_map)
     want = TS.refine_min_distance_batch(depth, mask, light, t_map, cfg)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, ts, cfg)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     offsets = TS.refine_offsets(cfg)[1:6]
     assert torch.equal(shadows_cuda.refine_around_argmin_cuda(depth, mask, light, idx, ts, cfg, offsets),
                        TS.refine_min_distance_batch(depth, mask, light, t_map, cfg, offsets))
-    assert shadows_cuda.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -696,11 +696,11 @@ def test_draft_march_is_pool_argmin_and_refine(variant):
     m_depth, m_mask, m_light, m_cfg = TS.scale_march_inputs(depth, mask, light, cfg)
     _, t_star = TS.ray_march_min_distance_batch(m_depth, m_mask, m_light, m_cfg, return_argmin_t=True)
     want = TS.refine_min_distance_batch(depth, mask, light, TS.upsample_tstar_nn(t_star, cfg), cfg)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda.draft_march(depth, mask, light, cfg)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(shadow_min_distance(depth, mask, light, cfg).view(torch.int32), want.view(torch.int32))
-    assert shadows_cuda.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
     for bad in (dict(shadow_refine_halfwidth=0), dict(shadow_resolution_scale=1)):
         bad_cfg = dataclasses.replace(cfg, shadow_lowres_t_stride=1, **bad)
         with pytest.raises(ValueError):

@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 from geomconsistentfr_torch.config import RenderConfig as TRenderConfig
 from geomconsistentfr_torch.ops import shadows as TS
-from geomconsistentfr_torch.ops import shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows_cuda
 from geomconsistentfr_tpu.config import RenderConfig as JRenderConfig
 from geomconsistentfr_tpu.ops import shadows as JS
 from geomconsistentfr_tpu.ops import shadows_pallas as JSP
@@ -167,11 +167,11 @@ def test_mask_gather_resolution(precision, gather, want):
 def test_wrapper_on_cpu_tensors_is_the_plain_march():
     depth, mask = scene(2, seed=5)
     cfg = TRenderConfig(**SMALL, shadow_mask_cull=True, shadow_col_chunk=32)
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     got = shadows_cuda.ray_march_min_distance_cuda(
         torch.from_numpy(depth), torch.from_numpy(mask), torch.from_numpy(FAR_LIGHTS), cfg
     )
-    assert shadows_cuda.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
     np.testing.assert_array_equal(got.numpy(), port_march(depth, mask, FAR_LIGHTS, cfg))
 
 

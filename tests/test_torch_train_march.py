@@ -42,7 +42,7 @@ import jax.numpy as jnp
 
 from geomconsistentfr_torch import config as TC
 from geomconsistentfr_torch.ops import shadows as TS
-from geomconsistentfr_torch.ops import shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows_cuda
 from geomconsistentfr_torch.render import render as t_render
 from geomconsistentfr_torch.render import shadow_min_distance
 from geomconsistentfr_tpu import config as JC
@@ -211,14 +211,14 @@ def test_mask_gets_no_gradient_and_forward_is_the_march():
     depth, mask, lights, g = scene(seed=5)
     _, tcfg = cfgs()
     d, m, lp = (torch.from_numpy(a).requires_grad_() for a in (depth, mask, lights))
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     out = shadows_cuda.ray_march_min_distance_cuda(d, m, lp, tcfg)
     assert isinstance(out.grad_fn, shadows_cuda.RayMarchMinDistance._backward_cls)
     np.testing.assert_array_equal(
         out.detach().numpy(), TS.ray_march_min_distance_batch(*map(torch.from_numpy, (depth, mask, lights)), tcfg).numpy())
     (out * torch.from_numpy(g)).sum().backward()
     assert m.grad is None and d.grad is not None and lp.grad is not None
-    assert shadows_cuda.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
     # The wrapper on CPU tensors is the plain VJP at t*.
     _, t_star = TS.ray_march_min_distance_batch(*map(torch.from_numpy, (depth, mask, lights)), tcfg,
                                                 return_argmin_t=True)

@@ -16,7 +16,7 @@ from chip_smoke import CollectiveCounter
 from geomconsistentfr_torch import train as TT
 from geomconsistentfr_torch.infer import Relighter
 from geomconsistentfr_torch.models.layers import BatchNorm
-from geomconsistentfr_torch.ops import shadows, shadows_cuda
+from geomconsistentfr_torch.ops import cuda_lib, shadows, shadows_cuda
 from geomconsistentfr_torch.parallel import mesh as M
 
 
@@ -47,11 +47,11 @@ def k5(device, out_dir, tag, cfg, depth, mask, lights, cot):
     ts_local = _shard(shadows.sharded_sample_ts(cfg, m.size), m, "data").to(device)
     depth, mask, lights, cot = (torch.from_numpy(a).to(device) for a in (depth, mask, lights, cot))
     d, lp = depth.clone().requires_grad_(), lights.clone().requires_grad_()
-    before = dict(shadows_cuda.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     with CollectiveCounter() as collectives:
         out = shadows_cuda.RayMarchMinDistanceSP.apply(d, mask, lp, cfg, ts_local, m.world_group)
         (out * cot).sum().backward()
-    launches = {k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()}
+    launches = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()}
     ts_key, clamp = shadows_cuda._grid_slice(device, cfg, ts_local)
     key, _ = shadows_cuda._march_key(depth, mask, lights, ts_key, cfg, clamp=clamp)
     _, t_star = shadows_cuda._combine(key, m.world_group)
@@ -127,13 +127,13 @@ def train_steps(device, out_dir, tag, shapes, cfg, start, batches, use_skips):
         _load(state, start)
         part = m.batch_slice(cfg.train.batch_size)
         losses, states = [], []
-        before = dict(shadows_cuda.LAUNCHES)
+        before = dict(cuda_lib.LAUNCHES)
         for b in batches:
             local = TT.decode_batch({k: v[part] for k, v in b.items()}, device)
             losses.append({k: float(v) for k, v in step(state, local, use_skips=use_skips).items()})
             states.append(_snapshot(state))
         results[shape] = dict(losses=losses, states=states,
-                              launches={k: v - before[k] for k, v in shadows_cuda.LAUNCHES.items()})
+                              launches={k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()})
     _save(out_dir, tag, rank, results=results)
 
 
