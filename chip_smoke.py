@@ -239,6 +239,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
               variants: 18 direct launches, 47 epilogues, two forwards
               bit-equal, and 2 direct launches an estimate_lighting. It runs
               right after epilogue.
+  16. pack     csrc/pack.cu (the uint8 visual pack of forward_visuals)
+              built, with ptxas's registers and no spills; at batch 1, 8 and
+              64 at 256^2, albedo and rendered as permuted NCHW maps read by
+              their strides, equal byte for byte to the eager pack_visuals;
+              the kernels alone (torch.profiler: the depth range and the
+              pack) and the wrapper (CUDA events) per call beside the bound
+              by bytes at 3.35 TB/s and the eager pack's time; Relighter's
+              forward_visuals at batch 64: 1 'pack' launch beside the 29
+              'epilogue' and 18 'conv3x3', its pack equal to the eager one
+              on render()'s own maps (their strides, and both packs' times
+              there). It runs right after conv3x3.
 Last (also after a failed phase), the `profiler` line: how many
 torch.profiler windows (`profiled`) it read, in how many the uncounted first
 call held fewer activities than a counted one, and how many were short.
@@ -985,6 +996,107 @@ def phase_conv3x3(dev):
         forward[variant] = counts
         del rl
     emit("conv3x3", ok=True, build_s=build_s, ptxas=regs, rows=rows, forward=forward)
+
+
+# The pack's rows: (B, H, W); a pixel reads 13 float32 values and its depth once more for
+# the range, and writes 12 bytes.
+PACK_ROWS = ((64, 256, 256), (8, 256, 256), (1, 256, 256))
+PACK_BYTES_PER_PIXEL = 13 * 4 + 4 + 12
+
+
+def pack_kernel_name(mangled: str):
+    """'range' and 'pack' for csrc/pack.cu's range_kernel and pack_kernel."""
+    m = re.search(r"(range|pack)_kernel", mangled)
+    return m and m.group(1)
+
+
+def pack_maps(shape, dev, seed):
+    """(outputs, masks) on the card in the renderer's ranges, binary masks; albedo and rendered
+    as (B, H, W, 3) views of NCHW maps, read by their strides (render() leaves them contiguous,
+    as the forward below does)."""
+    import torch
+
+    from geomconsistentfr_torch.render import RenderOutputs
+
+    b, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*s):
+        return torch.rand(*s, generator=gen, device=dev)
+
+    maps = dict(rendered=rand(b, 3, h, w).permute(0, 2, 3, 1) * 1.3, albedo=rand(b, 3, h, w).permute(0, 2, 3, 1),
+                surface_normals=rand(b, h, w, 3) * 2.0 - 1.0, shadow_mask_weights=rand(b, h, w),
+                depth=rand(b, h, w) * 60.0 + 70.0, final_shading=rand(b, h, w) * 1.5)
+    return RenderOutputs(**{f: maps.get(f) for f in RenderOutputs._fields}), (rand(b, h, w) > 0.2).float()
+
+
+def phase_pack(dev):
+    """The pack kernel built, held byte for byte against the eager pack at batch 1, 8 and 64,
+    timed against it and its bound, and its launches counted on a batch-64 forward_visuals."""
+    import numpy as np
+    import torch
+
+    from geomconsistentfr_torch import config as C
+    from geomconsistentfr_torch import infer
+    from geomconsistentfr_torch.infer import Relighter
+    from geomconsistentfr_torch.models.relightnet import RelightNet
+    from geomconsistentfr_torch.ops import cuda_lib
+    from geomconsistentfr_torch.ops import pack_cuda as P
+
+    t0 = time.perf_counter()
+    _, log = build_library(P.LIBRARY)
+    build_s = time.perf_counter() - t0
+    regs = ptxas_registers(log, pack_kernel_name)
+    check(sorted(regs) == ["pack", "range"], "pack", f"ptxas reported {regs}")
+    check(not re.search(r"[1-9]\d* bytes spill", log), "pack", f"ptxas reports spills: {log}")
+    rows = []
+    for i, (b, h, w) in enumerate(PACK_ROWS):
+        outputs, masks = pack_maps((b, h, w), dev, i)
+
+        def kernel():
+            return infer.pack_visuals(outputs, masks)
+
+        eager = patched(P, "takes", lambda *args: False, kernel)
+        with torch.no_grad():
+            reset_launches()
+            got = kernel()
+            torch.cuda.synchronize()
+            check(cuda_lib.LAUNCHES["pack"] == 1, "pack", f"{(b, h, w)}: {cuda_lib.LAUNCHES['pack']} launches")
+            check(torch.equal(got, eager()), "pack", f"{(b, h, w)}: the kernel differs from the eager pack")
+            del got
+            pack_ms = kernel_device_ms(kernel, name="pack_kernel")
+            range_ms = kernel_device_ms(kernel, name="range_kernel")
+            kernel_ms = None if pack_ms is None or range_ms is None else pack_ms + range_ms
+            bound = PACK_BYTES_PER_PIXEL * b * h * w / PEAK_BYTES_PER_S * 1e3
+            rows.append(dict(shape=[b, h, w], kernel_ms=kernel_ms, pack_kernel_ms=pack_ms, range_kernel_ms=range_ms,
+                             ms=cuda_time_ms(kernel, 20, windows=3), eager_ms=cuda_time_ms(eager, 20, windows=3),
+                             bound_ms=bound, bound_by="bytes",
+                             hbm_share=None if kernel_ms is None else bound / kernel_ms))
+        del outputs, masks
+        torch.cuda.empty_cache()
+
+    # The benchmark's configuration: Relighter.forward_visuals at batch 64, tier high.
+    cfg = C.apply_precision_tier(C.preset_single_image(), "high")
+    rl = Relighter(cfg, RelightNet(cfg.model, generator=torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+    masks = (rng.random((64, 256, 256)) > 0.2).astype(np.float32)
+    light = np.repeat(np.asarray([[0.3, 0.4, 0.87]], np.float32), 64, 0)
+    rl.forward_visuals(images, masks, light)
+    reset_launches()
+    got = rl.forward_visuals(images, masks, light)
+    torch.cuda.synchronize()
+    launches = {k: cuda_lib.LAUNCHES[k] for k in ("epilogue", "conv3x3", "pack")}
+    check(launches == {"epilogue": 29, "conv3x3": 18, "pack": 1}, "pack", f"a batch-64 forward launched {launches}")
+    with torch.no_grad():
+        outputs, m = rl._forward_local(images, masks, light, None)
+        strides = {f: list(getattr(outputs, f).stride()) for f in P.CHANNEL_MAPS + P.PLANE_MAPS}
+        kernel = functools.partial(infer.pack_visuals, outputs, m)
+        eager = patched(P, "takes", lambda *args: False, kernel)
+        check(torch.equal(got, eager()), "pack", "the batch-64 forward's pack differs from the eager pack")
+        render_ms = dict(ms=cuda_time_ms(kernel, 20, windows=3), eager_ms=cuda_time_ms(eager, 20, windows=3))
+    emit("pack", ok=True, build_s=build_s, ptxas=regs, rows=rows, forward_launches=launches, render_strides=strides,
+         render_outputs=render_ms)
 
 
 def load_goldens():
@@ -4393,6 +4505,7 @@ def main() -> int:
                                for k, v in sass.items() if not k.endswith(".clamp")})
         phase_epilogue(dev)
         phase_conv3x3(dev)
+        phase_pack(dev)
 
         goldens = load_goldens()
         march_err, march_ran = phase_march(goldens, dev)

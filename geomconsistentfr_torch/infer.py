@@ -50,7 +50,7 @@ from geomconsistentfr_torch.convert import (
 )
 from geomconsistentfr_torch.models.layers import deterministic_convs
 from geomconsistentfr_torch.models.relightnet import FULL_SKIPS, RelightNet
-from geomconsistentfr_torch.ops import shadows
+from geomconsistentfr_torch.ops import pack_cuda, shadows
 from geomconsistentfr_torch.ops.shadows_cuda import refine_min_distance_cuda, sharded_march
 from geomconsistentfr_torch.parallel.mesh import Mesh, all_gather_cat
 from geomconsistentfr_torch.render import RenderOutputs, estimated_light, render
@@ -85,7 +85,11 @@ def _to_unit(q: torch.Tensor) -> torch.Tensor:
 
 
 def pack_visuals(outputs: RenderOutputs, masks: torch.Tensor) -> torch.Tensor:
-    """The six eval visualizations fused into one uint8 (B, H, W, 12) tensor."""
+    """The six eval visualizations fused into one uint8 (B, H, W, 12) tensor: csrc/pack.cu's
+    one launch where `pack_cuda.takes` holds (CUDA float32 maps), else this composition,
+    its plain version."""
+    if pack_cuda.takes(outputs, masks):
+        return pack_cuda.pack(outputs, masks)
     m1 = masks[..., None]
     d = -outputs.depth
     dmin = d.amin(dim=(1, 2), keepdim=True)

@@ -1,7 +1,7 @@
 """Build, load, launch and count the port's hand-written CUDA kernels (csrc/*.cu).
 
-Each wrapper (ops/shadows_cuda.py, ops/epilogue_cuda.py, ops/conv3x3_cuda.py)
-declares its library once, at import: a `Library` of its source and, for
+Each wrapper (ops/shadows_cuda.py, ops/epilogue_cuda.py, ops/conv3x3_cuda.py,
+ops/pack_cuda.py) declares its library once, at import: a `Library` of its source and, for
 each kernel by the name its launches count under, the C entry point and its
 argtypes. The library is built and opened at its first launch, once a
 process; `Library.launch` runs an entry point on torch's current stream,

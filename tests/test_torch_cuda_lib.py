@@ -7,7 +7,7 @@ one launch under the kernel's name, or under `count_as`. The declarations
 against the C signatures in csrc/*.cu, parameter for parameter. The build's
 key and file names, without running nvcc. The kernels themselves run on the
 card (tests/test_torch_cuda.py, test_torch_epilogue_cuda.py,
-test_torch_conv3x3_cuda.py).
+test_torch_conv3x3_cuda.py, test_torch_pack_cuda.py).
 """
 
 import contextlib
@@ -19,16 +19,17 @@ import types
 import pytest
 import torch
 
-from geomconsistentfr_torch.ops import conv3x3_cuda, cuda_lib, epilogue_cuda, shadows_cuda
+from geomconsistentfr_torch.ops import conv3x3_cuda, cuda_lib, epilogue_cuda, pack_cuda, shadows_cuda
 
-LIBRARIES = {"march": shadows_cuda.LIBRARY, "epilogue": epilogue_cuda.LIBRARY, "conv3x3": conv3x3_cuda.LIBRARY}
+LIBRARIES = {"march": shadows_cuda.LIBRARY, "epilogue": epilogue_cuda.LIBRARY, "conv3x3": conv3x3_cuda.LIBRARY,
+             "pack": pack_cuda.LIBRARY}
 DECLARED = [(lib, kernel) for lib, library in LIBRARIES.items() for kernel in library.kernels]
 CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 
 
 def test_launches_holds_every_declared_kernel():
     assert sorted(cuda_lib.LAUNCHES) == sorted(["stage", "march", "march_argmin", "refine", "march_grad", "march_sp",
-                                                "unpack_key", "epilogue", "conv3x3"])
+                                                "unpack_key", "epilogue", "conv3x3", "pack"])
     assert sorted(k for _, k in DECLARED) == sorted(cuda_lib.LAUNCHES)
 
 
