@@ -1,11 +1,12 @@
 """Build, load, launch and count the port's hand-written CUDA kernels (csrc/*.cu).
 
 Each wrapper (ops/shadows_cuda.py, ops/epilogue_cuda.py, ops/conv3x3_cuda.py,
-ops/pack_cuda.py) declares its library once, at import: a `Library` of its source and, for
-each kernel by the name its launches count under, the C entry point and its
-argtypes. The library is built and opened at its first launch, once a
-process; `Library.launch` runs an entry point on torch's current stream,
-raises if the launcher refuses, and counts what it accepted in `LAUNCHES`.
+ops/pack_cuda.py) declares its library once, at import: a `Library` of its
+source and, for each kernel by the name its launches count under, the C entry
+point and its argtypes. The library is built and opened at its first launch,
+once a process; `Library.launch` runs an entry point on torch's current
+stream, raises if the launcher refuses, and counts what it accepted in
+`LAUNCHES`.
 A test swaps the loaded library for a fake by replacing `Library.load`.
 
 The sources have a plain C interface, so a build takes seconds: `nvcc` for
