@@ -5,6 +5,8 @@ Port of geomconsistentfr_tpu/infer.py:48-551:
   * `Relighter.forward_visuals`   -- the same, packed into uint8 visuals.
   * `Relighter.relight_sweep`     -- one network forward, the renderer over L lights.
   * `Relighter.estimate_lighting` / `transfer_lighting` -- the 2-pass protocol.
+  * `Relighter.relight_frames`    -- uncropped frames: S3FD at batch, the
+    reference's crop of the largest face and its mask, `forward_visuals`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 card and no explicit CPU request they raise. Inputs may be numpy arrays or
@@ -36,7 +38,7 @@ from __future__ import annotations
 import functools
 import os
 import time
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +57,7 @@ from geomconsistentfr_torch.ops.shadows_cuda import refine_min_distance_cuda, sh
 from geomconsistentfr_torch.parallel.mesh import Mesh, all_gather_cat
 from geomconsistentfr_torch.render import RenderOutputs, estimated_light, render
 from geomconsistentfr_torch.utils.checkpoint import restore_variables
-from geomconsistentfr_torch.utils.profiling import span
+from geomconsistentfr_torch.utils.profiling import count, span
 
 # Channel layout of the packed uint8 visualization tensor (B, H, W, 12).
 VISUAL_PACK_LAYOUT = (
@@ -107,6 +109,25 @@ def pack_visuals(outputs: RenderOutputs, masks: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return _to_unit(packed)
+
+
+class FramesRelit(NamedTuple):
+    """`Relighter.relight_frames`' result: the relit crops' packed uint8 visuals (N, S, S, 12)
+    on the Relighter's device, the index of each crop's frame (N,), per frame its kept S3FD
+    boxes (K, 5) [x1, y1, x2, y2, score] in the frame's coordinates, and the candidate rows the
+    boxes came from (preprocess.S3FDBatch.candidates)."""
+
+    visuals: torch.Tensor
+    frame_index: np.ndarray
+    boxes: List[np.ndarray]
+    candidates: np.ndarray
+
+
+def _host_array(x) -> np.ndarray:
+    """A numpy array of `x` on the host: a CPU tensor's own memory, a device tensor's copy."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy() if x.device.type != "cpu" else x.numpy()
+    return np.asarray(x)
 
 
 class AsyncFetch:
@@ -326,6 +347,47 @@ class Relighter:
             lighting = self.model.estimate(images)
         unit, ambient = estimated_light(lighting, self.cfg.render)
         return all_gather_cat(unit, group), all_gather_cat(ambient, group)
+
+    @torch.no_grad()
+    def relight_frames(self, frames, mask_frames, detector, target_light, target_ambient=None) -> FramesRelit:
+        """Detect, crop and relight uncropped frames (recrop_CelebA-HQ_images.py, then the relight).
+
+        frames (B, H, W, 3) uint8 RGB and mask_frames (B, H, W) uint8: numpy, or tensors on the
+        host (pinned or not) or on the device; detector: an S3FD on this Relighter's device;
+        target_light (B, 3) and target_ambient (B,) (or None) per frame. S3FD runs at batch B
+        (preprocess.detect_s3fd_batch). Each frame's largest kept box is cropped from the
+        frame and from its mask frame on the host, with crop_largest_face's geometry and bytes
+        (span gcfr.crop), at the render's size; `forward_visuals` relights the crops under the
+        lights of the frames that gave one. A frame with no box, or whose box scales below the
+        crop's 200 px minimum, gives no row (counted as crop.skipped).
+        """
+        from geomconsistentfr_torch import preprocess
+
+        boxes, candidates = preprocess.detect_s3fd_batch(frames, detector)
+        size = self.cfg.render.img_height
+        with span("gcfr.crop"):
+            images, masks = _host_array(frames), _host_array(mask_frames)
+            crops, mask_crops, index = [], [], []
+            for b, det in enumerate(boxes):
+                box = preprocess.largest_box([tuple(float(v) for v in d[:4]) for d in det])
+                crop = None if box is None else preprocess.crop_face(images[b], box, size)
+                if crop is not None:
+                    crops.append(crop)
+                    mask_crops.append(preprocess.crop_face(masks[b], box, size))
+                    index.append(b)
+            count("crop.skipped", len(boxes) - len(index))
+        index = np.asarray(index, np.int64)
+        if not len(index):
+            return FramesRelit(torch.empty((0, size, size, 12), dtype=torch.uint8, device=self.device), index, boxes,
+                               candidates)
+
+        def of_crops(x):
+            x = torch.as_tensor(x)
+            return x[torch.from_numpy(index).to(x.device)]
+
+        visuals = self.forward_visuals(np.stack(crops), np.stack(mask_crops), target_light=of_crops(target_light),
+                                       target_ambient=None if target_ambient is None else of_crops(target_ambient))
+        return FramesRelit(visuals, index, boxes, candidates)
 
     def transfer_lighting(self, input_images, reference_images, masks) -> RenderOutputs:
         """2-pass lighting transfer: estimate from `reference`, render `input`."""

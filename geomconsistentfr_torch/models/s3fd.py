@@ -13,9 +13,13 @@ stride) and greedy IoU NMS.
     published weights expect. Takes NHWC, returns the 12 head outputs NHWC.
   * `decode_detections`, `nms`: the anchor decode and NMS, in numpy as the
     JAX package has them (variable-length host-side postprocessing).
+  * `decode_batch`: `decode_detections` over a batch on the heads' device,
+    vectorised, in its order and arithmetic; `select`: NMS and the score
+    threshold of one frame's candidates.
   * `preprocess_bgr` and `detect_faces`: detect_from_image's pipeline: BGR
     minus [104, 117, 123], the network, a softmax per head, candidates above
-    0.05, decode, NMS at IoU 0.3, the kept boxes above 0.5.
+    0.05, decode, NMS at IoU 0.3, the kept boxes above 0.5. The batched
+    path is preprocess.detect_faces_s3fd_batch.
 
 The convolutions are torch's (cuDNN on the card); `detect_faces` runs them
 without TF32 and with cuDNN's deterministic algorithms, so a box does not
@@ -136,9 +140,14 @@ def nms(boxes: np.ndarray, iou_threshold: float = NMS_IOU) -> List[int]:
     """Greedy IoU NMS over (N, 5) [x1, y1, x2, y2, score] rows (+1-inclusive areas, SFD's convention)."""
     if len(boxes) == 0:
         return []
-    x1, y1, x2, y2, s = (boxes[:, i] for i in range(5))
+    return _greedy(boxes, boxes[:, 4].argsort()[::-1], iou_threshold)
+
+
+def _greedy(boxes: np.ndarray, order: np.ndarray, iou_threshold: float) -> List[int]:
+    """NMS's greedy pass over the rows `order` names, in that order: each kept row drops the
+    later rows whose IoU with it exceeds `iou_threshold`."""
+    x1, y1, x2, y2 = (boxes[:, i] for i in range(4))
     areas = (x2 - x1 + 1) * (y2 - y1 + 1)
-    order = s.argsort()[::-1]
     keep: List[int] = []
     while order.size > 0:
         i = int(order[0])
@@ -182,6 +191,64 @@ def decode_detections(outputs: Sequence[np.ndarray], candidate_threshold: float 
     return np.asarray(rows, np.float32)
 
 
+def decode_batch(outputs: Sequence[torch.Tensor], candidate_threshold: float = CANDIDATE_THRESHOLD) -> torch.Tensor:
+    """`decode_detections` of a batch's 12 outputs ((B, H_i, W_i, C) logits) on their device:
+    (N, 6) float32 rows [frame, x1, y1, x2, y2, score].
+
+    Within a frame the rows come in decode_detections' order (head, then row-major (h, w)),
+    so `nms`, whose argsort is not stable, sees the same array; across frames they are
+    interleaved by head. The arithmetic is decode_detections' under NumPy's rules for float32
+    and Python scalars: the softmax, the offsets and the exponentials in float32, the anchor
+    centres and the corner sums in float64, the rows rounded to float32 at the end. Where
+    torch's float32 exp differs from NumPy's in the last place, so does a row. Selecting the
+    candidates waits for the device once.
+    """
+    device = outputs[0].device
+    probs, locs, shapes = [], [], []
+    for cls, reg in zip(outputs[0::2], outputs[1::2]):
+        e = torch.exp(cls - cls.amax(dim=-1, keepdim=True))
+        probs.append((e[..., 1] / (e[..., 0] + e[..., 1])).reshape(-1))
+        locs.append(reg.reshape(-1, 4))
+        shapes.append(cls.shape[1:3])
+    prob, loc = torch.cat(probs), torch.cat(locs)
+    idx = torch.nonzero(prob > candidate_threshold).squeeze(1)
+    sizes = torch.tensor([p.numel() for p in probs], device=device)
+    head = torch.searchsorted(torch.cumsum(sizes, 0), idx, right=True)
+    within = idx - (torch.cumsum(sizes, 0) - sizes)[head]
+    ws = torch.tensor([w for _, w in shapes], device=device)[head]
+    hw = torch.tensor([h * w for h, w in shapes], device=device)[head]
+    frame, r = within // hw, within % hw
+    hh, ww = r // ws, r % ws
+    stride = torch.tensor(STRIDES[: len(shapes)], dtype=torch.float64, device=device)[head]
+    side = (4.0 * stride).float()
+    loc = loc[idx]
+    var = torch.tensor(VARIANCES, dtype=torch.float32, device=device)
+    cx = (stride / 2 + ww * stride) + (loc[:, 0] * var[0] * side).double()
+    cy = (stride / 2 + hh * stride) + (loc[:, 1] * var[0] * side).double()
+    bw = side * torch.exp(loc[:, 2] * var[1])
+    bh = side * torch.exp(loc[:, 3] * var[1])
+    x1, y1 = cx - (bw / 2).double(), cy - (bh / 2).double()
+    corners = torch.stack([x1, y1, x1 + bw.double(), y1 + bh.double()], dim=1).float()
+    return torch.cat([frame.float()[:, None], corners, prob[idx][:, None]], dim=1)
+
+
+def select(candidates: np.ndarray, score_threshold: float = SCORE_THRESHOLD) -> np.ndarray:
+    """One frame's (N, 5) candidates -> the kept boxes: NMS at NMS_IOU, then the scores above
+    `score_threshold`, by descending score (detect_from_image's last steps).
+
+    NMS's greedy pass runs over the rows above the threshold alone, in the order `nms` gives
+    them (its argsort of every score, so ties fall as there): in that order they come first,
+    and a row decides only the rows after it, so the rows at or below the threshold, which
+    the threshold drops, decide nothing that is kept. The answer is `nms` then the threshold
+    to the bit, at a fraction of its passes (a few rows pass 0.5 of the hundreds past 0.05).
+    """
+    if len(candidates) == 0:
+        return candidates
+    order = candidates[:, 4].argsort()[::-1]
+    boxes = candidates[_greedy(candidates, order[candidates[order, 4] > score_threshold], NMS_IOU)]
+    return boxes[np.argsort(-boxes[:, 4])]
+
+
 def preprocess_bgr(image_bgr: np.ndarray) -> np.ndarray:
     """(H, W, 3) BGR -> (1, H, W, 3) float32 minus BGR_MEAN."""
     return (np.asarray(image_bgr, np.float32) - np.asarray(BGR_MEAN, np.float32))[None]
@@ -197,11 +264,7 @@ def heads(model: S3FD, image_bgr: np.ndarray) -> List[np.ndarray]:
 
 
 def detect_faces(image_bgr: np.ndarray, model: S3FD, score_threshold: float = SCORE_THRESHOLD) -> np.ndarray:
-    """face_alignment's detect_from_image: (N, 5) [x1, y1, x2, y2, score] kept boxes, by descending score."""
-    boxes = decode_detections(heads(model, image_bgr))
-    if len(boxes) == 0:
-        return boxes
-    boxes = boxes[nms(boxes, NMS_IOU)]
-    boxes = boxes[boxes[:, 4] > score_threshold]
-    return boxes[np.argsort(-boxes[:, 4])]
-
+    """face_alignment's detect_from_image, one frame on the host's decode: (N, 5) [x1, y1, x2,
+    y2, score] kept boxes, by descending score. The tests' per-frame form of
+    preprocess.detect_faces_s3fd_batch."""
+    return select(decode_detections(heads(model, image_bgr)), score_threshold)

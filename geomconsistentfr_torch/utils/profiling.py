@@ -9,6 +9,13 @@
   * `span(name)`: the program's named spans (`gcfr.*`), which a profiler's
     trace shows on the host's timeline, on the clock of the device's
     kernels and copies; with no profiler recording they cost one check.
+  * `COUNTS`, `count(name, n)`: the program's counters beside its spans,
+    counted alike whether or not a profiler records: detect.frames,
+    detect.candidates (rows past S3FD's candidate threshold), detect.kept
+    (boxes past NMS and the score threshold), detect.d2h_bytes (what
+    detection copies to the host) and crop.skipped (frames that gave
+    `Relighter.relight_frames` no crop). A reader takes the difference of two
+    snapshots.
   * `debug_nans(enable)`: the counterpart of `jax_debug_nans`, see below.
 """
 
@@ -24,6 +31,13 @@ import torch
 
 _NO_SPAN = contextlib.nullcontext()
 
+COUNTS = dict.fromkeys(("detect.frames", "detect.candidates", "detect.kept", "detect.d2h_bytes", "crop.skipped"), 0)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` of COUNTS (one of its keys)."""
+    COUNTS[name] += int(n)
+
 
 def span(name: str):
     """A `record_function` span named `name` while a profiler records, else one shared
@@ -31,7 +45,8 @@ def span(name: str):
     profiler off). The relight path's spans: gcfr.upload, gcfr.cnn (its stages
     gcfr.cnn.encoder, gcfr.cnn.lighting_head, gcfr.cnn.decoder_albedo and
     gcfr.cnn.decoder_depth), gcfr.render (its march gcfr.render.march) and gcfr.pack;
-    the training step's: gcfr.train.batch, gcfr.train.forward, gcfr.train.backward and
+    the detect-and-crop path's (`Relighter.relight_frames`, before it relights): gcfr.detect.prep,
+    gcfr.detect.trunk, gcfr.detect.decode, gcfr.detect.nms and gcfr.crop; the training step's: gcfr.train.batch, gcfr.train.forward, gcfr.train.backward and
     gcfr.train.optimizer."""
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
